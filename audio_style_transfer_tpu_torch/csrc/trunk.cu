@@ -1,0 +1,336 @@
+// Encoder trunk kernels: one residual block per launch, forward (K1) and the
+// mask-only waveform backward (K2).
+//
+// Replaces: audio_style_transfer_tpu/ops/pallas_chain.py::_fwd_group_kernel
+// (K1) and ::_bwd_group_kernel (K2). The TPU kernels chain groups of up to
+// four layers in a 13 MB VMEM window; a Hopper block has 227 KB of shared
+// memory, so this port runs one layer per launch and reads the three conv
+// taps as three shifted [64, C] row slices of the layer input.
+//
+// Block:  x_{j+1} = x_j + relu(conv3_d(relu x_j) + bd) @ Wr + br   on [rows, 128]
+// Masks:  one byte per element, bit 0 = (x_{j+1} > 0), bit 1 = (y_j > 0);
+//         the first layer also writes the trunk input's relu mask (x_0 > 0).
+// Backward (reads masks and cotangents, never activations), per layer:
+//   g  = dx_{j+1} + dtap_j
+//   dy = (g @ Wr^T) * gate                                   (phase 1)
+//   dr[t] = dy[t+d] W0^T + dy[t] W1^T + dy[t-d] W2^T
+//   dx_j = g + dr * inrelu                                   (phase 2)
+// Rows outside their clip [0, T) read as zero (SAME padding).
+//
+// Cast points mirror the JAX kernels so bf16 agrees: y accumulates in f32 and
+// bd is added in f32; v = relu(y) is rounded to the storage type; z = v@Wr+br
+// in f32; out = x + round(z); in the backward dy is rounded before the
+// transposed conv, and dx_j = g + round(dr * inrelu).
+//
+// What bounds it on the H100 (T=16384, C=128, bf16): each layer does four
+// [16384,128]x[128,128] products, 2.1 GFLOP, and moves about 10 MB (x in,
+// out and mask out; the shifted re-reads hit L2). The products run as float32
+// FMAs on the CUDA cores (67 TFLOP/s peak), so the kernel is compute-bound at
+// roughly 32 us per layer and direction at best, against about 3 us for the
+// bytes. This first version keeps the arithmetic exact and simple (f32 FMA
+// register tiles of 4x8 per thread, 64-row blocks, 16-deep K chunks staged in
+// shared memory); moving the products onto the tensor cores (mma/wgmma) and
+// chaining the small dilations in one launch are the later steps.
+
+#include "ast_io.h"
+
+namespace {
+
+constexpr int C = 128;   // trunk width
+constexpr int TM = 64;   // rows per block
+constexpr int KC = 16;   // contraction chunk staged in shared memory
+constexpr int NT = 256;  // threads per block
+// Thread (tx, ty), tx = tid % 16, ty = tid / 16, owns rows ty + 16 i (i < 4)
+// and columns tx + 16 j (j < 8) of the block's [64, 128] output tile.
+
+struct Smem {
+  float a[KC][TM + 1];  // A chunk, k-major (padded against bank conflicts)
+  float b[KC][C + 1];   // B chunk
+  float v[C][TM + 1];   // forward: relu(y) of the tile, k-major
+};
+
+// acc[i][j] += sum_k A[k * lda + ty + 16 i] * B[k][tx + 16 j]
+__device__ __forceinline__ void mma_chunk(float (&acc)[4][8], const float* A, int lda,
+                                          const float (*B)[C + 1], int tx, int ty) {
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    float a[4], b[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = A[k * lda + ty + 16 * i];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) b[j] = B[k][tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+  }
+}
+
+// Stage rows [row0, row0 + TM) shifted by `off` of src's channels
+// [c0, c0 + KC) into sm.a, optionally through relu; zero outside the clip
+// and past `rows`. `src2` (may be null) is added first, rounded to T.
+template <typename T>
+__device__ __forceinline__ void load_a(Smem& sm, const T* __restrict__ src,
+                                       const T* __restrict__ src2, long row0, int off,
+                                       int c0, int rows, int clip_rows, bool relu) {
+  for (int e = threadIdx.x; e < KC * TM; e += NT) {
+    const int r = e / KC, k = e % KC;
+    const long row = row0 + r;
+    float v = 0.f;
+    if (row < rows) {
+      const long pos = row % clip_rows + off;
+      if (pos >= 0 && pos < clip_rows) {
+        const long idx = (row + off) * C + c0 + k;
+        v = Io<T>::ld(src, idx);
+        if (src2) v = Io<T>::rnd(v + Io<T>::ld(src2, idx));
+        if (relu) v = fmaxf(v, 0.f);
+      }
+    }
+    sm.a[k][r] = v;
+  }
+}
+
+// Stage W[c0 + k][n] (transposed=false) or W[n][c0 + k] (transposed=true)
+// of a [C, C] weight into sm.b.
+template <typename T>
+__device__ __forceinline__ void load_b(Smem& sm, const T* __restrict__ w, int c0,
+                                       bool transposed) {
+  for (int e = threadIdx.x; e < KC * C; e += NT) {
+    int k, n;
+    long idx;
+    if (transposed) {
+      n = e / KC;
+      k = e % KC;
+      idx = (long)n * C + c0 + k;
+    } else {
+      k = e / C;
+      n = e % C;
+      idx = (long)(c0 + k) * C + n;
+    }
+    sm.b[k][n] = Io<T>::ld(w, idx);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(NT)
+trunk_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wd,
+                 const float* __restrict__ bd, const T* __restrict__ wr,
+                 const float* __restrict__ br, T* __restrict__ out,
+                 uint8_t* __restrict__ mask, uint8_t* __restrict__ inmask, int rows,
+                 int clip_rows, int d) {
+  extern __shared__ float smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long row0 = (long)blockIdx.x * TM;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  // y = relu(x)[t-d] W0 + relu(x)[t] W1 + relu(x)[t+d] W2
+  for (int tap = 0; tap < 3; ++tap) {
+    for (int c0 = 0; c0 < C; c0 += KC) {
+      load_a<T>(sm, x, nullptr, row0, (tap - 1) * d, c0, rows, clip_rows, true);
+      load_b<T>(sm, wd + (long)tap * C * C, c0, false);
+      __syncthreads();
+      mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
+      __syncthreads();
+    }
+  }
+
+  uint32_t gate = 0;  // bit 8 i + j: y > 0
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = tx + 16 * j;
+      const float y = acc[i][j] + bd[col];
+      gate |= (y > 0.f ? 1u : 0u) << (8 * i + j);
+      sm.v[col][ty + 16 * i] = Io<T>::rnd(fmaxf(y, 0.f));
+      acc[i][j] = 0.f;
+    }
+  }
+  __syncthreads();
+
+  // z = v @ Wr
+  for (int c0 = 0; c0 < C; c0 += KC) {
+    load_b<T>(sm, wr, c0, false);
+    __syncthreads();
+    mma_chunk(acc, &sm.v[c0][0], TM + 1, sm.b, tx, ty);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long row = row0 + ty + 16 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = tx + 16 * j;
+      const long idx = row * C + col;
+      const float xv = Io<T>::ld(x, idx);
+      const float o = Io<T>::rnd(xv + Io<T>::rnd(acc[i][j] + br[col]));
+      Io<T>::st(out, idx, o);
+      mask[idx] = (uint8_t)((o > 0.f ? 1 : 0) | (((gate >> (8 * i + j)) & 1u) << 1));
+      if (inmask) inmask[idx] = (uint8_t)(xv > 0.f ? 1 : 0);
+    }
+  }
+}
+
+// Phase 1: dy = round((g @ Wr^T) * gate), g = round(dx_next + dtap).
+template <typename T>
+__global__ void __launch_bounds__(NT)
+trunk_bwd_dy_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
+                    const uint8_t* __restrict__ mask, const T* __restrict__ wr,
+                    T* __restrict__ dy, int rows, int clip_rows) {
+  extern __shared__ float smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long row0 = (long)blockIdx.x * TM;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int c0 = 0; c0 < C; c0 += KC) {
+    load_a<T>(sm, dxn, dtap, row0, 0, c0, rows, clip_rows, false);
+    load_b<T>(sm, wr, c0, true);
+    __syncthreads();
+    mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long row = row0 + ty + 16 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long idx = row * C + tx + 16 * j;
+      const float gate = (float)((mask[idx] >> 1) & 1);
+      Io<T>::st(dy, idx, acc[i][j] * gate);
+    }
+  }
+}
+
+// Phase 2: dx = round(g + round(dr * inrelu)),
+// dr[t] = dy[t+d] W0^T + dy[t] W1^T + dy[t-d] W2^T.
+template <typename T>
+__global__ void __launch_bounds__(NT)
+trunk_bwd_dx_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
+                    const T* __restrict__ dy, const uint8_t* __restrict__ inmask,
+                    const T* __restrict__ wd, T* __restrict__ dx, int rows,
+                    int clip_rows, int d) {
+  extern __shared__ float smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long row0 = (long)blockIdx.x * TM;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int tap = 0; tap < 3; ++tap) {
+    for (int c0 = 0; c0 < C; c0 += KC) {
+      load_a<T>(sm, dy, (const T*)nullptr, row0, (1 - tap) * d, c0, rows, clip_rows, false);
+      load_b<T>(sm, wd + (long)tap * C * C, c0, true);
+      __syncthreads();
+      mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
+      __syncthreads();
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long row = row0 + ty + 16 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const long idx = row * C + tx + 16 * j;
+      float g = Io<T>::ld(dxn, idx);
+      if (dtap) g = Io<T>::rnd(g + Io<T>::ld(dtap, idx));
+      const float inrelu = (float)(inmask[idx] & 1);
+      Io<T>::st(dx, idx, g + Io<T>::rnd(acc[i][j] * inrelu));
+    }
+  }
+}
+
+template <typename K>
+cudaError_t prepare(K kernel) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)sizeof(Smem));
+}
+
+int n_blocks(int rows) { return (rows + TM - 1) / TM; }
+
+}  // namespace
+
+extern "C" {
+
+const char* ast_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
+
+// Returns cudaGetLastError() after the launch (0 on success).
+int ast_trunk_fwd(const void* x, const void* wd, const void* bd, const void* wr,
+                  const void* br, void* out, void* mask, void* inmask, int rows,
+                  int clip_rows, int d, int is_bf16, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    cudaError_t e = prepare(trunk_fwd_kernel<T>);
+    if (e != cudaSuccess) return (int)e;
+    trunk_fwd_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+        (const T*)x, (const T*)wd, (const float*)bd, (const T*)wr, (const float*)br,
+        (T*)out, (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d);
+  } else {
+    using T = float;
+    cudaError_t e = prepare(trunk_fwd_kernel<T>);
+    if (e != cudaSuccess) return (int)e;
+    trunk_fwd_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+        (const T*)x, (const T*)wd, (const float*)bd, (const T*)wr, (const float*)br,
+        (T*)out, (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Both backward phases for one layer; `dy` is caller-allocated scratch.
+int ast_trunk_bwd(const void* dxn, const void* dtap, const void* mask,
+                  const void* inmask, const void* wd, const void* wr, void* dy, void* dx,
+                  int rows, int clip_rows, int d, int is_bf16, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (is_bf16) {
+    using T = __nv_bfloat16;
+    cudaError_t e = prepare(trunk_bwd_dy_kernel<T>);
+    if (e == cudaSuccess) e = prepare(trunk_bwd_dx_kernel<T>);
+    if (e != cudaSuccess) return (int)e;
+    trunk_bwd_dy_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+        (const T*)dxn, (const T*)dtap, (const uint8_t*)mask, (const T*)wr, (T*)dy, rows,
+        clip_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    trunk_bwd_dx_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+        (const T*)dxn, (const T*)dtap, (const T*)dy, (const uint8_t*)inmask, (const T*)wd,
+        (T*)dx, rows, clip_rows, d);
+  } else {
+    using T = float;
+    cudaError_t e = prepare(trunk_bwd_dy_kernel<T>);
+    if (e == cudaSuccess) e = prepare(trunk_bwd_dx_kernel<T>);
+    if (e != cudaSuccess) return (int)e;
+    trunk_bwd_dy_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+        (const T*)dxn, (const T*)dtap, (const uint8_t*)mask, (const T*)wr, (T*)dy, rows,
+        clip_rows);
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    trunk_bwd_dx_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+        (const T*)dxn, (const T*)dtap, (const T*)dy, (const uint8_t*)inmask, (const T*)wd,
+        (T*)dx, rows, clip_rows, d);
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"
