@@ -5,9 +5,11 @@ The same parser and flags as the JAX CLI, plus ``--device`` (default
     python -m audio_style_transfer_tpu_torch.cli.transfer pachelbel organ \
         --epochs 100 --stack 0 --precision bfloat16
 
-``--fused`` is accepted for parity and selects nothing: on CUDA the trunk
-and gram kernels always run, on the CPU their plain versions. ``--longform``
-and ``--exact`` are not ported yet (ROADMAP M5).
+Leaving out ``--stack`` takes the style grams over all 30 trunk taps (the
+full-stack transfer, e.g. ``--cont_lyrs 25``). On CUDA the trunk and gram
+kernels always run, on the CPU their plain versions; ``--fused`` keeps the
+chained trunk, as the JAX CLI does (it leaves ``chain_encoder`` unset).
+``--longform`` and ``--exact`` are not ported yet (ROADMAP M5).
 """
 
 from __future__ import annotations
@@ -80,7 +82,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--precision", choices=["float32", "bfloat16"],
                         default="float32", help="encoder compute dtype")
     parser.add_argument("--fused", action="store_true",
-                        help="accepted for parity; the device selects the kernels")
+                        help="accepted for parity: the chained trunk runs either way, "
+                             "and the device selects kernels or plain versions")
     parser.add_argument("--no_artifacts", action="store_true",
                         help="skip per-epoch wav/figure dumps")
     parser.add_argument("--warm_start", action="store_true",

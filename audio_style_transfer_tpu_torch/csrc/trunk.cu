@@ -31,6 +31,20 @@
 // register tiles of 4x8 per thread, 64-row blocks, 16-deep K chunks staged in
 // shared memory); moving the products onto the tensor cores (mma/wgmma) and
 // chaining the small dilations in one launch are the later steps.
+//
+// The per-layer encoder block (K7f forward, K7b backward) replaces
+// audio_style_transfer_tpu/ops/pallas_encoder.py::_fwd_kernel and
+// ::_bwd_kernel. It is the same residual block with no stashed masks:
+//   K7f is K1's kernel with the mask writes compiled out (kMasks = false);
+//   K7b recomputes the gate from x, as the TPU kernel does: its phase 1
+//   (encoder_bwd_dy_kernel) runs K1's dilated conv on x to get y, then
+//   dy = round((g @ Wr^T) * [y > 0]); its phase 2 is K2's phase 2 with the
+//   input relu gate read as x > 0 (kGateFromX) instead of a mask byte.
+// The TPU kernel needs x with a 2d halo to recompute y on the rows its
+// transposed conv reads; here phase 1 writes dy for every row to scratch and
+// phase 2 reads it shifted, so no halo is held. K7b does five products per
+// layer against K2's four (about 2.7 GFLOP), all on the CUDA cores; bytes
+// (x, g in; dy out and in; dx out) stay near 10 MB.
 
 #include "ast_io.h"
 
@@ -111,7 +125,26 @@ __device__ __forceinline__ void load_b(Smem& sm, const T* __restrict__ w, int c0
   }
 }
 
+// acc += relu(x)[t-d] W0 + relu(x)[t] W1 + relu(x)[t+d] W2 over the block's
+// rows (zero outside the clip).
 template <typename T>
+__device__ __forceinline__ void dilated_conv(float (&acc)[4][8], Smem& sm,
+                                             const T* __restrict__ x,
+                                             const T* __restrict__ wd, long row0, int rows,
+                                             int clip_rows, int d, int tx, int ty) {
+  for (int tap = 0; tap < 3; ++tap) {
+    for (int c0 = 0; c0 < C; c0 += KC) {
+      load_a<T>(sm, x, nullptr, row0, (tap - 1) * d, c0, rows, clip_rows, true);
+      load_b<T>(sm, wd + (long)tap * C * C, c0, false);
+      __syncthreads();
+      mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
+      __syncthreads();
+    }
+  }
+}
+
+// kMasks = false is K7f: the same block, writing the output only.
+template <typename T, bool kMasks>
 __global__ void __launch_bounds__(NT)
 trunk_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wd,
                  const float* __restrict__ bd, const T* __restrict__ wr,
@@ -129,16 +162,7 @@ trunk_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wd,
 #pragma unroll
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
-  // y = relu(x)[t-d] W0 + relu(x)[t] W1 + relu(x)[t+d] W2
-  for (int tap = 0; tap < 3; ++tap) {
-    for (int c0 = 0; c0 < C; c0 += KC) {
-      load_a<T>(sm, x, nullptr, row0, (tap - 1) * d, c0, rows, clip_rows, true);
-      load_b<T>(sm, wd + (long)tap * C * C, c0, false);
-      __syncthreads();
-      mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
-      __syncthreads();
-    }
-  }
+  dilated_conv<T>(acc, sm, x, wd, row0, rows, clip_rows, d, tx, ty);
 
   uint32_t gate = 0;  // bit 8 i + j: y > 0
 #pragma unroll
@@ -173,8 +197,10 @@ trunk_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wd,
       const float xv = Io<T>::ld(x, idx);
       const float o = Io<T>::rnd(xv + Io<T>::rnd(acc[i][j] + br[col]));
       Io<T>::st(out, idx, o);
-      mask[idx] = (uint8_t)((o > 0.f ? 1 : 0) | (((gate >> (8 * i + j)) & 1u) << 1));
-      if (inmask) inmask[idx] = (uint8_t)(xv > 0.f ? 1 : 0);
+      if (kMasks) {
+        mask[idx] = (uint8_t)((o > 0.f ? 1 : 0) | (((gate >> (8 * i + j)) & 1u) << 1));
+        if (inmask) inmask[idx] = (uint8_t)(xv > 0.f ? 1 : 0);
+      }
     }
   }
 }
@@ -217,14 +243,65 @@ trunk_bwd_dy_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
   }
 }
 
-// Phase 2: dx = round(g + round(dr * inrelu)),
-// dr[t] = dy[t+d] W0^T + dy[t] W1^T + dy[t-d] W2^T.
+// K7b phase 1: recompute y = conv3_d(relu x) + bd over the block's rows
+// (no stashed masks), then dy = round((g @ Wr^T) * [y > 0]).
 template <typename T>
+__global__ void __launch_bounds__(NT)
+encoder_bwd_dy_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                      const T* __restrict__ wd, const float* __restrict__ bd,
+                      const T* __restrict__ wr, T* __restrict__ dy, int rows, int clip_rows,
+                      int d) {
+  extern __shared__ float smem_raw[];
+  Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const long row0 = (long)blockIdx.x * TM;
+
+  float acc[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+  dilated_conv<T>(acc, sm, x, wd, row0, rows, clip_rows, d, tx, ty);
+
+  uint32_t gate = 0;  // bit 8 i + j: y > 0
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      gate |= (acc[i][j] + bd[tx + 16 * j] > 0.f ? 1u : 0u) << (8 * i + j);
+      acc[i][j] = 0.f;
+    }
+  }
+
+  for (int c0 = 0; c0 < C; c0 += KC) {
+    load_a<T>(sm, g, nullptr, row0, 0, c0, rows, clip_rows, false);
+    load_b<T>(sm, wr, c0, true);
+    __syncthreads();
+    mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const long row = row0 + ty + 16 * i;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float on = (float)((gate >> (8 * i + j)) & 1u);
+      Io<T>::st(dy, row * C + tx + 16 * j, acc[i][j] * on);
+    }
+  }
+}
+
+// Phase 2: dx = round(g + round(dr * inrelu)),
+// dr[t] = dy[t+d] W0^T + dy[t] W1^T + dy[t-d] W2^T. inrelu is bit 0 of the
+// input mask (K2) or, with kGateFromX (K7b), x > 0 from the block input.
+template <typename T, bool kGateFromX>
 __global__ void __launch_bounds__(NT)
 trunk_bwd_dx_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
                     const T* __restrict__ dy, const uint8_t* __restrict__ inmask,
-                    const T* __restrict__ wd, T* __restrict__ dx, int rows,
-                    int clip_rows, int d) {
+                    const T* __restrict__ xin, const T* __restrict__ wd, T* __restrict__ dx,
+                    int rows, int clip_rows, int d) {
   extern __shared__ float smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -255,7 +332,8 @@ trunk_bwd_dx_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
       const long idx = row * C + tx + 16 * j;
       float g = Io<T>::ld(dxn, idx);
       if (dtap) g = Io<T>::rnd(g + Io<T>::ld(dtap, idx));
-      const float inrelu = (float)(inmask[idx] & 1);
+      const float inrelu = kGateFromX ? (Io<T>::ld(xin, idx) > 0.f ? 1.f : 0.f)
+                                      : (float)(inmask[idx] & 1);
       Io<T>::st(dx, idx, g + Io<T>::rnd(acc[i][j] * inrelu));
     }
   }
@@ -269,68 +347,105 @@ cudaError_t prepare(K kernel) {
 
 int n_blocks(int rows) { return (rows + TM - 1) / TM; }
 
+template <typename T, bool kMasks>
+cudaError_t launch_fwd(const void* x, const void* wd, const void* bd, const void* wr,
+                       const void* br, void* out, void* mask, void* inmask, int rows,
+                       int clip_rows, int d, cudaStream_t s) {
+  const cudaError_t e = prepare(trunk_fwd_kernel<T, kMasks>);
+  if (e != cudaSuccess) return e;
+  trunk_fwd_kernel<T, kMasks><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+      (const T*)x, (const T*)wd, (const float*)bd, (const T*)wr, (const float*)br, (T*)out,
+      (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_trunk_bwd(const void* dxn, const void* dtap, const void* mask,
+                             const void* inmask, const void* wd, const void* wr, void* dy,
+                             void* dx, int rows, int clip_rows, int d, cudaStream_t s) {
+  cudaError_t e = prepare(trunk_bwd_dy_kernel<T>);
+  if (e == cudaSuccess) e = prepare(trunk_bwd_dx_kernel<T, false>);
+  if (e != cudaSuccess) return e;
+  trunk_bwd_dy_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+      (const T*)dxn, (const T*)dtap, (const uint8_t*)mask, (const T*)wr, (T*)dy, rows,
+      clip_rows);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  trunk_bwd_dx_kernel<T, false><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+      (const T*)dxn, (const T*)dtap, (const T*)dy, (const uint8_t*)inmask, nullptr,
+      (const T*)wd, (T*)dx, rows, clip_rows, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_encoder_bwd(const void* x, const void* g, const void* wd, const void* bd,
+                               const void* wr, void* dy, void* dx, int rows, int clip_rows,
+                               int d, cudaStream_t s) {
+  cudaError_t e = prepare(encoder_bwd_dy_kernel<T>);
+  if (e == cudaSuccess) e = prepare(trunk_bwd_dx_kernel<T, true>);
+  if (e != cudaSuccess) return e;
+  encoder_bwd_dy_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+      (const T*)x, (const T*)g, (const T*)wd, (const float*)bd, (const T*)wr, (T*)dy, rows,
+      clip_rows, d);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  trunk_bwd_dx_kernel<T, true><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
+      (const T*)g, nullptr, (const T*)dy, nullptr, (const T*)x, (const T*)wd, (T*)dx, rows,
+      clip_rows, d);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 const char* ast_error_string(int status) { return cudaGetErrorString((cudaError_t)status); }
 
-// Returns cudaGetLastError() after the launch (0 on success).
+// Each entry returns cudaGetLastError() after its launches (0 on success).
+
+// K1: one trunk layer forward with its mask bytes.
 int ast_trunk_fwd(const void* x, const void* wd, const void* bd, const void* wr,
                   const void* br, void* out, void* mask, void* inmask, int rows,
                   int clip_rows, int d, int is_bf16, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    cudaError_t e = prepare(trunk_fwd_kernel<T>);
-    if (e != cudaSuccess) return (int)e;
-    trunk_fwd_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
-        (const T*)x, (const T*)wd, (const float*)bd, (const T*)wr, (const float*)br,
-        (T*)out, (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d);
-  } else {
-    using T = float;
-    cudaError_t e = prepare(trunk_fwd_kernel<T>);
-    if (e != cudaSuccess) return (int)e;
-    trunk_fwd_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
-        (const T*)x, (const T*)wd, (const float*)bd, (const T*)wr, (const float*)br,
-        (T*)out, (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d);
-  }
-  return (int)cudaGetLastError();
+  return (int)(is_bf16 ? launch_fwd<__nv_bfloat16, true>(x, wd, bd, wr, br, out, mask,
+                                                         inmask, rows, clip_rows, d, s)
+                       : launch_fwd<float, true>(x, wd, bd, wr, br, out, mask, inmask, rows,
+                                                 clip_rows, d, s));
 }
 
-// Both backward phases for one layer; `dy` is caller-allocated scratch.
+// K2: both backward phases for one layer; `dy` is caller-allocated scratch.
 int ast_trunk_bwd(const void* dxn, const void* dtap, const void* mask,
                   const void* inmask, const void* wd, const void* wr, void* dy, void* dx,
                   int rows, int clip_rows, int d, int is_bf16, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (is_bf16) {
-    using T = __nv_bfloat16;
-    cudaError_t e = prepare(trunk_bwd_dy_kernel<T>);
-    if (e == cudaSuccess) e = prepare(trunk_bwd_dx_kernel<T>);
-    if (e != cudaSuccess) return (int)e;
-    trunk_bwd_dy_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
-        (const T*)dxn, (const T*)dtap, (const uint8_t*)mask, (const T*)wr, (T*)dy, rows,
-        clip_rows);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    trunk_bwd_dx_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
-        (const T*)dxn, (const T*)dtap, (const T*)dy, (const uint8_t*)inmask, (const T*)wd,
-        (T*)dx, rows, clip_rows, d);
-  } else {
-    using T = float;
-    cudaError_t e = prepare(trunk_bwd_dy_kernel<T>);
-    if (e == cudaSuccess) e = prepare(trunk_bwd_dx_kernel<T>);
-    if (e != cudaSuccess) return (int)e;
-    trunk_bwd_dy_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
-        (const T*)dxn, (const T*)dtap, (const uint8_t*)mask, (const T*)wr, (T*)dy, rows,
-        clip_rows);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return (int)e;
-    trunk_bwd_dx_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
-        (const T*)dxn, (const T*)dtap, (const T*)dy, (const uint8_t*)inmask, (const T*)wd,
-        (T*)dx, rows, clip_rows, d);
-  }
-  return (int)cudaGetLastError();
+  return (int)(is_bf16 ? launch_trunk_bwd<__nv_bfloat16>(dxn, dtap, mask, inmask, wd, wr, dy,
+                                                         dx, rows, clip_rows, d, s)
+                       : launch_trunk_bwd<float>(dxn, dtap, mask, inmask, wd, wr, dy, dx,
+                                                 rows, clip_rows, d, s));
+}
+
+// K7f: one encoder block forward, output only.
+int ast_encoder_fwd(const void* x, const void* wd, const void* bd, const void* wr,
+                    const void* br, void* out, int rows, int clip_rows, int d, int is_bf16,
+                    void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_bf16 ? launch_fwd<__nv_bfloat16, false>(x, wd, bd, wr, br, out, nullptr,
+                                                          nullptr, rows, clip_rows, d, s)
+                       : launch_fwd<float, false>(x, wd, bd, wr, br, out, nullptr, nullptr,
+                                                  rows, clip_rows, d, s));
+}
+
+// K7b: the block's dx from its input x and output cotangent g, recomputing
+// the gate; `dy` is caller-allocated scratch.
+int ast_encoder_bwd(const void* x, const void* g, const void* wd, const void* bd,
+                    const void* wr, void* dy, void* dx, int rows, int clip_rows, int d,
+                    int is_bf16, void* stream) {
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_bf16 ? launch_encoder_bwd<__nv_bfloat16>(x, g, wd, bd, wr, dy, dx, rows,
+                                                           clip_rows, d, s)
+                       : launch_encoder_bwd<float>(x, g, wd, bd, wr, dy, dx, rows, clip_rows,
+                                                   d, s));
 }
 
 }  // extern "C"

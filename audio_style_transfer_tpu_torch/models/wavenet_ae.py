@@ -8,8 +8,13 @@ with the TF scope names of the JAX package, so weights cross over unchanged
   [30]     ``enc_``, an alias of extracts[29],
   [31]     the bottleneck conv output before hop pooling.
 
-The trunk always runs through ``ops.chain.fused_trunk``: hand-written kernels
-on CUDA tensors, their plain torch versions on CPU tensors.
+The trunk runs in one of two flavours, hand-written kernels on CUDA tensors
+and their plain torch versions on CPU tensors either way:
+  - the chained trunk, ``ops.chain.fused_trunk`` (K1/K2): every config but
+    the next one;
+  - per-layer blocks, ``ops.encoder.fused_encoder_block`` (K7f/K7b), when
+    ``fused_encoder and not chain_encoder``, as the JAX
+    ``TransferSpec(fused_encoder=True, chain_encoder=False)`` selects.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import torch
 
 from audio_style_transfer_tpu_torch.ops.chain import fused_trunk, stack_trunk_weights
 from audio_style_transfer_tpu_torch.ops.conv import conv1d, pool1d
+from audio_style_transfer_tpu_torch.ops.encoder import fused_encoder_block
 
 Params = dict[str, dict[str, torch.Tensor]]
 
@@ -43,6 +49,10 @@ class WaveNetAEConfig:
     ae_bottleneck_width: int = 16
     quant_channels: int = 256
     compute_dtype: Any = torch.float32
+    # Trunk flavour (the JAX config's flags): per-layer blocks iff
+    # fused_encoder and not chain_encoder, else the chained trunk.
+    fused_encoder: bool = False
+    chain_encoder: bool = False
 
     def ae_dilation(self, layer: int) -> int:
         """Encoder dilation pattern (reference model.py:98)."""
@@ -100,9 +110,10 @@ def encoder_trunk(params: Params, x_quantized: torch.Tensor,
                   cfg: WaveNetAEConfig | None = None, needed_taps=None):
     """The 32-entry ``extracts`` list without hop pooling.
 
-    ``needed_taps``: trunk-layer ids (0..29) the caller consumes; the other
-    trunk entries are None. None asks for every tap. Ids 30 and 31 derive
-    from tap 29, which is always kept.
+    ``needed_taps``: trunk-layer ids (0..29) the caller consumes; with the
+    chained trunk the other trunk entries are None (None asks for every
+    tap). The per-layer flavour returns every tap. Ids 30 and 31 derive from
+    tap 29, which is always kept.
     """
     cfg = cfg or WaveNetAEConfig()
     dtype = cfg.compute_dtype
@@ -110,6 +121,18 @@ def encoder_trunk(params: Params, x_quantized: torch.Tensor,
     enc = _apply(params, "ae_startconv", x_scaled, causal=False, dtype=dtype)
 
     n = cfg.ae_num_layers
+    if cfg.fused_encoder and not cfg.chain_encoder:
+        extracts = []
+        for k in range(1, n + 1):
+            pd, pr = params[f"ae_dilatedconv_{k}"], params[f"ae_res_{k}"]
+            enc = fused_encoder_block(enc, pd["w"].to(dtype), pd["b"].to(dtype),
+                                      pr["w"].to(dtype), pr["b"].to(dtype),
+                                      cfg.ae_dilation(k - 1))
+            extracts.append(enc)
+        extracts.append(enc)  # enc_ duplicate tap (reference model.py:118-119)
+        extracts.append(_apply(params, "ae_bottleneck", enc, dtype=dtype))
+        return extracts
+
     dils = tuple(cfg.ae_dilation(k) for k in range(n))
     needed = (set(range(n)) if needed_taps is None
               else {min(int(i), n - 1) for i in needed_taps})

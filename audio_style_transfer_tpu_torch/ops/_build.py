@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface, which is loaded with ctypes. The library lands in a build
+``nvcc`` compiles every source to an object file, all sources at once in
+parallel, and links them into one shared library with a plain C interface,
+which is loaded with ctypes. The library lands in a build
 directory inside the checkout (``build/kernels``, listed in .gitignore),
 named by a hash of the sources and flags, so an edited source is rebuilt
 and an unchanged one is loaded as it is. Nothing is built at import time:
@@ -22,7 +23,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
+              "-Xcompiler", "-fPIC", "-lineinfo")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,15 +31,19 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ast_trunk_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "ast_trunk_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    "ast_encoder_fwd": [_P] * 6 + [_I] * 4 + [_P],
+    "ast_encoder_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "ast_pair_gram": [ctypes.POINTER(_P)] + [_I] * 6 + [_P] * 3,
+    "ast_pair_gram_bwd": [ctypes.POINTER(_P)] * 2 + [_I] * 5 + [_P] * 2,
 }
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 # Kernel launches, one count per wrapper call that launched its kernel
-# (K1 trunk forward layer, K2 trunk backward layer, K5 gram forward).
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0}
+# (K1 trunk forward layer, K2 trunk backward layer, K5 gram forward, K6 gram
+# backward, K7f / K7b per-layer encoder block forward / backward).
+LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7f": 0, "K7b": 0}
 
 
 def reset_launches() -> None:
@@ -70,22 +75,31 @@ def library_path() -> Path:
     return BUILD_DIR / f"libast_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> None:
+    """Run the commands side by side, wait for all, raise on any failure."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
+    for cmd, p, log in zip(cmds, procs, logs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}):\n{' '.join(cmd)}\n{log}")
+
+
 def build() -> Path:
-    """Compile the kernels unless the library for these sources exists."""
+    """Compile the kernels unless the library for these sources exists: one
+    nvcc per source, all started together, then one link."""
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(s) for s in _sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, out)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        objs = [os.path.join(tmpdir, src.stem + ".o") for src in _sources()]
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj, str(src)]
+                  for src, obj in zip(_sources(), objs)])
+        tmp = os.path.join(tmpdir, out.name)
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]])
+        os.replace(tmp, out)
     return out
 
 

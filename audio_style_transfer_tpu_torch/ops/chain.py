@@ -74,18 +74,35 @@ def _masks(out, y):
     return (out > 0).to(torch.uint8) | ((y > 0).to(torch.uint8) << 1)
 
 
-def layer_fwd_plain(x, wd, bd, wr, br, d: int, clip_rows: int,
-                    want_inmask: bool = False):
-    """Plain version of K1 for one layer: (out, mask, inmask or None)."""
-    dt = x.dtype
+def dilated_conv_plain(x, wd, bd, d: int, clip_rows: int):
+    """y = conv3_d(relu x) + bd in float32 (the gate's pre-activation)."""
     r = torch.relu(x).to(_F32)
     y = (_shift_rows(r, -d, clip_rows) @ wd[0].to(_F32)
          + r @ wd[1].to(_F32)
          + _shift_rows(r, d, clip_rows) @ wd[2].to(_F32))
-    y = y + bd.to(_F32)
+    return y + bd.to(_F32)
+
+
+def block_out_plain(x, y, wr, br):
+    """The block output x + round(relu(y)_rounded @ Wr + br)."""
+    dt = x.dtype
     v = torch.relu(y).to(dt)
     z = v.to(_F32) @ wr.to(_F32) + br.to(_F32)
-    out = x + z.to(dt)
+    return x + z.to(dt)
+
+
+def transposed_conv_plain(dy, wd, d: int, clip_rows: int):
+    """dr[t] = dy[t+d] W0^T + dy[t] W1^T + dy[t-d] W2^T in float32."""
+    return (_shift_rows(dy, d, clip_rows) @ wd[0].to(_F32).T
+            + dy @ wd[1].to(_F32).T
+            + _shift_rows(dy, -d, clip_rows) @ wd[2].to(_F32).T)
+
+
+def layer_fwd_plain(x, wd, bd, wr, br, d: int, clip_rows: int,
+                    want_inmask: bool = False):
+    """Plain version of K1 for one layer: (out, mask, inmask or None)."""
+    y = dilated_conv_plain(x, wd, bd, d, clip_rows)
+    out = block_out_plain(x, y, wr, br)
     inmask = (x > 0).to(torch.uint8) if want_inmask else None
     return out, _masks(out, y), inmask
 
@@ -98,13 +115,11 @@ def layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
     g = dxn if dtap is None else dxn + dtap
     dv = g.to(_F32) @ wr.to(_F32).T
     dy = (dv * ((mask >> 1) & 1).to(_F32)).to(dt).to(_F32)
-    dr = (_shift_rows(dy, d, clip_rows) @ wd[0].to(_F32).T
-          + dy @ wd[1].to(_F32).T
-          + _shift_rows(dy, -d, clip_rows) @ wd[2].to(_F32).T)
+    dr = transposed_conv_plain(dy, wd, d, clip_rows)
     return g + (dr * (inmask & 1).to(_F32)).to(dt)
 
 
-def _check_cuda(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+def check_cuda(name: str, t: torch.Tensor, shape, dtype, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -115,7 +130,7 @@ def _check_cuda(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _check_layer(x, clip_rows):
+def check_layer(x, clip_rows):
     if x.device.type != "cuda":
         raise RuntimeError(f"trunk kernels run on CUDA tensors, got {x.device}")
     if x.dtype not in _KERNEL_DTYPES:
@@ -133,13 +148,13 @@ def layer_fwd(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = Fal
     dtype; bd, br [C] float32. Returns (out, mask, inmask or None)."""
     if x.device.type == "cpu":
         return layer_fwd_plain(x, wd, bd, wr, br, d, clip_rows, want_inmask)
-    _check_layer(x, clip_rows)
+    check_layer(x, clip_rows)
     c, dev, dt = WIDTH, x.device, x.dtype
-    _check_cuda("x", x, x.shape, dt, dev)
-    _check_cuda("wd", wd, (3, c, c), dt, dev)
-    _check_cuda("wr", wr, (c, c), dt, dev)
-    _check_cuda("bd", bd, (c,), _F32, dev)
-    _check_cuda("br", br, (c,), _F32, dev)
+    check_cuda("x", x, x.shape, dt, dev)
+    check_cuda("wd", wd, (3, c, c), dt, dev)
+    check_cuda("wr", wr, (c, c), dt, dev)
+    check_cuda("bd", bd, (c,), _F32, dev)
+    check_cuda("br", br, (c,), _F32, dev)
     out = torch.empty_like(x)
     mask = torch.empty(x.shape, dtype=torch.uint8, device=dev)
     inmask = torch.empty_like(mask) if want_inmask else None
@@ -157,15 +172,15 @@ def layer_bwd(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
     """One trunk layer backward: K2 on CUDA, the plain version on the CPU."""
     if dxn.device.type == "cpu":
         return layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d, clip_rows)
-    _check_layer(dxn, clip_rows)
+    check_layer(dxn, clip_rows)
     c, dev, dt = WIDTH, dxn.device, dxn.dtype
-    _check_cuda("dxn", dxn, dxn.shape, dt, dev)
+    check_cuda("dxn", dxn, dxn.shape, dt, dev)
     if dtap is not None:
-        _check_cuda("dtap", dtap, dxn.shape, dt, dev)
-    _check_cuda("mask", mask, dxn.shape, torch.uint8, dev)
-    _check_cuda("inmask", inmask, dxn.shape, torch.uint8, dev)
-    _check_cuda("wd", wd, (3, c, c), dt, dev)
-    _check_cuda("wr", wr, (c, c), dt, dev)
+        check_cuda("dtap", dtap, dxn.shape, dt, dev)
+    check_cuda("mask", mask, dxn.shape, torch.uint8, dev)
+    check_cuda("inmask", inmask, dxn.shape, torch.uint8, dev)
+    check_cuda("wd", wd, (3, c, c), dt, dev)
+    check_cuda("wr", wr, (c, c), dt, dev)
     dy = torch.empty_like(dxn)
     dx = torch.empty_like(dxn)
     status = _build.lib().ast_trunk_bwd(

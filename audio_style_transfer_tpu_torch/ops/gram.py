@@ -1,4 +1,4 @@
-"""All-pairs channel gram with a hand-written CUDA forward (counterpart of
+"""All-pairs channel gram with hand-written CUDA kernels (counterpart of
 audio_style_transfer_tpu/ops/pallas_gram.py).
 
 ``pair_gram(*taps)`` maps L taps, each [B, T, C], to
@@ -7,11 +7,11 @@ whatever the taps' dtype. The forward is K5 (csrc/gram.cu) on CUDA tensors
 and the plain einsum (``pair_gram_reference``) on CPU tensors.
 
 The backward follows the JAX routing (pallas_gram.py ``_vjp_bwd``): with
-h = g + g^T, ``dE_a = sum_b h[:, a, b] * E_b``. For L <= 15 taps and
-T <= 32768 it is the plain composition, which is what JAX itself runs there
-(the stack-0 path). Beyond that JAX runs its backward kernel, which is not
-ported yet (K6, ROADMAP queue 2): on CUDA this raises, on the CPU it runs the
-plain composition.
+h = g + g^T in float32, ``dE_a = sum_b h[:, a, b] * E_b``. For L <= 15 taps
+and T <= 32768 it is the plain composition, which is what JAX itself runs
+there (the stack-0 path). Beyond that (the full stack, L=30) it is
+``pair_gram_bwd``: K6 (csrc/gram.cu) on CUDA tensors, the plain composition
+on CPU tensors.
 """
 
 from __future__ import annotations
@@ -24,9 +24,10 @@ from audio_style_transfer_tpu_torch.ops import _build
 
 PLAIN_BWD_MAX_L = 15
 PLAIN_BWD_MAX_T = 32768
-MAX_TAPS = 32       # taps per K5 launch
+MAX_TAPS = 32       # taps per K5 or K6 launch
 CHANNEL_BLOCK = 32  # K5 needs C to be a multiple of this
 CHUNK = 256         # time rows per K5 partial sum
+BWD_CHANNEL_BLOCK = 16  # K6 needs C to be a multiple of this
 
 
 def pair_gram_reference(*taps: torch.Tensor) -> torch.Tensor:
@@ -35,15 +36,15 @@ def pair_gram_reference(*taps: torch.Tensor) -> torch.Tensor:
     return torch.einsum("nats,nbts->nabs", stacked, stacked)
 
 
-def _check_taps(taps) -> None:
+def _check_taps(taps, channel_block: int) -> None:
     t0 = taps[0]
     if t0.device.type != "cuda":
         raise RuntimeError(f"the gram kernel runs on CUDA tensors, got {t0.device}")
     if not 1 <= len(taps) <= MAX_TAPS:
-        raise ValueError(f"the gram kernel takes 1..{MAX_TAPS} taps, got {len(taps)}")
-    if t0.dim() != 3 or t0.shape[2] % CHANNEL_BLOCK:
+        raise ValueError(f"the gram kernels take 1..{MAX_TAPS} taps, got {len(taps)}")
+    if t0.dim() != 3 or t0.shape[2] % channel_block:
         raise ValueError(
-            f"taps must be [B, T, C] with C a multiple of {CHANNEL_BLOCK}, "
+            f"taps must be [B, T, C] with C a multiple of {channel_block}, "
             f"got {tuple(t0.shape)}")
     if t0.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"the gram kernel takes float32 or bfloat16, got {t0.dtype}")
@@ -58,7 +59,7 @@ def pair_gram_fwd(*taps: torch.Tensor) -> torch.Tensor:
     """The gram forward: K5 on CUDA, the plain version on the CPU."""
     if taps[0].device.type == "cpu":
         return pair_gram_reference(*taps)
-    _check_taps(taps)
+    _check_taps(taps, CHANNEL_BLOCK)
     nl = len(taps)
     b, t, c = taps[0].shape
     dev = taps[0].device
@@ -87,6 +88,31 @@ def pair_gram_bwd_plain(taps, h: torch.Tensor):
     return tuple(outs)
 
 
+def pair_gram_bwd(taps, h: torch.Tensor):
+    """The gram backward given h = g + g^T ([B, L, L, C] float32): K6 on
+    CUDA, the plain composition on the CPU. Returns one cotangent per tap,
+    in the taps' dtype."""
+    if taps[0].device.type == "cpu":
+        return pair_gram_bwd_plain(taps, h)
+    _check_taps(taps, BWD_CHANNEL_BLOCK)
+    nl = len(taps)
+    b, t, c = taps[0].shape
+    if (h.device != taps[0].device or h.dtype != torch.float32
+            or tuple(h.shape) != (b, nl, nl, c) or not h.is_contiguous()):
+        raise ValueError(
+            f"h must be a contiguous float32 [{b}, {nl}, {nl}, {c}] tensor on "
+            f"{taps[0].device}, got {h.dtype} {tuple(h.shape)} on {h.device}")
+    outs = [torch.empty_like(tp) for tp in taps]
+    tap_ptrs = (ctypes.c_void_p * nl)(*[tp.data_ptr() for tp in taps])
+    out_ptrs = (ctypes.c_void_p * nl)(*[o.data_ptr() for o in outs])
+    status = _build.lib().ast_pair_gram_bwd(
+        tap_ptrs, out_ptrs, nl, b, t, c, int(taps[0].dtype == torch.bfloat16),
+        h.data_ptr(), _build.stream_ptr(taps[0].device))
+    _build.check(status, "ast_pair_gram_bwd")
+    _build.LAUNCHES["K6"] += 1
+    return tuple(outs)
+
+
 class PairGram(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *taps):
@@ -96,14 +122,10 @@ class PairGram(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         taps = ctx.saved_tensors
-        h = (g + g.transpose(1, 2)).to(torch.float32)
-        small = len(taps) <= PLAIN_BWD_MAX_L and taps[0].shape[1] <= PLAIN_BWD_MAX_T
-        if not small and taps[0].device.type == "cuda":
-            raise NotImplementedError(
-                f"gram backward at L={len(taps)}, T={taps[0].shape[1]} needs the "
-                "backward kernel K6 (pallas_gram.py::_bwd_kernel), not ported yet: "
-                "see ROADMAP.md queue 2")
-        return pair_gram_bwd_plain(taps, h)
+        h = (g + g.transpose(1, 2)).to(torch.float32).contiguous()
+        if len(taps) <= PLAIN_BWD_MAX_L and taps[0].shape[1] <= PLAIN_BWD_MAX_T:
+            return pair_gram_bwd_plain(taps, h)
+        return pair_gram_bwd(taps, h)
 
 
 def pair_gram(*taps: torch.Tensor) -> torch.Tensor:

@@ -53,9 +53,12 @@ class TransferSpec:
     maxiter: int = 100
     early_stop_evals: int = 50  # epoch eval count below which the run stops
     compute_dtype: str = "float32"  # or "bfloat16"
-    # fused_encoder / chain_encoder / fused_gram are accepted for parity with
-    # the JAX spec and select nothing: the device decides (kernels on CUDA,
-    # their plain versions on the CPU).
+    # The trunk flavour, resolved as the JAX engine does: chain_encoder None
+    # follows fused_encoder, and only fused_encoder=True with
+    # chain_encoder=False selects the per-layer blocks (K7f/K7b); every other
+    # setting runs the chained trunk (K1/K2). fused_gram is accepted for
+    # parity and selects nothing. The device picks kernels (CUDA) or their
+    # plain versions (CPU) either way.
     fused_encoder: bool = False
     chain_encoder: bool | None = None
     fused_gram: bool | None = None
@@ -87,7 +90,10 @@ class StyleTransfer:
         self.device = torch.device(spec.device)
         dtype = getattr(torch, spec.compute_dtype)
         cfg = model_cfg or WaveNetAEConfig()
-        self.cfg = dataclasses.replace(cfg, compute_dtype=dtype)
+        use_chain = spec.fused_encoder if spec.chain_encoder is None else spec.chain_encoder
+        self.cfg = dataclasses.replace(cfg, compute_dtype=dtype,
+                                       fused_encoder=spec.fused_encoder,
+                                       chain_encoder=use_chain)
         # Cast the encoder weights (transfer never runs the decoder) to the
         # compute dtype once, on the run's device.
         self.params = {

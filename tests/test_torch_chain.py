@@ -130,7 +130,8 @@ def test_cpu_path_launches_no_kernel():
     xt = t(x).requires_grad_(True)
     taps = chain.fused_trunk(xt, t(wd), t(bd), t(wr), t(br), DILS, EMIT)
     sum(tp.sum() for tp in taps).backward()
-    assert _build.LAUNCHES == {"K1": 0, "K2": 0, "K5": 0}
+    assert {"K1", "K2", "K5"} <= set(_build.LAUNCHES)
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
 
 
 def test_non_cpu_non_cuda_tensor_raises():
