@@ -9,7 +9,10 @@ Leaving out ``--stack`` takes the style grams over all 30 trunk taps (the
 full-stack transfer, e.g. ``--cont_lyrs 25``). On CUDA the trunk and gram
 kernels always run, on the CPU their plain versions; ``--fused`` keeps the
 chained trunk, as the JAX CLI does (it leaves ``chain_encoder`` unset).
-``--longform`` and ``--exact`` are not ported yet (ROADMAP M5).
+``--longform`` transfers the whole content clip window by window
+(``--ot_components``/``--ot_blend`` add the NMF + optimal-transport style
+target) and writes ``longform.wav``; ``--exact`` is not ported yet
+(ROADMAP M5-exact).
 """
 
 from __future__ import annotations
@@ -91,15 +94,19 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--random_init", action="store_true",
                         help="random weights instead of pretrained (smoke runs)")
     parser.add_argument("--longform", action="store_true",
-                        help="chunked long-form mode (not ported yet)")
+                        help="chunked long-form mode: transfer the whole "
+                             "content clip window-by-window (transfer/longform.py)")
     parser.add_argument("--ot_components", nargs="?", type=int, default=None,
-                        help="(longform/exact) NMF components, not ported yet")
+                        help="(longform) apply the NMF+OT palette transform to "
+                             "the style target with this many components")
     parser.add_argument("--ot_blend", nargs="?", type=float, default=0.5,
-                        help="(longform/exact) OT blend, not ported yet")
+                        help="(longform) weight of the OT translated-gram "
+                             "correction on the style target (0 = reference "
+                             "target, 1 = full correction)")
     parser.add_argument("--exact", action="store_true",
                         help="exact long-form mode (not ported yet)")
     parser.add_argument("--scan_window", nargs="?", type=int, default=None,
-                        help="(exact) window scan tile, not ported yet")
+                        help="(exact) window scan tile (not ported yet)")
     # --- port-only ---
     parser.add_argument("--device", default="cuda",
                         help="torch device the transfer runs on (cuda or cpu)")
@@ -108,7 +115,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def get_dir(directory: str, args) -> str:
     """The run's artifact directory, named as the JAX CLI names it."""
-    from audio_style_transfer_tpu.utils.paths import crt_t_fol, gt_s_path
+    from audio_style_transfer_tpu_torch.utils.paths import crt_t_fol, gt_s_path
 
     kwargs = {
         k: v
@@ -117,6 +124,14 @@ def get_dir(directory: str, args) -> str:
                      "warm_start", "longform", "ot_components", "ot_blend",
                      "exact", "scan_window", "maxiter", "device")
     }
+    if getattr(args, "longform", False) or getattr(args, "exact", False):
+        if getattr(args, "longform", False):
+            kwargs["longform"] = True
+        if getattr(args, "exact", False):
+            kwargs["exact"] = True
+        if args.ot_components is not None:
+            kwargs["n_components"] = args.ot_components
+            kwargs["otblend"] = args.ot_blend
     if getattr(args, "maxiter", 100) != 100:
         kwargs["maxiter"] = args.maxiter
     if getattr(args, "warm_start", False):
@@ -132,9 +147,9 @@ def piece_work(args):
     )
     from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
 
-    if args.longform or args.exact:
+    if args.exact or args.scan_window is not None:
         raise NotImplementedError(
-            "--longform/--exact are not ported yet (ROADMAP.md M5: long-form)")
+            "--exact/--scan_window are not ported yet (ROADMAP.md M5-exact: exact long-form)")
 
     savepath = get_dir(args.outdir, args)
     logdir = get_dir(args.logdir, args)
@@ -174,7 +189,36 @@ def piece_work(args):
         device=args.device,
     )
     engine = StyleTransfer(spec, params)
+    if args.longform:
+        return _run_longform(engine, args, content, style, savepath)
     return engine.run(content, content, style, epochs=args.epochs, start=args.start)
+
+
+def _run_longform(engine, args, content: str, style: str, savepath: str):
+    """The whole-clip run behind --longform: the content file is
+    transferred end to end (``--start`` windowing does not apply) and the
+    stitched waveform lands as longform.wav in the run directory."""
+    import time
+
+    import numpy as np
+
+    from audio_style_transfer_tpu_torch.transfer.longform import transfer_longform
+    from audio_style_transfer_tpu_torch.utils.audio_io import load_audio, write_wav
+
+    # audio_channel=0 as engine.run and the reference (utils.py:260-264):
+    # stereo files must collapse to 1-D or the chunker sees [channels, T].
+    content_audio, _ = load_audio(content, sr=args.sr, audio_channel=0)
+    style_audio, _ = load_audio(style, sr=args.sr, audio_channel=0)
+    t0 = time.time()
+    res = transfer_longform(engine, content_audio, style_audio, epochs=args.epochs,
+                            ot_components=args.ot_components, ot_blend=args.ot_blend)
+    evals = int(np.sum(res.per_window["evals"]))
+    print(f"optimized {len(res.audio) / args.sr:.1f}s of audio "
+          f"({evals} evals) in {time.time() - t0:.2f}s")
+    if not args.no_artifacts:
+        peak = float(np.max(np.abs(res.audio))) or 1.0
+        write_wav(os.path.join(savepath, "longform.wav"), res.audio / peak, sr=args.sr)
+    return res.audio
 
 
 def main(argv=None):

@@ -29,8 +29,9 @@
 // roughly 32 us per layer and direction at best, against about 3 us for the
 // bytes. This first version keeps the arithmetic exact and simple (f32 FMA
 // register tiles of 4x8 per thread, 64-row blocks, 16-deep K chunks staged in
-// shared memory); moving the products onto the tensor cores (mma/wgmma) and
-// chaining the small dilations in one launch are the later steps.
+// shared memory); moving the products onto the tensor cores (mma/wgmma) is
+// the later step. Chaining the small dilations of the backward in one launch
+// is K2-wf (trunk_wf.cu).
 //
 // The per-layer encoder block (K7f forward, K7b backward) replaces
 // audio_style_transfer_tpu/ops/pallas_encoder.py::_fwd_kernel and
@@ -46,13 +47,11 @@
 // layer against K2's four (about 2.7 GFLOP), all on the CUDA cores; bytes
 // (x, g in; dy out and in; dx out) stay near 10 MB.
 
-#include "ast_io.h"
+#include "trunk_tiles.h"
 
 namespace {
 
-constexpr int C = 128;   // trunk width
 constexpr int TM = 64;   // rows per block
-constexpr int KC = 16;   // contraction chunk staged in shared memory
 constexpr int NT = 256;  // threads per block
 // Thread (tx, ty), tx = tid % 16, ty = tid / 16, owns rows ty + 16 i (i < 4)
 // and columns tx + 16 j (j < 8) of the block's [64, 128] output tile.
@@ -62,23 +61,6 @@ struct Smem {
   float b[KC][C + 1];   // B chunk
   float v[C][TM + 1];   // forward: relu(y) of the tile, k-major
 };
-
-// acc[i][j] += sum_k A[k * lda + ty + 16 i] * B[k][tx + 16 j]
-__device__ __forceinline__ void mma_chunk(float (&acc)[4][8], const float* A, int lda,
-                                          const float (*B)[C + 1], int tx, int ty) {
-#pragma unroll
-  for (int k = 0; k < KC; ++k) {
-    float a[4], b[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[k * lda + ty + 16 * i];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) b[j] = B[k][tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
 
 // Stage rows [row0, row0 + TM) shifted by `off` of src's channels
 // [c0, c0 + KC) into sm.a, optionally through relu; zero outside the clip
@@ -104,25 +86,11 @@ __device__ __forceinline__ void load_a(Smem& sm, const T* __restrict__ src,
   }
 }
 
-// Stage W[c0 + k][n] (transposed=false) or W[n][c0 + k] (transposed=true)
-// of a [C, C] weight into sm.b.
+// Stage a KC-deep chunk of a [C, C] weight into sm.b (see stage_b).
 template <typename T>
 __device__ __forceinline__ void load_b(Smem& sm, const T* __restrict__ w, int c0,
                                        bool transposed) {
-  for (int e = threadIdx.x; e < KC * C; e += NT) {
-    int k, n;
-    long idx;
-    if (transposed) {
-      n = e / KC;
-      k = e % KC;
-      idx = (long)n * C + c0 + k;
-    } else {
-      k = e / C;
-      n = e % C;
-      idx = (long)(c0 + k) * C + n;
-    }
-    sm.b[k][n] = Io<T>::ld(w, idx);
-  }
+  stage_b<T>(sm.b, w, c0, transposed, threadIdx.x, NT);
 }
 
 // acc += relu(x)[t-d] W0 + relu(x)[t] W1 + relu(x)[t+d] W2 over the block's

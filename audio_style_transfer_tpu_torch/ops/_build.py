@@ -31,6 +31,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ast_trunk_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "ast_trunk_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    "ast_trunk_bwd_group": ([_P, ctypes.POINTER(_P), ctypes.POINTER(_P)] + [_P] * 4
+                            + [ctypes.POINTER(_I)] * 2 + [_I] * 5 + [_P]),
     "ast_encoder_fwd": [_P] * 6 + [_I] * 4 + [_P],
     "ast_encoder_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "ast_pair_gram": [ctypes.POINTER(_P)] + [_I] * 6 + [_P] * 3,
@@ -41,9 +43,10 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 # Kernel launches, one count per wrapper call that launched its kernel
-# (K1 trunk forward layer, K2 trunk backward layer, K5 gram forward, K6 gram
-# backward, K7f / K7b per-layer encoder block forward / backward).
-LAUNCHES = {"K1": 0, "K2": 0, "K5": 0, "K6": 0, "K7f": 0, "K7b": 0}
+# (K1 trunk forward layer, K2 trunk backward layer, K2wf grouped wavefront
+# trunk backward, K5 gram forward, K6 gram backward, K7f / K7b per-layer
+# encoder block forward / backward).
+LAUNCHES = {"K1": 0, "K2": 0, "K2wf": 0, "K5": 0, "K6": 0, "K7f": 0, "K7b": 0}
 
 
 def reset_launches() -> None:

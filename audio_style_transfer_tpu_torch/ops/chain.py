@@ -7,7 +7,12 @@ The trunk is the stack of residual blocks
 launch and stashes one mask byte per element (bit 0: x_{j+1} > 0, bit 1:
 the gate y_j > 0; the first layer also writes the trunk input's relu mask).
 Its backward (K2) computes the waveform cotangent from those masks alone,
-four matmuls per layer, never reading an activation.
+four matmuls per layer, never reading an activation. With
+``_BWD_WAVEFRONT`` on (``AST_CHAIN_BWD_WAVEFRONT=1``; off by default, as in
+the JAX package) runs of up to four layers with small dilations go through
+one launch of the grouped wavefront backward (K2-wf, csrc/trunk_wf.cu),
+which keeps the cotangents between those layers in shared memory; the other
+layers keep K2.
 
 Which version runs is decided by the device of the tensors: on the CPU each
 wrapper runs its plain torch version (``layer_fwd_plain``/``layer_bwd_plain``,
@@ -18,6 +23,11 @@ plain ``reference_trunk`` (a recompute, as the JAX custom VJP does).
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+import functools
+import os
+
 import torch
 
 from audio_style_transfer_tpu_torch.ops import _build
@@ -26,6 +36,18 @@ from audio_style_transfer_tpu_torch.ops.conv import conv1d
 WIDTH = 128  # the kernels' compiled channel count
 _F32 = torch.float32
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# Run feasible groups of the trunk backward through K2-wf. Read at call time
+# by ``trunk_backward``, so a test can set the attribute.
+_BWD_WAVEFRONT = os.environ.get("AST_CHAIN_BWD_WAVEFRONT", "0") == "1"
+# What csrc/trunk_wf.cu is compiled for: layers per group, the time tiles a
+# block may own, the dy rows a piece may hold (its need + 15 <= WF_DY_ROWS),
+# the bytes of the two warp groups' staging buffers, and what a block may use.
+WF_MAX_LAYERS = 4
+WF_TILES = (64, 32)
+WF_DY_ROWS = 80
+WF_STAGE_BYTES = 2 * 4 * (16 * 65 + 16 * 129 + WIDTH * (WF_DY_ROWS + 1))
+SMEM_PER_BLOCK = 232448
 
 
 def stack_trunk_weights(params, num_layers: int = 30):
@@ -119,6 +141,158 @@ def layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
     return g + (dr * (inmask & 1).to(_F32)).to(dt)
 
 
+@dataclasses.dataclass(frozen=True)
+class BwdGroup:
+    """Consecutive trunk layers [j0, j0 + len(dils)) of the backward. With
+    ``splits`` (one per backward step) they run as one K2-wf launch on time
+    tiles of ``tile`` rows; a single layer (``splits`` None) runs K2."""
+
+    j0: int
+    dils: tuple
+    tile: int = 0
+    splits: tuple | None = None
+
+
+def _prefix(dils) -> tuple:
+    n = [0]
+    for d in dils:
+        n.append(n[-1] + d)
+    return tuple(n)
+
+
+def wavefront_splits(dils: tuple, tile: int):
+    """The A/B split of each backward step of a group, in carry coordinates,
+    or None when the group cannot run as a wavefront.
+
+    A block's carry holds ``tile`` rows and a halo of nk = sum(dils) rows each
+    side; row nk is the tile's first. Step s (layer j = k-1-s, dilation d)
+    produces dx_j on [nk - n_j, nk + tile + n_j), n_j = dils[0] + ... +
+    dils[j-1]; piece A_s is the part left of split[s], B_s the rest. The last
+    step splits the tile in half and every earlier split lies d_{s+1} further
+    right, so that A_{s+1}, which reads d_{s+1} rows past its own output,
+    reads only rows A_s wrote. A group is infeasible when a half would be
+    empty, a piece's dy rows (its own plus d either side) leave the rows
+    layer j+1 produced, or they do not fit the kernel's dy buffer."""
+    k = len(dils)
+    n = _prefix(dils)
+    nk = n[-1]
+    split = [0] * k
+    split[k - 1] = nk + tile // 2
+    for s in range(k - 2, -1, -1):
+        split[s] = split[s + 1] + dils[k - 1 - (s + 1)]
+    for s in range(k):
+        j = k - 1 - s
+        d = dils[j]
+        lo, hi = nk - n[j], nk + tile + n[j]
+        if not lo < split[s] < hi:
+            return None
+        if split[s] + d > nk + tile + n[j + 1] or split[s] - d < nk - n[j + 1]:
+            return None
+        if max(split[s] - lo, hi - split[s]) + 2 * d + 15 > WF_DY_ROWS:
+            return None
+    return tuple(split)
+
+
+def wavefront_smem_bytes(dils: tuple, tile: int, itemsize: int) -> int:
+    """Dynamic shared memory of one K2-wf block: the staging buffers and
+    three carry slots of (tile + 2 nk) rows."""
+    return WF_STAGE_BYTES + 3 * (tile + 2 * sum(dils)) * WIDTH * itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def plan_bwd_groups(dils: tuple, clip_rows: int, itemsize: int) -> tuple:
+    """Partition of the trunk's layers for the wavefront backward: from each
+    layer on, the longest run of 2..WF_MAX_LAYERS layers that is feasible at
+    the largest tile (``wavefront_splits``, the tile dividing the clip, the
+    block's shared memory) becomes one group; a layer that starts no such
+    run stays a single K2 launch."""
+    groups, j = [], 0
+    while j < len(dils):
+        found = None
+        for k in range(min(WF_MAX_LAYERS, len(dils) - j), 1, -1):
+            run = tuple(dils[j:j + k])
+            for tile in WF_TILES:
+                if clip_rows % tile:
+                    continue
+                if wavefront_smem_bytes(run, tile, itemsize) > SMEM_PER_BLOCK:
+                    continue
+                splits = wavefront_splits(run, tile)
+                if splits is not None:
+                    found = BwdGroup(j, run, tile, splits)
+                    break
+            if found:
+                break
+        groups.append(found or BwdGroup(j, (dils[j],)))
+        j += len(groups[-1].dils)
+    return tuple(groups)
+
+
+def _tile_windows(a: torch.Tensor, clip_rows: int, tile: int, halo: int) -> torch.Tensor:
+    """[rows, C] -> [tiles, tile + 2 halo, C]: every time tile with ``halo``
+    rows either side, zero outside the tile's clip."""
+    c = a.shape[-1]
+    clips = a.reshape(-1, clip_rows, c)
+    zeros = clips.new_zeros(clips.shape[0], halo, c)
+    padded = torch.cat([zeros, clips, zeros], dim=1)
+    win = padded.unfold(1, tile + 2 * halo, tile)  # [clips, tiles, C, ext]
+    return win.permute(0, 1, 3, 2).reshape(-1, tile + 2 * halo, c)
+
+
+def group_bwd_chain_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows: int):
+    """The oracle of K2-wf: ``layer_bwd_plain`` layer by layer, last first."""
+    dx = dxn
+    for j in range(len(dils) - 1, -1, -1):
+        dx = layer_bwd_plain(dx, dtaps[j], masks[j], masks[j - 1] if j else inmask,
+                             wd[j], wr[j], dils[j], clip_rows)
+    return dx
+
+
+def group_bwd_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows: int,
+                    tile: int, splits):
+    """Plain version of K2-wf with the kernel's own schedule: every tile with
+    its halo in a three-slot carry, the pieces in the order A_0, A_1, B_0,
+    A_2, B_1, ... B_{k-1}, each reading slot (s-1) % 3 and writing its rows
+    of slot s % 3, with ``layer_bwd_plain``'s cast points. All tiles advance
+    together as a leading dimension."""
+    k, dt = len(dils), dxn.dtype
+    n = _prefix(dils)
+    nk = n[-1]
+    windows = functools.partial(_tile_windows, clip_rows=clip_rows, tile=tile, halo=nk)
+    carry = [None, None, windows(dxn)]
+    carry[0], carry[1] = torch.zeros_like(carry[2]), torch.zeros_like(carry[2])
+    dtap_w = [None if g is None else windows(g) for g in dtaps]
+    mask_w = [windows(m) for m in masks]
+    inmask_w = windows(inmask)
+
+    def piece(s, lo, hi):
+        j = k - 1 - s
+        d, w = dils[j], hi - lo
+        g = carry[(s - 1) % 3][:, lo - d:hi + d]
+        if dtap_w[j] is not None:
+            g = g + dtap_w[j][:, lo - d:hi + d]
+        dv = g.to(_F32) @ wr[j].to(_F32).T
+        gate = ((mask_w[j][:, lo - d:hi + d] >> 1) & 1).to(_F32)
+        dy = (dv * gate).to(dt).to(_F32)
+        dr = (dy[:, 2 * d:2 * d + w] @ wd[j][0].to(_F32).T
+              + dy[:, d:d + w] @ wd[j][1].to(_F32).T
+              + dy[:, :w] @ wd[j][2].to(_F32).T)
+        inrelu = ((mask_w[j - 1] if j else inmask_w)[:, lo:hi] & 1).to(_F32)
+        carry[s % 3][:, lo:hi] = g[:, d:d + w] + (dr * inrelu).to(dt)
+
+    def piece_a(s):
+        piece(s, nk - n[k - 1 - s], splits[s])
+
+    def piece_b(s):
+        piece(s, splits[s], nk + tile + n[k - 1 - s])
+
+    piece_a(0)
+    for s in range(1, k):
+        piece_a(s)
+        piece_b(s - 1)
+    piece_b(k - 1)
+    return carry[(k - 1) % 3][:, nk:nk + tile].reshape(dxn.shape)
+
+
 def check_cuda(name: str, t: torch.Tensor, shape, dtype, device) -> None:
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
@@ -193,6 +367,47 @@ def layer_bwd(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
     return dx
 
 
+def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int):
+    """The cotangent of a wavefront group's input from ``dxn``, the cotangent
+    of its output: K2-wf on CUDA, ``group_bwd_plain`` on the CPU.
+
+    dtaps: per layer of the group the emitted tap's cotangent or None; masks:
+    per layer its mask bytes; inmask: bit 0 is the group input's relu mask;
+    wd [k, 3, C, C], wr [k, C, C] of the group in dxn's dtype."""
+    dils, k = group.dils, len(group.dils)
+    if group.splits is None or len(dtaps) != k or len(masks) != k:
+        raise ValueError(f"group_bwd needs a planned group of {k} layers with their "
+                         f"tap cotangents and masks, got {group}")
+    if dxn.device.type == "cpu":
+        return group_bwd_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows,
+                               group.tile, group.splits)
+    check_layer(dxn, clip_rows)
+    c, dev, dt = WIDTH, dxn.device, dxn.dtype
+    if clip_rows % group.tile:
+        raise ValueError(f"clip_rows {clip_rows} must be a multiple of the tile {group.tile}")
+    if wavefront_smem_bytes(dils, group.tile, dxn.element_size()) > SMEM_PER_BLOCK:
+        raise ValueError(f"group {group} does not fit a block's shared memory in {dt}")
+    check_cuda("dxn", dxn, dxn.shape, dt, dev)
+    for g in dtaps:
+        if g is not None:
+            check_cuda("dtap", g, dxn.shape, dt, dev)
+    for m in (*masks, inmask):
+        check_cuda("mask", m, dxn.shape, torch.uint8, dev)
+    check_cuda("wd", wd, (k, 3, c, c), dt, dev)
+    check_cuda("wr", wr, (k, c, c), dt, dev)
+    dx = torch.empty_like(dxn)
+    status = _build.lib().ast_trunk_bwd_group(
+        dxn.data_ptr(),
+        (ctypes.c_void_p * k)(*[None if g is None else g.data_ptr() for g in dtaps]),
+        (ctypes.c_void_p * k)(*[m.data_ptr() for m in masks]),
+        inmask.data_ptr(), wd.data_ptr(), wr.data_ptr(), dx.data_ptr(),
+        (ctypes.c_int * k)(*dils), (ctypes.c_int * k)(*group.splits), k, group.tile,
+        dxn.shape[0], clip_rows, int(dt == torch.bfloat16), _build.stream_ptr(dev))
+    _build.check(status, "ast_trunk_bwd_group")
+    _build.LAUNCHES["K2wf"] += 1
+    return dx
+
+
 def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int):
     """All layers forward on [rows, C]: (outs per layer, masks per layer,
     input relu mask). Weights are cast to the activation dtype, biases to
@@ -214,18 +429,29 @@ def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int):
 
 def trunk_backward(dtaps: dict, masks, inmask, wd, wr, dils, clip_rows: int):
     """Waveform cotangent of the trunk input from tap cotangents
-    ({layer: [rows, C] or None}); the last layer's seeds the chain."""
+    ({layer: [rows, C] or None}); the last layer's seeds the chain. With
+    ``_BWD_WAVEFRONT`` on, the groups of ``plan_bwd_groups`` run through
+    ``group_bwd`` and the remaining layers through ``layer_bwd``."""
     last = len(dils) - 1
     seed = dtaps.get(last)
     if seed is None:
         raise ValueError("trunk_backward needs the last tap's cotangent")
     dt = seed.dtype
     wd, wr = wd.to(dt).contiguous(), wr.to(dt).contiguous()
+    if _BWD_WAVEFRONT:
+        groups = plan_bwd_groups(tuple(dils), clip_rows, seed.element_size())
+    else:
+        groups = tuple(BwdGroup(j, (d,)) for j, d in enumerate(dils))
     dx = seed
-    for j in range(last, -1, -1):
-        dtap = dtaps.get(j) if j != last else None
-        in_m = masks[j - 1] if j > 0 else inmask
-        dx = layer_bwd(dx, dtap, masks[j], in_m, wd[j], wr[j], dils[j], clip_rows)
+    for group in reversed(groups):
+        j0, k = group.j0, len(group.dils)
+        in_m = masks[j0 - 1] if j0 > 0 else inmask
+        taps = [dtaps.get(j) if j != last else None for j in range(j0, j0 + k)]
+        if group.splits is None:
+            dx = layer_bwd(dx, taps[0], masks[j0], in_m, wd[j0], wr[j0], dils[j0], clip_rows)
+        else:
+            dx = group_bwd(dx, taps, masks[j0:j0 + k], in_m, wd[j0:j0 + k], wr[j0:j0 + k],
+                           group, clip_rows)
     return dx
 
 

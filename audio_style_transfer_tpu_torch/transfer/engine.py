@@ -20,7 +20,6 @@ import time
 import numpy as np
 import torch
 
-from audio_style_transfer_tpu.utils.audio_io import load_audio, write_wav
 from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
 from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law_numpy, mu_law_numpy
 from audio_style_transfer_tpu_torch.transfer.grams import l2_normalize, select_style_layers
@@ -30,6 +29,7 @@ from audio_style_transfer_tpu_torch.transfer.losses import (
     transfer_embeds,
     transfer_loss,
 )
+from audio_style_transfer_tpu_torch.utils.audio_io import load_audio, write_wav
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,6 +113,10 @@ class StyleTransfer:
         )
 
     def _tensor(self, a) -> torch.Tensor:
+        """``a`` as a float32 tensor on the run's device (a tensor already
+        there is not copied)."""
+        if isinstance(a, torch.Tensor):
+            return a.to(self.device, torch.float32)
         return torch.tensor(np.asarray(a), dtype=torch.float32, device=self.device)
 
     # ------------------------------------------------------------------ #
@@ -146,7 +150,7 @@ class StyleTransfer:
                  for i in range(n)]
         phi = np.mean(grams, axis=0)
         if show_mat and figdir:
-            from audio_style_transfer_tpu.analysis.viz import show_gram
+            from audio_style_transfer_tpu_torch.analysis.viz import show_gram
 
             show_gram(phi, figdir=figdir, gatys=self.spec.gatys)
         return phi
@@ -205,17 +209,53 @@ class StyleTransfer:
     def optimize(self, phi_c, phi_s, epochs: int | None = None, x0=None):
         """Run the optimization; returns a host-side results dict."""
         epochs = epochs or self.spec.epochs
-        if x0 is None:
-            # methods.py:49-54: zeros + 1e-6
-            x0 = np.full((1, self.spec.batch_size), 1e-6, np.float32)
         snapshots, metrics, evals, ep_done = self._run_epochs(
-            self._tensor(x0), self._tensor(phi_c), self._tensor(phi_s), epochs)
+            self._start(x0), self._tensor(phi_c), self._tensor(phi_s), epochs)
         return {
             "snapshots": snapshots[:ep_done],
             "metrics": metrics[:ep_done],
             "evals": evals[:ep_done],
             "epochs_done": ep_done,
             "x": snapshots[max(ep_done - 1, 0)][None, :],
+        }
+
+    def _start(self, x0) -> torch.Tensor:
+        """The initial waveform [1, T]: ``x0``, or zeros + 1e-6 (methods.py:49-54)."""
+        if x0 is None:
+            x0 = np.full((1, self.spec.batch_size), 1e-6, np.float32)
+        return self._tensor(x0)
+
+    def optimize_batch(self, phi_c, phi_s, epochs: int | None = None, x0=None, mesh=None):
+        """Transfer K clips with shared encoder weights.
+
+        Args: phi_c [K, T, C], phi_s [K, ...gram...] (arrays, or tensors that
+        stay on their device), optional x0 [K, 1, T].
+
+        The clips run one after another through the single-clip epoch loop,
+        each with exact single-run semantics (its own early stop). Returns
+        ``snapshots`` [K, epochs, T], ``metrics`` [K, epochs, 4], ``evals``
+        [K, epochs] (rows past a clip's ``epochs_done`` are zero),
+        ``epochs_done`` [K] and ``x`` [K, 1, T], each clip's last iterate.
+        The clip-sharded form (``mesh``) belongs to the multi-device slice.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "optimize_batch(mesh=...) is not ported yet (ROADMAP.md M8: multi-device)")
+        epochs = epochs or self.spec.epochs
+        outs = [
+            self._run_epochs(self._start(None if x0 is None else x0[i]),
+                             self._tensor(phi_c[i]), self._tensor(phi_s[i]), epochs)
+            for i in range(len(phi_c))
+        ]
+        snapshots = np.stack([o[0] for o in outs])
+        ep_done = np.asarray([o[3] for o in outs], np.int32)
+        return {
+            "snapshots": snapshots,
+            "metrics": np.stack([o[1] for o in outs]),
+            "evals": np.stack([o[2] for o in outs]),
+            "epochs_done": ep_done,
+            "x": np.stack([snapshots[i, max(int(e) - 1, 0)]
+                           for i, e in enumerate(ep_done)])[:, None, :],
         }
 
     # ------------------------------------------------------------------ #
@@ -246,7 +286,7 @@ class StyleTransfer:
         aud = aud[st : st + spec.batch_size]
 
         if spec.write_artifacts:
-            from audio_style_transfer_tpu.analysis.spectrogram import plotstft
+            from audio_style_transfer_tpu_torch.analysis.spectrogram import plotstft
 
             savep = os.path.join(spec.savepath, "ori.wav")
             write_wav(savep, aud[late:-late], sr=spec.sr)
@@ -259,7 +299,7 @@ class StyleTransfer:
         phi_c = self.get_embeds(aud)
         phi = self.get_embeds(aud, is_content=False)
         if spec.write_artifacts:
-            from audio_style_transfer_tpu.analysis.viz import show_gram
+            from audio_style_transfer_tpu_torch.analysis.viz import show_gram
 
             show_gram(phi, ep=0, figdir=spec.figdir, gatys=spec.gatys)
 
@@ -290,8 +330,8 @@ class StyleTransfer:
 
     def _write_epoch_artifacts(self, result) -> None:
         """Per-epoch wav/gram/spectrogram files (methods.py:169-179)."""
-        from audio_style_transfer_tpu.analysis.spectrogram import plotstft
-        from audio_style_transfer_tpu.analysis.viz import show_gram
+        from audio_style_transfer_tpu_torch.analysis.spectrogram import plotstft
+        from audio_style_transfer_tpu_torch.analysis.viz import show_gram
 
         spec = self.spec
         late = spec.late

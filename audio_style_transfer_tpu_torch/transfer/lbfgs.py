@@ -1,5 +1,5 @@
-"""L-BFGS with a strong-Wolfe zoom line search, eager (counterpart of
-audio_style_transfer_tpu/transfer/lbfgs.py).
+"""L-BFGS with a Moré-Thuente or a strong-Wolfe zoom line search, eager
+(counterpart of audio_style_transfer_tpu/transfer/lbfgs.py).
 
 The JAX version is one XLA program of nested while loops. Here the same
 state machine runs as Python loops: the iterate, the gradient and the
@@ -9,8 +9,10 @@ the control flow (f, the directional derivatives, the step) are float32
 ones do. Each evaluation therefore synchronises with the device once or
 twice; removing those syncs is later work.
 
-Only the zoom search (the one the transfer engine runs) is ported; the
-Moré-Thuente search (``line_search="mt"``, the JAX default) is not yet.
+``line_search="mt"`` (the default, as in JAX) is MINPACK's dcsrch/dcstep, the
+search inside SciPy's L-BFGS-B; ``"zoom"`` is the plainer bracketing search
+the transfer engine runs. The JAX versions compute every branch and select;
+here only the branch taken is computed, with the same float32 arithmetic.
 """
 
 from __future__ import annotations
@@ -36,10 +38,14 @@ class LBFGSOptions:
     # On a failed line search with non-empty history, discard the memory and
     # retry from the same point with steepest descent.
     restart_on_ls_fail: bool = True
-    # "zoom" (ported) or "mt" (Moré-Thuente, not ported yet).
+    # "mt": MINPACK's dcsrch/dcstep with L-BFGS-B's constants (ftol=1e-3,
+    # gtol=0.9, xtol=0.1); "zoom": a strong-Wolfe bracketing zoom with a
+    # tighter curvature constant (c2=0.5).
     line_search: str = "mt"
+    # None = the search's default: mt -> (1e-3, 0.9), zoom -> (1e-4, 0.5).
     c1: float | None = None
     c2: float | None = None
+    # dcsrch interval tolerance (mt only).
     xtol: float = 0.1
 
     def resolved_c1c2(self) -> tuple[float, float]:
@@ -174,6 +180,166 @@ def _wolfe_line_search(value_and_grad_1d, f0, g0, dphi0, a_init, opts: LBFGSOpti
     return zero, f0, g0, n_evals, False
 
 
+def _safe(q):
+    """q, pushed away from zero to +-1e-30 (the guard of JAX's branch-free
+    dcstep; it only acts where MINPACK would divide by zero)."""
+    if bool(torch.abs(q) < 1e-30):
+        return q.new_tensor(-1e-30 if bool(q < 0) else 1e-30)
+    return q
+
+
+def _dcstep(stx, fx, dx, sty, fy, dy, stp, fp, dp, brackt: bool, stpmin, stpmax):
+    """MINPACK dcstep: one safeguarded trial-step update (dcstep.f).
+
+    (stx, fx, dx) is the best step so far, (sty, fy, dy) the other endpoint,
+    (stp, fp, dp) the step just evaluated. Returns the updated
+    (stx, fx, dx, sty, fy, dy, stp, brackt)."""
+    sgnd = dp * torch.sign(dx)
+
+    def cubic(theta, da, db, flip):
+        # gamma of the cubic through the two points, scaled against overflow.
+        sc = _safe(torch.maximum(torch.maximum(torch.abs(theta), torch.abs(da)),
+                                 torch.abs(db)))
+        g = sc * torch.sqrt(torch.clamp((theta / sc) ** 2 - (da / sc) * (db / sc), min=0.0))
+        return -g if flip else g
+
+    if bool(fp > fx):
+        # case 1: a higher value; the minimum is bracketed.
+        theta = 3.0 * (fx - fp) / _safe(stp - stx) + dx + dp
+        g = cubic(theta, dx, dp, bool(stp < stx))
+        r = ((g - dx) + theta) / _safe(((g - dx) + g) + dp)
+        stpc = stx + r * (stp - stx)
+        stpq = stx + ((dx / _safe((fx - fp) / _safe(stp - stx) + dx)) / 2.0) * (stp - stx)
+        if bool(torch.abs(stpc - stx) < torch.abs(stpq - stx)):
+            stpf = stpc
+        else:
+            stpf = stpc + (stpq - stpc) / 2.0
+        return stx, fx, dx, stp, fp, dp, stpf, True
+    if bool(sgnd < 0.0):
+        # case 2: lower value, derivatives of opposite sign; bracketed.
+        theta = 3.0 * (fx - fp) / _safe(stp - stx) + dx + dp
+        g = cubic(theta, dx, dp, bool(stp > stx))
+        r = ((g - dp) + theta) / _safe(((g - dp) + g) + dx)
+        stpc = stp + r * (stx - stp)
+        stpq = stp + (dp / _safe(dp - dx)) * (stx - stp)
+        stpf = stpc if bool(torch.abs(stpc - stp) > torch.abs(stpq - stp)) else stpq
+        return stp, fp, dp, stx, fx, dx, stpf, True
+    if bool(torch.abs(dp) < torch.abs(dx)):
+        # case 3: lower value, same sign, |derivative| decreasing.
+        theta = 3.0 * (fx - fp) / _safe(stp - stx) + dx + dp
+        g = cubic(theta, dx, dp, bool(stp > stx))
+        r = ((g - dp) + theta) / _safe((g + (dx - dp)) + g)
+        if bool(r < 0.0) and bool(g != 0.0):
+            stpc = stp + r * (stx - stp)
+        else:
+            stpc = stpmax if bool(stp > stx) else stpmin
+        stpq = stp + (dp / _safe(dp - dx)) * (stx - stp)
+        if brackt:
+            stpf = stpc if bool(torch.abs(stpc - stp) < torch.abs(stpq - stp)) else stpq
+            bound = stp + 0.66 * (sty - stp)
+            stpf = torch.minimum(bound, stpf) if bool(stp > stx) else torch.maximum(bound, stpf)
+        else:
+            stpf = stpc if bool(torch.abs(stpc - stp) > torch.abs(stpq - stp)) else stpq
+            stpf = torch.minimum(torch.maximum(stpf, stpmin), stpmax)
+        return stp, fp, dp, sty, fy, dy, stpf, brackt
+    # case 4: lower value, same sign, |derivative| not decreasing.
+    if brackt:
+        theta = 3.0 * (fp - fy) / _safe(sty - stp) + dy + dp
+        g = cubic(theta, dy, dp, bool(stp > sty))
+        r = ((g - dp) + theta) / _safe(((g - dp) + g) + dy)
+        stpf = stp + r * (sty - stp)
+    else:
+        stpf = stpmax if bool(stp > stx) else stpmin
+    return stp, fp, dp, sty, fy, dy, stpf, brackt
+
+
+def _mt_line_search(value_and_grad_1d, f0, g0, dphi0, a_init, opts: LBFGSOptions):
+    """Moré-Thuente line search: MINPACK's dcsrch routine (the search inside
+    SciPy's L-BFGS-B, lbfgsb.f lnsrlb), one objective evaluation per
+    iteration. ``value_and_grad_1d(a)`` returns (f, dphi, g) at step a.
+
+    Stage 1 works on the modified function psi(a) = f(a) - f0 - c1 a dphi0
+    until a step with psi <= 0 and dphi >= 0 is found. On Wolfe convergence
+    the converged trial is accepted; on maxls exhaustion or a dcsrch warning
+    exit the best evaluated point is taken if it improves f0.
+    The scalars take f0's dtype (float32 inside ``lbfgs_minimize``).
+    Returns (a, f, g, n_evals, ok)."""
+    c1, c2, xtol, stpmin, stpmax, xtrapl, xtrapu, zero = (
+        f0.new_tensor(v) for v in (*opts.resolved_c1c2(), opts.xtol, 1e-20, 1e20, 1.1, 4.0, 0.0))
+    finit, ginit = f0, dphi0
+    gtest = c1 * ginit
+
+    stp = torch.minimum(torch.maximum(torch.as_tensor(a_init, dtype=f0.dtype), stpmin), stpmax)
+    brackt, stage1 = False, True
+    stx, fx, dx = zero, finit, ginit
+    sty, fy, dy = zero, finit, ginit
+    stmin, stmax = zero, stp + xtrapu * stp
+    width, width1 = stpmax - stpmin, (stpmax - stpmin) / 0.5
+    n_evals, done, wolfe = 0, False, False
+    a_eval, f, g = zero, f0, g0
+    a_best, f_best, g_best = zero, f0, g0
+
+    while not done and n_evals < opts.maxls:
+        f, dphi, g = value_and_grad_1d(stp)
+        n_evals += 1
+        a_eval = stp
+        ftest = finit + stp * gtest
+
+        # dcsrch.f: stage 1 ends once f <= ftest and dphi >= min(c1, c2) dphi0.
+        if stage1 and bool(f <= ftest) and bool(dphi >= torch.minimum(c1, c2) * ginit):
+            stage1 = False
+        converged = bool(f <= ftest) and bool(torch.abs(dphi) <= c2 * (-ginit))
+        warn = (
+            (brackt and (bool(stp <= stmin) or bool(stp >= stmax)))
+            or (brackt and bool(stmax - stmin <= xtol * stmax))
+            or (bool(stp == stpmax) and bool(f <= ftest) and bool(dphi <= gtest))
+            or (bool(stp == stpmin) and (bool(f > ftest) or bool(dphi >= gtest)))
+        )
+
+        # Stage-1 steps that beat fx but fail sufficient decrease update the
+        # interval on the modified function.
+        use_mod = stage1 and bool(f <= fx) and bool(f > ftest)
+        if use_mod:
+            stx, fx, dx, sty, fy, dy, stp_new, brackt_new = _dcstep(
+                stx, fx - stx * gtest, dx - gtest, sty, fy - sty * gtest, dy - gtest,
+                stp, f - stp * gtest, dphi - gtest, brackt, stmin, stmax)
+            fx, fy = fx + stx * gtest, fy + sty * gtest
+            dx, dy = dx + gtest, dy + gtest
+        else:
+            stx, fx, dx, sty, fy, dy, stp_new, brackt_new = _dcstep(
+                stx, fx, dx, sty, fy, dy, stp, f, dphi, brackt, stmin, stmax)
+        brackt = brackt_new
+
+        if brackt:
+            # Force bisection when the bracket shrinks too slowly.
+            wid = torch.abs(sty - stx)
+            if bool(wid >= 0.66 * width1):
+                stp_new = stx + 0.5 * (sty - stx)
+            width1, width = width, wid
+            stmin, stmax = torch.minimum(stx, sty), torch.maximum(stx, sty)
+        else:
+            stmin = stp_new + xtrapl * (stp_new - stx)
+            stmax = stp_new + xtrapu * (stp_new - stx)
+        stp_new = torch.minimum(torch.maximum(stp_new, stpmin), stpmax)
+        # No further progress possible: park at the best point.
+        if brackt and (bool(stp_new <= stmin) or bool(stp_new >= stmax)
+                       or bool(stmax - stmin <= xtol * stmax)):
+            stp_new = stx
+
+        done = converged or warn
+        wolfe = wolfe or converged
+        if bool(f < f_best):
+            a_best, f_best, g_best = stp, f, g
+        if not done:
+            stp = stp_new
+
+    if wolfe:
+        return a_eval, f, g, n_evals, True
+    if bool(f_best < f0):
+        return a_best, f_best, g_best, n_evals, True
+    return zero, f0, g0, n_evals, False
+
+
 def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
                    opts: LBFGSOptions = LBFGSOptions(), history: dict | None = None,
                    return_history: bool = False, has_aux: bool = False):
@@ -190,10 +356,9 @@ def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
     Returns ``LBFGSResult`` (aux is the objective's aux at x0) or
     ``(LBFGSResult, history)``.
     """
-    if opts.line_search != "zoom":
-        raise NotImplementedError(
-            f"line_search={opts.line_search!r}: only 'zoom' is ported; the "
-            "Moré-Thuente search waits (ROADMAP.md)")
+    if opts.line_search not in ("mt", "zoom"):
+        raise ValueError(f"line_search must be 'mt' or 'zoom', got {opts.line_search!r}")
+    search = _mt_line_search if opts.line_search == "mt" else _wolfe_line_search
     m = opts.memory
     dtype, dev = x0.dtype, x0.device
 
@@ -230,16 +395,20 @@ def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
         if bool(dphi0 >= 0.0):  # not a descent direction: steepest descent
             d = -g
             dphi0 = -_host(_ip(g, g))
-        if k == 0 and count == 0:
-            a_init = torch.minimum(_scalar(1.0), 1.0 / _host(torch.sum(torch.abs(g))))
-        else:
+        # The small first step applies only with an empty memory: 1/||d||_2
+        # for the Moré-Thuente search (lnsrlb.f), 1/||g||_1 for zoom.
+        if k != 0 or count != 0:
             a_init = _scalar(1.0)
+        elif opts.line_search == "mt":
+            a_init = 1.0 / torch.sqrt(_host(_ip(d, d)))
+        else:
+            a_init = torch.minimum(_scalar(1.0), 1.0 / _host(torch.sum(torch.abs(g))))
 
         def vg_1d(a, x=x, d=d):
             fa, ga = vg(x + a * d)
             return fa, _host(_ip(ga, d)), ga
 
-        a, f_new, g_new, ls_evals, ok = _wolfe_line_search(vg_1d, f, g, dphi0, a_init, opts)
+        a, f_new, g_new, ls_evals, ok = search(vg_1d, f, g, dphi0, a_init, opts)
         x_new = x + a * d
 
         s = x_new - x

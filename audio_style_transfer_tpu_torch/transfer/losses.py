@@ -2,9 +2,10 @@
 
   content = mean((F(x) - phi_c)^2) * 10
   style   = mean((G(x) - phi_s)^2) * 1e3
+  reg     = mean(|Re STFT(inv_mu_law(x))| + |Im STFT|)   (frames 1024/512)
   loss    = content + lambd * style + gamma * reg
-(reference methods.py:113-131). The STFT regularizer (gamma != 0) is not
-ported yet: see ROADMAP's ``stft_l1`` item.
+(reference methods.py:113-131). The regularizer is built only when
+gamma != 0.
 """
 
 from __future__ import annotations
@@ -17,6 +18,8 @@ from audio_style_transfer_tpu_torch.models.wavenet_ae import (
     WaveNetAEConfig,
     encoder_extracts,
 )
+from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law
+from audio_style_transfer_tpu_torch.signal.stft import stft_l1
 from audio_style_transfer_tpu_torch.transfer.grams import content_embeds, style_gram
 
 
@@ -45,14 +48,13 @@ def transfer_embeds(params, x_quantized: torch.Tensor, cfg: WaveNetAEConfig,
 def transfer_loss(params, x_quantized: torch.Tensor, phi_c: torch.Tensor,
                   phi_s: torch.Tensor, cfg: WaveNetAEConfig, spec: LossSpec):
     """Scalar loss and its components dict for a [1, T] quantized waveform."""
-    if spec.gamma != 0.0:
-        raise NotImplementedError(
-            "gamma != 0 needs the STFT L1 regularizer, not ported yet "
-            "(ROADMAP.md: stft_l1)")
     c, s = transfer_embeds(params, x_quantized, cfg, spec)
     content_loss = torch.mean(torch.square(c - phi_c)) * 10.0
     style_loss = torch.mean(torch.square(s - phi_s)) * 1e3
-    regularizer = torch.zeros((), dtype=torch.float32, device=content_loss.device)
+    if spec.gamma != 0.0:
+        regularizer = stft_l1(inv_mu_law(x_quantized[0]), frame_length=1024, frame_step=512)
+    else:
+        regularizer = torch.zeros((), dtype=torch.float32, device=content_loss.device)
     loss = content_loss + spec.lambd * style_loss + spec.gamma * regularizer
     return loss, {
         "loss": loss,

@@ -11,18 +11,26 @@ Phases (any failure raises and exits non-zero):
   3. hold each kernel against its plain PyTorch version at full width
      (T=16384, C=128, the 30 trunk layers), in float32 with TF32 off and in
      bfloat16, and time both (CUDA events, median of runs): K1/K2 and
-     K7f/K7b layer by layer on the plain chain's own inputs, K5 and K6 on
-     the stack-0 taps {0..9} (L=10) and on all 30 taps (L=30);
+     K7f/K7b layer by layer on the plain chain's own inputs, K2-wf on each
+     group of the wavefront plan (also against the K2 launches it replaces),
+     K5 and K6 on the stack-0 taps {0..9} (L=10) and on all 30 taps (L=30),
+     with one torch.einsum beside each gram kernel as a yardstick;
   4. one float32 loss + waveform gradient on the card against the plain
      versions on the CPU, for stack 0 and for the full stack (style taps
-     0..29, content tap 25);
+     0..29, content tap 25); the STFT L1 regularizer's value and gradient
+     card against CPU; one More-Thuente line search on the card on the
+     stack-0 loss with the regularizer (Wolfe conditions at the step taken);
   5. drive the main paths, each with the launch counts set to 0 just before
      and read just after, checking that it launched exactly its kernels:
      the port's transfer CLI on two synthetic clips (bf16, random weights,
      3 epochs) at stack 0 {K1, K2, K5} and at the full stack with
-     --cont_lyrs 25 {K1, K2, K5, K6}, then one bf16 engine epoch of the
-     per-layer flavour at the full stack {K7f, K7b, K5, K6};
-  6. print the per-kernel JSON line, then the result line.
+     --cont_lyrs 25 {K1, K2, K5, K6}, one bf16 engine epoch of the
+     per-layer flavour at the full stack {K7f, K7b, K5, K6}, then the
+     chunked long-form CLI (4 windows, --longform --ot_components 8 --gamma
+     1e-3 --stack 0, 2 epochs) with the wavefront backward on {K1, K2, K2wf,
+     K5; K2wf = 3 and K2 = 18 per evaluation} and once more with it off;
+  6. print the per-kernel JSON line (time, plain time, bound, library time),
+     then the result line.
 
 It imports nothing of JAX. Numbers it prints are for the card it ran on.
 """
@@ -56,7 +64,12 @@ TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # Mask bytes can differ only where a value within rounding of zero changes
 # sign; allowed share of differing bytes per layer.
 MASK_TOL = 1e-4
-KERNELS = ("K1", "K2", "K5", "K6", "K7f", "K7b")
+KERNELS = ("K1", "K2", "K2wf", "K5", "K6", "K7f", "K7b")
+# Published peaks of one H100 SXM: device memory rate, and dense operation
+# rates by the type of the inputs (float32 outside the tensor cores).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
+WINDOWS = 4  # windows of the long-form run
 
 
 def synth_audio(seconds: float, sr: int = 16000, kind: str = "content"):
@@ -99,6 +112,16 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def bound(nbytes: float, ops: float, dtype_name: str) -> dict:
+    """The least time the card could take: the bytes the function must move
+    (inputs read once, outputs written once) over the memory rate, or its
+    operations over the peak rate for the inputs' type, whichever is larger."""
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = ops / PEAK_OPS_S[dtype_name] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
+
+
 def rel_err(a, b) -> tuple[float, float]:
     """(max|a - b|, that over max|b|) in float32."""
     a, b = a.float(), b.float()
@@ -129,8 +152,8 @@ def check_all(name: str, outs, wants, tol: float) -> float:
 
 
 def kernel_phase(dtype_name: str, params, dev) -> dict:
-    """Compare K1, K2, K5, K6, K7f and K7b with their plain versions; time
-    both."""
+    """Compare K1, K2, K2-wf, K5, K6, K7f and K7b with their plain versions;
+    time both; work out each kernel's bound from these shapes."""
     import torch
 
     from audio_style_transfer_tpu_torch.ops import chain, encoder, gram
@@ -180,8 +203,9 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     dtaps = {j: (torch.randn((T, C), generator=gen, device=dev) * 1e-3).to(dt) for j in EMIT}
     dx = dtaps[LAYERS - 1]
     k2_err, k7b_err = 0.0, 0.0
-    gs = {}
+    gs, dxs = {}, {}
     for j in range(LAYERS - 1, -1, -1):
+        dxs[j] = dx  # the cotangent of layer j's output, before its tap's
         dtap = dtaps.get(j) if j != LAYERS - 1 else None
         in_m = masks[j - 1] if j > 0 else inmask
         dx_p = chain.layer_bwd_plain(dx, dtap, masks[j], in_m, wd[j], wr[j], dils[j], T)
@@ -207,6 +231,40 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     print(f"  K2 dx: max|d| {k2_err:.3e} over 30 layers (tol rel {tol:.0e}) ok")
     print(f"  K7b dx: max|d| {k7b_err:.3e} over 30 layers (tol rel {tol:.0e}; plain version "
           f"with K1's gate) ok")
+
+    # K2-wf on every group of the wavefront plan, on the plain chain's
+    # cotangents and masks: against its plain version, and against the
+    # single-layer K2 launches it replaces.
+    groups = [g for g in chain.plan_bwd_groups(dils, T, x0.element_size())
+              if g.splits is not None]
+    if not groups:
+        raise AssertionError("the wavefront plan holds no group at the full geometry")
+
+    def group_args(g):
+        js = range(g.j0, g.j0 + len(g.dils))
+        return (dxs[js[-1]], [dtaps.get(j) if j != LAYERS - 1 else None for j in js],
+                [masks[j] for j in js], masks[g.j0 - 1] if g.j0 else inmask,
+                wd[g.j0:js[-1] + 1], wr[g.j0:js[-1] + 1])
+
+    def k2_chain(g):
+        dxn, gtaps, gmasks, in_m, gwd, gwr = group_args(g)
+        for j in range(len(g.dils) - 1, -1, -1):
+            dxn = chain.layer_bwd(dxn, gtaps[j], gmasks[j], gmasks[j - 1] if j else in_m,
+                                  gwd[j], gwr[j], g.dils[j], T)
+        return dxn
+
+    wf_err, wf_vs_k2 = 0.0, 0.0
+    for g in groups:
+        got = chain.group_bwd(*group_args(g), g, T)
+        want = chain.group_bwd_plain(*group_args(g), g.dils, T, g.tile, g.splits)
+        abs_err, rel = rel_err(got, want)
+        if rel > tol:
+            raise AssertionError(f"K2-wf group at layer {g.j0}: rel err {rel:.3e} > {tol}")
+        wf_err = max(wf_err, abs_err)
+        wf_vs_k2 = max(wf_vs_k2, rel_err(got, k2_chain(g))[0])
+    print(f"  K2-wf dx: max|d| {wf_err:.3e} over {len(groups)} groups of dils "
+          f"{groups[0].dils} at tile {groups[0].tile} (tol rel {tol:.0e}) ok; against the "
+          f"K2 launches it replaces max|d| {wf_vs_k2:.3e}")
 
     # K5 and K6 on the ten stack-0 taps and on all 30 taps.
     taps = {nl: [xs[j + 1][None] for j in range(nl)] for nl in (10, 30)}
@@ -255,15 +313,60 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         "K7b": (cuda_ms(blocks(encoder.block_bwd, True)) / LAYERS,
                 cuda_ms(blocks(encoder.block_bwd_plain, True)) / LAYERS),
     }
+    ng = len(groups)
+    times["K2wf"] = (
+        cuda_ms(lambda: [chain.group_bwd(*group_args(g), g, T) for g in groups]) / ng,
+        cuda_ms(lambda: [chain.group_bwd_plain(*group_args(g), g.dils, T, g.tile, g.splits)
+                         for g in groups]) / ng)
+    k2_ms = cuda_ms(lambda: [k2_chain(g) for g in groups]) / ng
+    print(f"  K2-wf time per group of {len(groups[0].dils)} layers: {times['K2wf'][0]:.4f} ms, "
+          f"against {k2_ms:.4f} ms for the {len(groups[0].dils)} K2 launches it replaces")
+    # One torch.einsum beside each gram kernel: a yardstick, used nowhere in
+    # the port.
+    library = {}
     for nl in (10, 30):
         times[f"K5 L={nl}"] = (cuda_ms(lambda: gram.pair_gram_fwd(*taps[nl])),
                                cuda_ms(lambda: gram.pair_gram_reference(*taps[nl])))
         times[f"K6 L={nl}"] = (cuda_ms(lambda: gram.pair_gram_bwd(taps[nl], hs[nl])),
                                cuda_ms(lambda: gram.pair_gram_bwd_plain(taps[nl], hs[nl])))
+        e = torch.cat(taps[nl])  # [L, T, C]
+        h = hs[nl][0].to(dt)
+        library[f"K5 L={nl}"] = cuda_ms(lambda: torch.einsum("atc,btc->abc", e, e))
+        library[f"K6 L={nl}"] = cuda_ms(lambda: torch.einsum("abc,btc->atc", h, e))
     for k, (ms, plain_ms) in times.items():
-        print(f"  {k} time per launch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    errs.update({"K1": k1_err, "K2": k2_err, "K7f": k7f_err, "K7b": k7b_err})
-    return {k: dict(max_abs_err=errs[k], ms=times[k][0], plain_ms=times[k][1]) for k in errs}
+        lib = f", one einsum {library[k]:.4f} ms" if k in library else ""
+        print(f"  {k} time per launch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}")
+    errs.update({"K1": k1_err, "K2": k2_err, "K2wf": wf_err, "K7f": k7f_err, "K7b": k7b_err})
+
+    # Bounds from these shapes. A product is one [T, C] x [C, C] matrix
+    # product; an activation or cotangent array is T * C elements.
+    item = x0.element_size()
+    act, product, weights = T * C * item, 2.0 * T * C * C, 4 * C * C * item
+    kg = len(groups[0].dils)
+    tg = float(np.mean([sum(g_ is not None for g_ in group_args(g)[1]) for g in groups]))
+    bounds = {
+        # x in, out and mask bytes out; dilated conv (3 products) + residual.
+        "K1": bound(2 * act + T * C + weights, 4 * product, dtype_name),
+        # dx in and out, the tap cotangent (10 of 30 layers), two mask arrays.
+        "K2": bound((2 + len(STYLE) / LAYERS) * act + 2 * T * C + weights, 4 * product,
+                    dtype_name),
+        # dx in and out, the group's tap cotangents (mean over the groups
+        # timed), k + 1 mask arrays.
+        "K2wf": bound((2 + tg) * act + (kg + 1) * T * C + kg * weights, 4 * kg * product,
+                      dtype_name),
+        "K7f": bound(2 * act + weights, 4 * product, dtype_name),
+        # x, g in, dx out; the conv again for the gate, then K2's 4 products.
+        "K7b": bound(3 * act + weights, 7 * product, dtype_name),
+    }
+    for nl in (10, 30):
+        pairs = nl * (nl + 1) // 2  # the gram is symmetric
+        bounds[f"K5 L={nl}"] = bound(nl * act + nl * nl * C * 4, 2.0 * pairs * T * C, dtype_name)
+        bounds[f"K6 L={nl}"] = bound(2 * nl * act + nl * nl * C * 4, 2.0 * nl * nl * T * C,
+                                     dtype_name)
+    for k, b in bounds.items():
+        print(f"  {k} bound: {b['bound_ms']:.4f} ms by {b['bound_by']}")
+    return {k: dict(max_abs_err=errs[k], ms=times[k][0], plain_ms=times[k][1],
+                    library_ms=library.get(k), **bounds[k]) for k in errs}
 
 
 def slice_phase(params, dev, style_ids, cont_ids) -> None:
@@ -311,6 +414,182 @@ def slice_phase(params, dev, style_ids, cont_ids) -> None:
           f"of max {float(gc.abs().max()):.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("waveform gradient: card and CPU paths disagree")
+
+
+def regularizer_phase(params, dev) -> None:
+    """The STFT L1 regularizer's value and gradient, card against CPU
+    (float32), then one More-Thuente line search on the card along the
+    steepest descent of the stack-0 loss with gamma = 1e-3."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+    from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law, mu_law_numpy
+    from audio_style_transfer_tpu_torch.signal.stft import stft_l1
+    from audio_style_transfer_tpu_torch.transfer.lbfgs import LBFGSOptions, _mt_line_search
+    from audio_style_transfer_tpu_torch.transfer.losses import (
+        LossSpec,
+        transfer_embeds,
+        transfer_loss,
+    )
+
+    content = mu_law_numpy(synth_audio(1.1, kind="content")[:T][None]).astype(np.float32)
+    style = mu_law_numpy(synth_audio(1.1, kind="style")[:T][None]).astype(np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        x = torch.tensor(content[0], device=where).requires_grad_(True)
+        reg = stft_l1(inv_mu_law(x))
+        (g,) = torch.autograd.grad(reg, x)
+        out[str(where)] = (reg.detach().cpu(), g.cpu())
+    (rc, gc), (rg, gg) = out["cpu"], out[str(dev)]
+    # The same float32 FFT of 1024 points in two libraries: about 1e-6.
+    print(f"[stft_l1 float32] card {float(rg):.8f} cpu {float(rc):.8f}")
+    check("stft_l1 value", rg, rc, 1e-5)
+    check("stft_l1 gradient", gg, gc, 1e-5)
+
+    cfg = WaveNetAEConfig()
+    spec = LossSpec(style_layer_ids=STYLE, cont_lyr_ids=(29,), gamma=1e-3)
+    p = {k: {n: v.to(dev) for n, v in e.items()} for k, e in params.items()
+         if k.startswith("ae_")}
+    with torch.no_grad():
+        phi_c, _ = transfer_embeds(p, torch.tensor(content, device=dev), cfg, spec)
+        _, phi_s = transfer_embeds(p, torch.tensor(style, device=dev), cfg, spec)
+
+    def vg(x):
+        xv = x.detach().requires_grad_(True)
+        loss, _ = transfer_loss(p, xv[None], phi_c, phi_s, cfg, spec)
+        (g,) = torch.autograd.grad(loss, xv)
+        return loss.detach().cpu(), g
+
+    x0 = torch.tensor(content[0], device=dev)
+    f0, g0 = vg(x0)
+    d = -g0
+    dphi0 = torch.sum(g0 * d).cpu()
+
+    def vg_1d(a):
+        fa, ga = vg(x0 + a.to(dev) * d)
+        return fa, torch.sum(ga * d).cpu(), ga
+
+    opts = LBFGSOptions()
+    c1, c2 = opts.resolved_c1c2()
+    a, f, g, n_evals, ok = _mt_line_search(vg_1d, f0, g0, dphi0,
+                                           1.0 / torch.sqrt(torch.sum(d * d)).cpu(), opts)
+    dphi = float(torch.sum(g * d))
+    # The search tests in float32; one ulp of f0 of slack for this recheck.
+    armijo = float(f) <= float(f0) + c1 * float(a) * float(dphi0) + 1e-6 * abs(float(f0))
+    curvature = abs(dphi) <= c2 * abs(float(dphi0)) * (1 + 1e-6)
+    print(f"[MT line search on the card, gamma 1e-3] f0 {float(f0):.6f} -> f {float(f):.6f} at "
+          f"step {float(a):.4e} in {n_evals} evals; dphi0 {float(dphi0):.4e}, dphi {dphi:.4e}; "
+          f"sufficient decrease {armijo}, curvature {curvature}")
+    if not (ok and math.isfinite(float(f)) and bool(torch.isfinite(g).all())
+            and armijo and curvature):
+        raise AssertionError("MT line search: the accepted step fails the Wolfe conditions")
+
+
+def longform_phase(dev, wavefront: bool, epochs: int):
+    """The chunked long-form CLI (bf16, stack 0, OT target of 8 components,
+    gamma 1e-3) on a synthetic clip of WINDOWS windows plus a remainder;
+    returns (launches, evals, wall seconds)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.cli.transfer import main
+    from audio_style_transfer_tpu_torch.ops import _build, chain
+    from audio_style_transfer_tpu_torch.transfer import longform
+    from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer
+
+    label = f"longform, wavefront {'on' if wavefront else 'off'}"
+    captured, seconds_in = {}, {}
+
+    def timed(name, fn):
+        """fn, with its wall time (the device drained either side) kept."""
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds_in[name] = time.perf_counter() - t0
+            captured[name] = out
+            return out
+        return run
+
+    originals = (longform.transfer_longform, longform._ot_transform_gram,
+                 StyleTransfer.optimize_batch)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "src")
+        os.makedirs(src)
+        seconds = (WINDOWS * T + 1000) / 16000
+        write_wav(os.path.join(src, "content.wav"), synth_audio(seconds, kind="content"), 16000)
+        write_wav(os.path.join(src, "style.wav"), synth_audio(1.1, kind="style"), 16000)
+        argv = ["content", "style", "--dir", src, "--outdir", os.path.join(tmp, "out"),
+                "--logdir", os.path.join(tmp, "log"), "--longform", "--ot_components", "8",
+                "--gamma", "1e-3", "--stack", "0", "--epochs", str(epochs),
+                "--precision", "bfloat16", "--fused", "--random_init", "--device", str(dev)]
+        print(f"[{label}] {' '.join(argv[:2])} {' '.join(argv[8:])}")
+        buf = io.StringIO()
+        was = chain._BWD_WAVEFRONT
+        chain._BWD_WAVEFRONT = wavefront
+        longform.transfer_longform = timed("transfer_longform", originals[0])
+        longform._ot_transform_gram = timed("OT target", originals[1])
+        StyleTransfer.optimize_batch = timed("optimize_batch", originals[2])
+        try:
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                audio = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+        finally:
+            chain._BWD_WAVEFRONT = was
+            (longform.transfer_longform, longform._ot_transform_gram,
+             StyleTransfer.optimize_batch) = originals
+        wavs = [os.path.join(r, f) for r, _, fs in os.walk(os.path.join(tmp, "out"))
+                for f in fs if f == "longform.wav"]
+        if len(wavs) != 1:
+            raise AssertionError(f"{label}: expected one longform.wav, found {wavs}")
+        with wave.open(wavs[0], "rb") as w:
+            n_written = w.getnframes()
+    text = buf.getvalue()
+    print(text, end="")
+    if "OT transform: nmf rec err" not in text:
+        raise AssertionError(f"{label}: the OT line was not printed")
+    want_len = WINDOWS * T - (WINDOWS - 1) * 256  # _stitch at crossfade 256
+    if audio.shape != (want_len,) or n_written != want_len or not np.all(np.isfinite(audio)):
+        raise AssertionError(f"{label}: output of {audio.shape} / {n_written} samples, "
+                             f"expected {want_len} finite ones")
+    per = captured["transfer_longform"].per_window
+    if len(per["epochs_done"]) != WINDOWS:
+        raise AssertionError(f"{label}: {len(per['epochs_done'])} windows, expected {WINDOWS}")
+    for i, done in enumerate(per["epochs_done"]):
+        rows = per["metrics"][i, :done]
+        losses = [float(v) for v in rows[:, 0]]
+        if done < 1 or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{label}: window {i} losses {losses}")
+        if any(b > a for a, b in zip(losses, losses[1:])):
+            raise AssertionError(f"{label}: window {i} losses increase: {losses}")
+        if not np.all(rows[:, 3] > 0):
+            raise AssertionError(f"{label}: window {i} regularizer column {rows[:, 3]}")
+        print(f"[{label}] window {i}: {done} epochs, evals {per['evals'][i, :done].tolist()}, "
+              f"losses {losses}, regularizer {[float(v) for v in rows[:, 3]]}")
+    evals = int(np.sum(per["evals"]))
+    # Per loss+gradient evaluation the backward runs the plan's 3 groups and
+    # 18 single layers (30 single layers with the wavefront off); K1 also
+    # runs in the gradient-free passes (targets, OT taps, closing forwards).
+    want = ({"K2wf": 3 * evals, "K2": 18 * evals} if wavefront
+            else {"K2wf": 0, "K2": 30 * evals})
+    got = {k: launches[k] for k in want}
+    if got != want or launches["K1"] % LAYERS or launches["K1"] < LAYERS * evals:
+        raise AssertionError(f"{label}: launches {launches} for {evals} evals, expected {want} "
+                             f"and K1 a multiple of {LAYERS} of at least {LAYERS * evals}")
+    check_launches(label, launches, {"K1", "K2", "K5"} | ({"K2wf"} if wavefront else set()))
+    print(f"[{label}] {WINDOWS} windows, {evals} L-BFGS evals (K2wf {launches['K2wf']}, K2 "
+          f"{launches['K2']}, K1 {launches['K1']}) in {wall:.2f} s wall "
+          f"({evals / wall:.2f} evals/s, setup included); OT target "
+          f"{seconds_in['OT target']:.2f} s, optimize_batch {seconds_in['optimize_batch']:.2f} s "
+          f"({1e3 * seconds_in['optimize_batch'] / evals:.3f} ms per eval), transfer_longform "
+          f"{seconds_in['transfer_longform']:.2f} s")
+    return launches, evals, wall
 
 
 def check_launches(label: str, launches: dict, expected: set) -> None:
@@ -444,11 +723,14 @@ def main() -> int:
         results[dtype_name] = kernel_phase(dtype_name, params, dev)
     slice_phase(params, dev, STYLE, (29,))
     slice_phase(params, dev, FULL, (25,))
+    regularizer_phase(params, dev)
     runs = {
         "cli stack 0": cli_phase(dev, "cli stack 0", ["--stack", "0"], {"K1", "K2", "K5"}),
         "cli full stack": cli_phase(dev, "cli full stack", ["--cont_lyrs", "25"],
                                     {"K1", "K2", "K5", "K6"}),
         "per-layer engine": per_layer_phase(params, dev),
+        "longform, wavefront on": longform_phase(dev, wavefront=True, epochs=2),
+        "longform, wavefront off": longform_phase(dev, wavefront=False, epochs=1),
     }
     for label, (_, evals, wall) in runs.items():
         print(f"[{label}] {evals} evals, {evals / wall:.2f} evals/s setup included ({smi})")
@@ -460,6 +742,8 @@ def main() -> int:
                "audio_style_transfer_tpu/ops/pallas_chain.py:521", "K1"),
         "K2": ("trunk backward layer", src + "trunk.cu",
                "audio_style_transfer_tpu/ops/pallas_chain.py:672", "K2"),
+        "K2wf": ("trunk backward wavefront group of 4 layers", src + "trunk_wf.cu",
+                 "audio_style_transfer_tpu/ops/pallas_chain.py:851", "K2wf"),
         "K5": ("pair gram forward, L=30", src + "gram.cu",
                "audio_style_transfer_tpu/ops/pallas_gram.py:72", "K5 L=30"),
         "K6": ("pair gram backward, L=30", src + "gram.cu",
@@ -475,7 +759,8 @@ def main() -> int:
         kernels.append({"name": f"{k} {name} (bf16)", "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches[k],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

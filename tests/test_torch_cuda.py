@@ -173,6 +173,87 @@ def test_full_stack_loss_and_gradient_on_card_match_cpu(dev, flavour):
     assert all(launches[k] > 0 for k in kernels + ("K5", "K6")), launches
 
 
+def _wf_inputs(dev, dtype, dils, rows, missing=(), seed=0):
+    gen = torch.Generator(device=dev).manual_seed(300 + seed)
+    c, k = chain.WIDTH, len(dils)
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    wd, wr = (rand(k, 3, c, c) * 0.05).to(dtype), (rand(k, c, c) * 0.05).to(dtype)
+    dxn = rand(rows, c).to(dtype)
+    dtaps = [None if j in missing else rand(rows, c).to(dtype) for j in range(k)]
+    masks = [torch.randint(0, 4, (rows, c), generator=gen, device=dev, dtype=torch.uint8)
+             for _ in range(k)]
+    inmask = torch.randint(0, 2, (rows, c), generator=gen, device=dev, dtype=torch.uint8)
+    return dxn, dtaps, masks, inmask, wd, wr
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dils,missing", [((1, 2, 4, 8), ()), ((1, 2, 4, 8), (0, 2)),
+                                          ((1, 2, 4), (1,)), ((2, 4), ()), ((8, 4, 2, 1), ())])
+def test_wavefront_group_kernel_matches_plain_and_the_k2_chain(dev, dtype, dils, missing):
+    """K2-wf on three flattened clips of 256 rows (halos cross clip edges):
+    against its plain version at the trunk tolerances, and bit for bit
+    against the single-layer K2 launches it replaces (same products, same
+    order per row)."""
+    clip = 256
+    args = _wf_inputs(dev, dtype, dils, 3 * clip, missing)
+    group = chain.plan_bwd_groups(dils, clip, args[0].element_size())[0]
+    assert group.splits is not None and len(group.dils) == len(dils)
+    _build.reset_launches()
+    got = chain.group_bwd(*args, group, clip)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K2wf"] == 1 and _build.LAUNCHES["K2"] == 0
+    want = chain.group_bwd_plain(*args, dils, clip, group.tile, group.splits)
+    assert got.dtype == dtype and _rel(got, want) <= TOL[dtype]
+    dxn, dtaps, masks, inmask, wd, wr = args
+    dx = dxn
+    for j in range(len(dils) - 1, -1, -1):
+        dx = chain.layer_bwd(dx, dtaps[j], masks[j], masks[j - 1] if j else inmask,
+                             wd[j], wr[j], dils[j], clip)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dx)
+
+
+def test_wavefront_group_kernel_refuses_what_it_does_not_take(dev):
+    dils, clip = (1, 2, 4, 8), 256
+    args = _wf_inputs(dev, torch.float32, dils, clip)
+    good = chain.plan_bwd_groups(dils, clip, 4)[0]
+    assert good.tile == 32
+    # float32 at tile 64: three carry slots do not fit a block's shared memory.
+    big = chain.BwdGroup(0, dils, 64, chain.wavefront_splits(dils, 64))
+    with pytest.raises(ValueError, match="shared memory"):
+        chain.group_bwd(*args, big, clip)
+    # Splits that do not recede by d: the C entry point returns invalid value.
+    bad = chain.BwdGroup(0, dils, 32, tuple(s + 1 for s in good.splits[:-1]) + good.splits[-1:])
+    with pytest.raises(RuntimeError, match="ast_trunk_bwd_group"):
+        chain.group_bwd(*args, bad, clip)
+    with pytest.raises(TypeError):
+        chain.group_bwd(args[0].double(), *args[1:], good, clip)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trunk_backward_with_the_wavefront_switch_on_card(dev, dtype, monkeypatch):
+    """dils (1, 2, 4, 8, 64): with the switch on the backward is one K2-wf
+    launch and one K2 launch, and equals the five K2 launches bit for bit."""
+    rng = np.random.RandomState(5)
+    c, dils, emit = chain.WIDTH, (1, 2, 4, 8, 64), (1, 3, 4)
+    arrs = [rng.randn(2, 256, c), rng.randn(5, 3, c, c) * 0.05, rng.randn(5, c) * 0.1,
+            rng.randn(5, c, c) * 0.05, rng.randn(5, c) * 0.1]
+    cts = [torch.tensor(rng.randn(2, 256, c), dtype=torch.float32, device=dev).to(dtype)
+           for _ in emit]
+    grads = {}
+    for on in (False, True):
+        monkeypatch.setattr(chain, "_BWD_WAVEFRONT", on)
+        ts = [torch.tensor(a, dtype=torch.float32, device=dev).to(dtype) for a in arrs]
+        ts[0].requires_grad_(True)
+        _build.reset_launches()
+        taps = chain.fused_trunk(*ts, dils, emit)
+        (grads[on],) = torch.autograd.grad(taps, ts[0], cts)
+        torch.cuda.synchronize()
+        want = {"K1": 5, "K2": 1, "K2wf": 1} if on else {"K1": 5, "K2": 5, "K2wf": 0}
+        assert {k: _build.LAUNCHES[k] for k in want} == want
+    assert torch.equal(grads[True], grads[False])
+
+
 def test_launch_counters_count_kernel_calls(dev):
     _build.reset_launches()
     taps = [torch.ones((1, 64, 32), device=dev) for _ in range(2)]

@@ -1,10 +1,13 @@
-"""The port imports no JAX, builds nothing at import, and chip_smoke.py
+"""The port imports no JAX and nothing of the JAX package (at import, in a
+CLI run, or in its source), builds nothing at import, and chip_smoke.py
 refuses to run without a GPU.
 
 Subprocesses, because tests/conftest.py imports jax into this process.
 """
 
+import glob
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -14,10 +17,18 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MODULES = [
     "audio_style_transfer_tpu_torch",
+    "audio_style_transfer_tpu_torch.utils.audio_io",
+    "audio_style_transfer_tpu_torch.utils.paths",
+    "audio_style_transfer_tpu_torch.analysis.spectrogram",
+    "audio_style_transfer_tpu_torch.analysis.viz",
+    "audio_style_transfer_tpu_torch.analysis.nmf",
+    "audio_style_transfer_tpu_torch.analysis.ot",
     "audio_style_transfer_tpu_torch.signal.mu_law",
+    "audio_style_transfer_tpu_torch.signal.stft",
     "audio_style_transfer_tpu_torch.ops.conv",
     "audio_style_transfer_tpu_torch.ops._build",
     "audio_style_transfer_tpu_torch.ops.chain",
+    "audio_style_transfer_tpu_torch.ops.encoder",
     "audio_style_transfer_tpu_torch.ops.gram",
     "audio_style_transfer_tpu_torch.models.wavenet_ae",
     "audio_style_transfer_tpu_torch.ckpt.convert",
@@ -25,6 +36,7 @@ MODULES = [
     "audio_style_transfer_tpu_torch.transfer.losses",
     "audio_style_transfer_tpu_torch.transfer.lbfgs",
     "audio_style_transfer_tpu_torch.transfer.engine",
+    "audio_style_transfer_tpu_torch.transfer.longform",
     "audio_style_transfer_tpu_torch.cli.transfer",
     "chip_smoke",
 ]
@@ -37,18 +49,55 @@ def _run(code, cwd=REPO, args=()):
                           capture_output=True, text=True, timeout=300)
 
 
-def test_port_imports_no_jax_and_builds_nothing():
+def test_port_imports_no_jax_and_builds_nothing(tmp_path):
+    """Every module of the port, then a one-epoch CPU run of its CLI, in one
+    subprocess: no JAX, no module of the JAX package, no kernel library."""
     code = (
-        "import importlib, sys\n"
+        "import importlib, sys, wave\n"
+        "import numpy as np, torch\n"
+        "torch.set_num_threads(2)\n"
         f"for m in {MODULES!r}: importlib.import_module(m)\n"
         "from audio_style_transfer_tpu_torch.ops import _build\n"
         "assert _build._lib is None, 'a kernel library was loaded at import'\n"
-        "bad = [m for m in ('jax', 'jaxlib', 'triton', 'matplotlib') if m in sys.modules]\n"
+        "def foreign():\n"
+        "    return [m for m in sys.modules if m in ('jax', 'jaxlib', 'triton', 'matplotlib',\n"
+        "            'audio_style_transfer_tpu') or m.startswith('audio_style_transfer_tpu.')]\n"
+        "assert not foreign(), ('imported', foreign())\n"
+        "tmp = sys.argv[1]\n"
+        "for name, f in (('tone', 220.0), ('square', 330.0)):\n"
+        "    x = 0.5 * np.sin(2 * np.pi * f * np.arange(9600) / 16000.0)\n"
+        "    with wave.open(f'{tmp}/{name}.wav', 'wb') as w:\n"
+        "        w.setnchannels(1); w.setsampwidth(2); w.setframerate(16000)\n"
+        "        w.writeframes((x * 32767.0).astype('<i2').tobytes())\n"
+        "from audio_style_transfer_tpu_torch.cli.transfer import main\n"
+        "main(['tone', 'square', '--dir', tmp, '--outdir', tmp + '/out', '--logdir',\n"
+        "      tmp + '/log', '--device', 'cpu', '--random_init', '--no_artifacts', '--stack',\n"
+        "      '0', '--batch_size', '4096', '--epochs', '1', '--maxiter', '2', '--start', '0.1'])\n"
+        "bad = [m for m in foreign() if m != 'matplotlib']\n"
         "print('imported:', bad)\n"
-        "sys.exit(1 if bad else 0)\n"
+        "sys.exit(1 if bad or _build._lib is not None else 0)\n"
     )
-    r = _run(code)
+    r = _run(code, args=(str(tmp_path),))
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
+    assert "optimized 1 epochs" in r.stdout
+
+
+def test_port_sources_name_no_module_of_the_jax_package():
+    """No source of the port and not chip_smoke.py holds an import of jax or
+    of the JAX package, in any of the three forms."""
+    forms = re.compile(
+        r"^\s*(import\s+audio_style_transfer_tpu(\.|\s|$)"
+        r"|from\s+audio_style_transfer_tpu(\.[\w.]*)?\s+import"
+        r"|import\s+jax\b|from\s+jax\b)", re.M)
+    files = glob.glob(os.path.join(REPO, "audio_style_transfer_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 20
+    hits = []
+    for path in files:
+        with open(path) as f:
+            hits += [(os.path.relpath(path, REPO), m.group(0).strip())
+                     for m in forms.finditer(f.read())]
+    assert not hits, hits
 
 
 @pytest.mark.parametrize("where", ["repo", "alone"])

@@ -88,11 +88,18 @@ def test_embeds_loss_and_waveform_gradient_match_jax(setup):
 
 
 def test_gamma_regularizer_not_ported(setup):
+    """gamma != 0 no longer raises: the loss gains gamma times the STFT L1
+    regularizer, equal to the JAX loss (tests/test_torch_stft.py holds the
+    components and the gradient)."""
     s = setup
     spec = dataclasses.replace(s["spec_t"], gamma=1.0)
-    with pytest.raises(NotImplementedError, match="stft_l1"):
-        tlosses.transfer_loss(s["tp"], t(s["xq"]), t(s["phi_c"]), t(s["phi_s"]),
-                              TCfg(**TOY), spec)
+    loss, parts = tlosses.transfer_loss(s["tp"], t(s["xq"]), t(s["phi_c"]), t(s["phi_s"]),
+                                        TCfg(**TOY), spec)
+    want, _ = jlosses.transfer_loss(s["jp"], jnp.asarray(s["xq"]), jnp.asarray(s["phi_c"]),
+                                    jnp.asarray(s["phi_s"]), JCfg(**TOY),
+                                    dataclasses.replace(s["spec_j"], gamma=1.0))
+    assert float(parts["regularizer"]) > 0
+    np.testing.assert_allclose(float(loss), float(want), rtol=RTOL)
 
 
 def test_lbfgs_zoom_on_quadratic_matches_jax():
@@ -136,9 +143,12 @@ def test_lbfgs_zoom_on_toy_transfer_loss_matches_jax(setup):
 
 
 def test_mt_line_search_not_ported():
-    with pytest.raises(NotImplementedError, match="zoom"):
-        tlbfgs.lbfgs_minimize(lambda x: (x.sum(), torch.ones_like(x)), torch.zeros(3),
-                              tlbfgs.LBFGSOptions(line_search="mt"))
+    """line_search="mt" no longer raises: it is the default, as in JAX, and
+    minimizes (tests/test_torch_mt_line_search.py holds it to SciPy and JAX)."""
+    res = tlbfgs.lbfgs_minimize(lambda x: (torch.sum((x - 1.0) ** 2), 2.0 * (x - 1.0)),
+                                torch.zeros(3), tlbfgs.LBFGSOptions(line_search="mt"))
+    assert tlbfgs.LBFGSOptions().line_search == "mt"
+    assert res.status in (0, 1) and float(res.f) < 1e-10
 
 
 def test_engine_two_epochs_match_jax(setup):
