@@ -1,5 +1,13 @@
-// Encoder trunk kernels: one residual block per launch, forward (K1) and the
-// mask-only waveform backward (K2).
+// Encoder trunk kernels with float32 FMA products: one residual block per
+// launch, forward (K1) and the mask-only waveform backward (K2).
+//
+// This file is the float32 path of K1 and K2 (TF32 would not keep float32's
+// digits, so float32 products stay on the CUDA cores), the code the
+// per-layer encoder blocks K7f and K7b run in both types, and (through
+// trunk_tiles.h) what the grouped backward K2-wf is built on. For bfloat16
+// tensors K1 and K2 run on the tensor cores instead (trunk_mma.cu); the
+// bfloat16 instantiation here stays callable (ops/chain.py::layer_fwd_fma,
+// layer_bwd_fma) for comparisons.
 //
 // Replaces: audio_style_transfer_tpu/ops/pallas_chain.py::_fwd_group_kernel
 // (K1) and ::_bwd_group_kernel (K2). The TPU kernels chain groups of up to
@@ -27,10 +35,10 @@
 // out and mask out; the shifted re-reads hit L2). The products run as float32
 // FMAs on the CUDA cores (67 TFLOP/s peak), so the kernel is compute-bound at
 // roughly 32 us per layer and direction at best, against about 3 us for the
-// bytes. This first version keeps the arithmetic exact and simple (f32 FMA
+// bytes. This version keeps the arithmetic exact and simple (f32 FMA
 // register tiles of 4x8 per thread, 64-row blocks, 16-deep K chunks staged in
-// shared memory); moving the products onto the tensor cores (mma/wgmma) is
-// the later step. Chaining the small dilations of the backward in one launch
+// shared memory); the bfloat16 products of K1 and K2 run on the tensor cores
+// in trunk_mma.cu. Chaining the small dilations of the backward in one launch
 // is K2-wf (trunk_wf.cu).
 //
 // The per-layer encoder block (K7f forward, K7b backward) replaces

@@ -31,6 +31,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "ast_trunk_fwd": [_P] * 8 + [_I] * 4 + [_P],
     "ast_trunk_bwd": [_P] * 8 + [_I] * 4 + [_P],
+    "ast_trunk_fwd_mma": [_P] * 8 + [_I] * 3 + [_P],
+    "ast_trunk_bwd_mma": [_P] * 8 + [_I] * 3 + [_P],
+    "ast_trunk_bwd_dy_mma": [_P] * 5 + [_I] + [_P],
+    "ast_trunk_bwd_dx_mma": [_P] * 6 + [_I] * 3 + [_P],
+    "ast_product_mma": [_P] * 3 + [_I] * 2 + [_P],
     "ast_trunk_bwd_group": ([_P, ctypes.POINTER(_P), ctypes.POINTER(_P)] + [_P] * 4
                             + [ctypes.POINTER(_I)] * 2 + [_I] * 5 + [_P]),
     "ast_encoder_fwd": [_P] * 6 + [_I] * 4 + [_P],

@@ -3,11 +3,13 @@ audio_style_transfer_tpu/ops/pallas_chain.py).
 
 The trunk is the stack of residual blocks
 ``x_{j+1} = x_j + relu(conv3_d(relu x_j) + b_d) @ W_res + b_res`` on
-[T, 128] activations. Its forward (K1, csrc/trunk.cu) runs one layer per
-launch and stashes one mask byte per element (bit 0: x_{j+1} > 0, bit 1:
-the gate y_j > 0; the first layer also writes the trunk input's relu mask).
-Its backward (K2) computes the waveform cotangent from those masks alone,
-four matmuls per layer, never reading an activation. With
+[T, 128] activations. Its forward (K1) runs one layer per launch and stashes
+one mask byte per element (bit 0: x_{j+1} > 0, bit 1: the gate y_j > 0; the
+first layer also writes the trunk input's relu mask). Its backward (K2)
+computes the waveform cotangent from those masks alone, four matmuls per
+layer, never reading an activation. K1 and K2 have two implementations,
+chosen by the tensor's dtype: bfloat16 runs on the tensor cores
+(csrc/trunk_mma.cu), float32 as float32 FMAs (csrc/trunk.cu). With
 ``_BWD_WAVEFRONT`` on (``AST_CHAIN_BWD_WAVEFRONT=1``; off by default, as in
 the JAX package) runs of up to four layers with small dilations go through
 one launch of the grouped wavefront backward (K2-wf, csrc/trunk_wf.cu),
@@ -302,6 +304,8 @@ def check_cuda(name: str, t: torch.Tensor, shape, dtype, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must be aligned to 16 bytes")
 
 
 def check_layer(x, clip_rows):
@@ -315,13 +319,18 @@ def check_layer(x, clip_rows):
         raise ValueError(f"rows {x.shape[0]} must be a multiple of clip_rows {clip_rows}")
 
 
-def layer_fwd(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = False):
-    """One trunk layer forward: K1 on CUDA, the plain version on the CPU.
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
-    x [rows, C] (rows = clips * clip_rows), wd [3, C, C], wr [C, C] in x's
-    dtype; bd, br [C] float32. Returns (out, mask, inmask or None)."""
-    if x.device.type == "cpu":
-        return layer_fwd_plain(x, wd, bd, wr, br, d, clip_rows, want_inmask)
+
+def _check_bf16(t):
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"the tensor-core kernels take bfloat16, got {t.dtype}")
+
+
+def _layer_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool, mma: bool):
+    """Launch K1 on CUDA tensors: the tensor-core kernel (bfloat16 only) when
+    ``mma``, else the float32-FMA kernel in x's dtype."""
     check_layer(x, clip_rows)
     c, dev, dt = WIDTH, x.device, x.dtype
     check_cuda("x", x, x.shape, dt, dev)
@@ -332,39 +341,132 @@ def layer_fwd(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = Fal
     out = torch.empty_like(x)
     mask = torch.empty(x.shape, dtype=torch.uint8, device=dev)
     inmask = torch.empty_like(mask) if want_inmask else None
-    status = _build.lib().ast_trunk_fwd(
-        x.data_ptr(), wd.data_ptr(), bd.data_ptr(), wr.data_ptr(), br.data_ptr(),
-        out.data_ptr(), mask.data_ptr(),
-        inmask.data_ptr() if inmask is not None else None,
-        x.shape[0], clip_rows, d, int(dt == torch.bfloat16), _build.stream_ptr(dev))
-    _build.check(status, "ast_trunk_fwd")
+    args = (x.data_ptr(), wd.data_ptr(), bd.data_ptr(), wr.data_ptr(), br.data_ptr(),
+            out.data_ptr(), mask.data_ptr(), _ptr(inmask), x.shape[0], clip_rows, d)
+    if mma:
+        name = "ast_trunk_fwd_mma"
+        status = _build.lib().ast_trunk_fwd_mma(*args, _build.stream_ptr(dev))
+    else:
+        name = "ast_trunk_fwd"
+        status = _build.lib().ast_trunk_fwd(*args, int(dt == torch.bfloat16),
+                                            _build.stream_ptr(dev))
+    _build.check(status, name)
     _build.LAUNCHES["K1"] += 1
     return out, mask, inmask
 
 
-def layer_bwd(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
-    """One trunk layer backward: K2 on CUDA, the plain version on the CPU."""
-    if dxn.device.type == "cpu":
-        return layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d, clip_rows)
+def layer_fwd(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = False):
+    """One trunk layer forward: K1 on CUDA (bfloat16: the tensor-core kernel
+    of csrc/trunk_mma.cu; float32: the FMA kernel of csrc/trunk.cu), the
+    plain version on the CPU.
+
+    x [rows, C] (rows = clips * clip_rows), wd [3, C, C], wr [C, C] in x's
+    dtype; bd, br [C] float32. Returns (out, mask, inmask or None)."""
+    if x.device.type == "cpu":
+        return layer_fwd_plain(x, wd, bd, wr, br, d, clip_rows, want_inmask)
+    return _layer_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, want_inmask,
+                           mma=x.dtype == torch.bfloat16)
+
+
+def layer_fwd_fma(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = False):
+    """K1's FMA kernel (csrc/trunk.cu) in x's dtype, bfloat16 included: the
+    code K7f, K7b and K2-wf are built on. For comparisons only; no transfer
+    path calls it."""
+    return _layer_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, want_inmask, mma=False)
+
+
+def _check_layer_bwd(dxn, dtap, mask, inmask, wd, wr, clip_rows: int):
     check_layer(dxn, clip_rows)
     c, dev, dt = WIDTH, dxn.device, dxn.dtype
     check_cuda("dxn", dxn, dxn.shape, dt, dev)
     if dtap is not None:
         check_cuda("dtap", dtap, dxn.shape, dt, dev)
-    check_cuda("mask", mask, dxn.shape, torch.uint8, dev)
-    check_cuda("inmask", inmask, dxn.shape, torch.uint8, dev)
-    check_cuda("wd", wd, (3, c, c), dt, dev)
-    check_cuda("wr", wr, (c, c), dt, dev)
+    for name, m in (("mask", mask), ("inmask", inmask)):
+        if m is not None:
+            check_cuda(name, m, dxn.shape, torch.uint8, dev)
+    if wd is not None:
+        check_cuda("wd", wd, (3, c, c), dt, dev)
+    if wr is not None:
+        check_cuda("wr", wr, (c, c), dt, dev)
+
+
+def _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, mma: bool):
+    """Launch K2 (both phases) on CUDA tensors; ``mma`` as in ``_layer_fwd_cuda``."""
+    _check_layer_bwd(dxn, dtap, mask, inmask, wd, wr, clip_rows)
+    dev = dxn.device
     dy = torch.empty_like(dxn)
     dx = torch.empty_like(dxn)
-    status = _build.lib().ast_trunk_bwd(
-        dxn.data_ptr(), dtap.data_ptr() if dtap is not None else None,
-        mask.data_ptr(), inmask.data_ptr(), wd.data_ptr(), wr.data_ptr(),
-        dy.data_ptr(), dx.data_ptr(), dxn.shape[0], clip_rows, d,
-        int(dt == torch.bfloat16), _build.stream_ptr(dev))
-    _build.check(status, "ast_trunk_bwd")
+    args = (dxn.data_ptr(), _ptr(dtap), mask.data_ptr(), inmask.data_ptr(), wd.data_ptr(),
+            wr.data_ptr(), dy.data_ptr(), dx.data_ptr(), dxn.shape[0], clip_rows, d)
+    if mma:
+        name = "ast_trunk_bwd_mma"
+        status = _build.lib().ast_trunk_bwd_mma(*args, _build.stream_ptr(dev))
+    else:
+        name = "ast_trunk_bwd"
+        status = _build.lib().ast_trunk_bwd(*args, int(dxn.dtype == torch.bfloat16),
+                                            _build.stream_ptr(dev))
+    _build.check(status, name)
     _build.LAUNCHES["K2"] += 1
     return dx
+
+
+def layer_bwd(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
+    """One trunk layer backward: K2 on CUDA (bfloat16: csrc/trunk_mma.cu;
+    float32: csrc/trunk.cu), the plain version on the CPU."""
+    if dxn.device.type == "cpu":
+        return layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d, clip_rows)
+    return _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d, clip_rows,
+                           mma=dxn.dtype == torch.bfloat16)
+
+
+def layer_bwd_fma(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
+    """K2's FMA kernels (csrc/trunk.cu) in dxn's dtype, bfloat16 included: the
+    launches K2-wf equals bit for bit. For comparisons only; no transfer path
+    calls it."""
+    return _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d, clip_rows, mma=False)
+
+
+def layer_bwd_mma_phase1(dxn, dtap, mask, wr, clip_rows: int):
+    """Phase 1 of the bfloat16 K2 alone (for timing it): dy. Not counted as a
+    K2 launch."""
+    _check_bf16(dxn)
+    _check_layer_bwd(dxn, dtap, mask, None, None, wr, clip_rows)
+    dy = torch.empty_like(dxn)
+    status = _build.lib().ast_trunk_bwd_dy_mma(
+        dxn.data_ptr(), _ptr(dtap), mask.data_ptr(), wr.data_ptr(), dy.data_ptr(),
+        dxn.shape[0], _build.stream_ptr(dxn.device))
+    _build.check(status, "ast_trunk_bwd_dy_mma")
+    return dy
+
+
+def layer_bwd_mma_phase2(dxn, dtap, dy, inmask, wd, d: int, clip_rows: int):
+    """Phase 2 of the bfloat16 K2 alone (for timing it): dx from phase 1's dy.
+    Not counted as a K2 launch."""
+    _check_bf16(dxn)
+    _check_layer_bwd(dxn, dtap, None, inmask, wd, None, clip_rows)
+    check_cuda("dy", dy, dxn.shape, dxn.dtype, dxn.device)
+    dx = torch.empty_like(dxn)
+    status = _build.lib().ast_trunk_bwd_dx_mma(
+        dxn.data_ptr(), _ptr(dtap), dy.data_ptr(), inmask.data_ptr(), wd.data_ptr(),
+        dx.data_ptr(), dxn.shape[0], clip_rows, d, _build.stream_ptr(dxn.device))
+    _build.check(status, "ast_trunk_bwd_dx_mma")
+    return dx
+
+
+def product_mma(a, w, transposed: bool):
+    """a [rows, C] @ w [C, C] (or w^T) in float32 from bfloat16 CUDA tensors,
+    through the staging and fragment code of csrc/trunk_mma.cu: one product
+    of the tensor-core kernels alone, for testing them."""
+    check_layer(a, a.shape[0])
+    _check_bf16(a)
+    check_cuda("a", a, a.shape, torch.bfloat16, a.device)
+    check_cuda("w", w, (WIDTH, WIDTH), torch.bfloat16, a.device)
+    out = torch.empty(a.shape, dtype=_F32, device=a.device)
+    status = _build.lib().ast_product_mma(a.data_ptr(), w.data_ptr(), out.data_ptr(),
+                                          a.shape[0], int(transposed),
+                                          _build.stream_ptr(a.device))
+    _build.check(status, "ast_product_mma")
+    return out
 
 
 def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int):

@@ -11,10 +11,16 @@ Phases (any failure raises and exits non-zero):
   3. hold each kernel against its plain PyTorch version at full width
      (T=16384, C=128, the 30 trunk layers), in float32 with TF32 off and in
      bfloat16, and time both (CUDA events, median of runs): K1/K2 and
-     K7f/K7b layer by layer on the plain chain's own inputs, K2-wf on each
-     group of the wavefront plan (also against the K2 launches it replaces),
-     K5 and K6 on the stack-0 taps {0..9} (L=10) and on all 30 taps (L=30),
-     with one torch.einsum beside each gram kernel as a yardstick;
+     K7f/K7b layer by layer on the plain chain's own inputs (K1/K2 are the
+     tensor-core kernels in bfloat16 and the FMA kernels in float32; the
+     FMA kernels are also held against them and timed beside them, and the
+     bfloat16 K2 is timed per phase), K2-wf on each group of the wavefront
+     plan (bit for bit against the FMA K2 launches it is built on, and
+     against the K2 launches it replaces), K5 and K6 on the stack-0 taps
+     {0..9} (L=10) and on all 30 taps (L=30), with one torch.einsum beside
+     each gram kernel as a yardstick; then a bare bfloat16 loss+gradient
+     evaluation at stack 0 and at the full stack, CUDA events beside the
+     host clock;
   4. one float32 loss + waveform gradient on the card against the plain
      versions on the CPU, for stack 0 and for the full stack (style taps
      0..29, content tap 25); the STFT L1 regularizer's value and gradient
@@ -94,12 +100,23 @@ def write_wav(path: str, x, sr: int = 16000) -> None:
         w.writeframes(pcm.tobytes())
 
 
-def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
+def cuda_ms(fn, reps: int = REPS, warmup: int = 3, graph: bool = False) -> float:
+    """Median milliseconds of fn() between two CUDA events. With ``graph``,
+    fn's launches are captured once into a CUDA graph and the replay is
+    timed: the device's time for them, free of the host's time to enqueue
+    each (which exceeds a kernel of some 10 us)."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            fn()
+        fn = captured.replay
+        fn()
+        torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
@@ -170,7 +187,7 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
 
     # K1 and K7f, layer by layer on the plain chain's own inputs.
     xs, masks, kmasks, inmask = [x0], [], [], None
-    k1_err, k7f_err, mask_share = 0.0, 0.0, 0.0
+    k1_err, k7f_err, mask_share, k1_fma_err, k1_fma_share = 0.0, 0.0, 0.0, 0.0, 0.0
     for j, d in enumerate(dils):
         out_p, m_p, im_p = chain.layer_fwd_plain(xs[-1], wd[j], bd[j], wr[j], br[j], d, T,
                                                  want_inmask=(j == 0))
@@ -180,6 +197,15 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         if rel > tol:
             raise AssertionError(f"K1 layer {j}: rel err {rel:.3e} > {tol}")
         k1_err = max(k1_err, abs_err)
+        # The FMA kernel in the same type: in bfloat16 the other
+        # implementation of K1, held against the tensor-core one.
+        out_f, m_f, _ = chain.layer_fwd_fma(xs[-1], wd[j], bd[j], wr[j], br[j], d, T)
+        abs_err, rel = rel_err(out_k, out_f)
+        fma_share = float((m_k != m_f).float().mean())
+        if rel > tol or fma_share > MASK_TOL:
+            raise AssertionError(f"K1 layer {j} against the FMA kernel: rel err {rel:.3e}, "
+                                 f"{fma_share:.2e} of mask bytes differ")
+        k1_fma_err, k1_fma_share = max(k1_fma_err, abs_err), max(k1_fma_share, fma_share)
         abs_err, rel = rel_err(encoder.block_fwd(xs[-1], wd[j], bd[j], wr[j], br[j], d, T),
                                out_p)
         if rel > tol:
@@ -194,15 +220,17 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
             raise AssertionError(f"K1 layer {j}: {share:.2e} of mask bytes differ")
         xs.append(out_p)
         masks.append(m_p)
-        kmasks.append(m_k)
+        kmasks.append(m_f)
     print(f"  K1 taps: max|d| {k1_err:.3e} over 30 layers (tol rel {tol:.0e}) ok; "
           f"mask bytes differing <= {mask_share:.2e} (tol {MASK_TOL:.0e}) ok")
+    print(f"  K1 against the FMA kernel: max|d| {k1_fma_err:.3e}, mask bytes differing <= "
+          f"{k1_fma_share:.2e} ok")
     print(f"  K7f out: max|d| {k7f_err:.3e} over 30 layers (tol rel {tol:.0e}) ok")
 
     # K2 and K7b, layer by layer on the plain chain's cotangents (and masks).
     dtaps = {j: (torch.randn((T, C), generator=gen, device=dev) * 1e-3).to(dt) for j in EMIT}
     dx = dtaps[LAYERS - 1]
-    k2_err, k7b_err = 0.0, 0.0
+    k2_err, k7b_err, k2_fma_err = 0.0, 0.0, 0.0
     gs, dxs = {}, {}
     for j in range(LAYERS - 1, -1, -1):
         dxs[j] = dx  # the cotangent of layer j's output, before its tap's
@@ -214,12 +242,18 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         if rel > tol:
             raise AssertionError(f"K2 layer {j}: rel err {rel:.3e} > {tol}")
         k2_err = max(k2_err, abs_err)
+        abs_err, rel = rel_err(
+            dx_k, chain.layer_bwd_fma(dx, dtap, masks[j], in_m, wd[j], wr[j], dils[j], T))
+        if rel > tol:
+            raise AssertionError(f"K2 layer {j} against the FMA kernel: rel err {rel:.3e}")
+        k2_fma_err = max(k2_fma_err, abs_err)
         gs[j] = dx if dtap is None else dx + dtap  # layer j's output cotangent
-        # K7b recomputes its gate y > 0 from x with K1's dilated-conv code,
-        # so its gate is bit 1 of K1's mask, whose flips against the plain
-        # gate are bounded above. Its plain version here takes that gate: a
-        # y within rounding of zero that flips would move the cotangent of
-        # its neighbourhood by about its own size.
+        # K7b recomputes its gate y > 0 from x with the FMA K1's
+        # dilated-conv code, so its gate is bit 1 of that kernel's mask
+        # (kmasks), whose flips against the plain gate are bounded above. Its
+        # plain version here takes that gate: a y within rounding of zero
+        # that flips would move the cotangent of its neighbourhood by about
+        # its own size.
         want = chain.layer_bwd_plain(gs[j], None, kmasks[j], (xs[j] > 0).to(torch.uint8),
                                      wd[j], wr[j], dils[j], T)
         abs_err, rel = rel_err(encoder.block_bwd(xs[j], gs[j], wd[j], bd[j], wr[j], dils[j], T),
@@ -228,13 +262,15 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
             raise AssertionError(f"K7b layer {j}: rel err {rel:.3e} > {tol}")
         k7b_err = max(k7b_err, abs_err)
         dx = dx_p
-    print(f"  K2 dx: max|d| {k2_err:.3e} over 30 layers (tol rel {tol:.0e}) ok")
+    print(f"  K2 dx: max|d| {k2_err:.3e} over 30 layers (tol rel {tol:.0e}) ok; against the "
+          f"FMA kernel max|d| {k2_fma_err:.3e} ok")
     print(f"  K7b dx: max|d| {k7b_err:.3e} over 30 layers (tol rel {tol:.0e}; plain version "
-          f"with K1's gate) ok")
+          f"with the FMA K1's gate) ok")
 
     # K2-wf on every group of the wavefront plan, on the plain chain's
-    # cotangents and masks: against its plain version, and against the
-    # single-layer K2 launches it replaces.
+    # cotangents and masks: against its plain version, bit for bit against
+    # the single-layer FMA K2 launches it is built on, and against the K2
+    # launches it replaces (in bfloat16 the tensor-core kernels).
     groups = [g for g in chain.plan_bwd_groups(dils, T, x0.element_size())
               if g.splits is not None]
     if not groups:
@@ -246,11 +282,11 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
                 [masks[j] for j in js], masks[g.j0 - 1] if g.j0 else inmask,
                 wd[g.j0:js[-1] + 1], wr[g.j0:js[-1] + 1])
 
-    def k2_chain(g):
+    def k2_chain(g, layer):
         dxn, gtaps, gmasks, in_m, gwd, gwr = group_args(g)
         for j in range(len(g.dils) - 1, -1, -1):
-            dxn = chain.layer_bwd(dxn, gtaps[j], gmasks[j], gmasks[j - 1] if j else in_m,
-                                  gwd[j], gwr[j], g.dils[j], T)
+            dxn = layer(dxn, gtaps[j], gmasks[j], gmasks[j - 1] if j else in_m,
+                        gwd[j], gwr[j], g.dils[j], T)
         return dxn
 
     wf_err, wf_vs_k2 = 0.0, 0.0
@@ -261,10 +297,16 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         if rel > tol:
             raise AssertionError(f"K2-wf group at layer {g.j0}: rel err {rel:.3e} > {tol}")
         wf_err = max(wf_err, abs_err)
-        wf_vs_k2 = max(wf_vs_k2, rel_err(got, k2_chain(g))[0])
+        if not torch.equal(got, k2_chain(g, chain.layer_bwd_fma)):
+            raise AssertionError(f"K2-wf group at layer {g.j0} differs from the FMA K2 launches")
+        abs_err, rel = rel_err(got, k2_chain(g, chain.layer_bwd))
+        if rel > tol:
+            raise AssertionError(f"K2-wf group at layer {g.j0} against K2: rel err {rel:.3e}")
+        wf_vs_k2 = max(wf_vs_k2, abs_err)
     print(f"  K2-wf dx: max|d| {wf_err:.3e} over {len(groups)} groups of dils "
-          f"{groups[0].dils} at tile {groups[0].tile} (tol rel {tol:.0e}) ok; against the "
-          f"K2 launches it replaces max|d| {wf_vs_k2:.3e}")
+          f"{groups[0].dils} at tile {groups[0].tile} (tol rel {tol:.0e}) ok; equal to the FMA "
+          f"K2 launches bit for bit; against the K2 launches it replaces max|d| "
+          f"{wf_vs_k2:.3e} (tol rel {tol:.0e}) ok")
 
     # K5 and K6 on the ten stack-0 taps and on all 30 taps.
     taps = {nl: [xs[j + 1][None] for j in range(nl)] for nl in (10, 30)}
@@ -303,24 +345,50 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
                     block(xs[j], wd[j], bd[j], wr[j], br[j], d, T)
         return run
 
+    # K1 and K2 are timed as a replayed CUDA graph of the 30 launches (the
+    # kernels' own time) and, beside it, as 30 eager wrapper calls (what a
+    # caller that enqueues them one by one sees: the host's time per call
+    # where that exceeds the kernel's).
     times = {
-        "K1": (cuda_ms(fwd(chain.layer_fwd)) / LAYERS,
+        "K1": (cuda_ms(fwd(chain.layer_fwd), graph=True) / LAYERS,
                cuda_ms(fwd(chain.layer_fwd_plain)) / LAYERS),
-        "K2": (cuda_ms(bwd(chain.layer_bwd)) / LAYERS,
+        "K2": (cuda_ms(bwd(chain.layer_bwd), graph=True) / LAYERS,
                cuda_ms(bwd(chain.layer_bwd_plain)) / LAYERS),
         "K7f": (cuda_ms(blocks(encoder.block_fwd, False)) / LAYERS,
                 cuda_ms(blocks(encoder.block_fwd_plain, False)) / LAYERS),
         "K7b": (cuda_ms(blocks(encoder.block_bwd, True)) / LAYERS,
                 cuda_ms(blocks(encoder.block_bwd_plain, True)) / LAYERS),
     }
+    fma_ms = {"K1": cuda_ms(fwd(chain.layer_fwd_fma), graph=True) / LAYERS,
+              "K2": cuda_ms(bwd(chain.layer_bwd_fma), graph=True) / LAYERS}
+    eager_ms = {"K1": cuda_ms(fwd(chain.layer_fwd)) / LAYERS,
+                "K2": cuda_ms(bwd(chain.layer_bwd)) / LAYERS}
+    if dt == torch.bfloat16:
+        # The tensor-core K2 phase by phase, on the plain chain's cotangents.
+        layer_args = [(dxs[j], dtaps.get(j) if j != LAYERS - 1 else None,
+                       masks[j - 1] if j > 0 else inmask) for j in range(LAYERS)]
+        dys = [chain.layer_bwd_mma_phase1(dxn, dtap, masks[j], wr[j], T)
+               for j, (dxn, dtap, _) in enumerate(layer_args)]
+        phase1 = cuda_ms(lambda: [chain.layer_bwd_mma_phase1(dxn, dtap, masks[j], wr[j], T)
+                                  for j, (dxn, dtap, _) in enumerate(layer_args)],
+                         graph=True) / LAYERS
+        phase2 = cuda_ms(lambda: [chain.layer_bwd_mma_phase2(dxn, dtap, dys[j], in_m, wd[j],
+                                                             dils[j], T)
+                                  for j, (dxn, dtap, in_m) in enumerate(layer_args)],
+                         graph=True) / LAYERS
+        print(f"  K2 time per launch by phase: dy {phase1:.4f} ms, dx {phase2:.4f} ms")
     ng = len(groups)
     times["K2wf"] = (
         cuda_ms(lambda: [chain.group_bwd(*group_args(g), g, T) for g in groups]) / ng,
         cuda_ms(lambda: [chain.group_bwd_plain(*group_args(g), g.dils, T, g.tile, g.splits)
                          for g in groups]) / ng)
-    k2_ms = cuda_ms(lambda: [k2_chain(g) for g in groups]) / ng
+    k2_ms = cuda_ms(lambda: [k2_chain(g, chain.layer_bwd) for g in groups], graph=True) / ng
+    k2_fma_ms = cuda_ms(lambda: [k2_chain(g, chain.layer_bwd_fma) for g in groups],
+                        graph=True) / ng
     print(f"  K2-wf time per group of {len(groups[0].dils)} layers: {times['K2wf'][0]:.4f} ms, "
-          f"against {k2_ms:.4f} ms for the {len(groups[0].dils)} K2 launches it replaces")
+          f"against {k2_ms:.4f} ms for the {len(groups[0].dils)} K2 launches it replaces "
+          f"(layer_bwd) and {k2_fma_ms:.4f} ms for the {len(groups[0].dils)} FMA K2 launches "
+          f"(layer_bwd_fma)")
     # One torch.einsum beside each gram kernel: a yardstick, used nowhere in
     # the port.
     library = {}
@@ -335,7 +403,9 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         library[f"K6 L={nl}"] = cuda_ms(lambda: torch.einsum("abc,btc->atc", h, e))
     for k, (ms, plain_ms) in times.items():
         lib = f", one einsum {library[k]:.4f} ms" if k in library else ""
-        print(f"  {k} time per launch: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms{lib}")
+        fma = (f" ({eager_ms[k]:.4f} ms per eager wrapper call), fma {fma_ms[k]:.4f} ms"
+               if k in fma_ms else "")
+        print(f"  {k} time per launch: kernel {ms:.4f} ms{fma}, plain {plain_ms:.4f} ms{lib}")
     errs.update({"K1": k1_err, "K2": k2_err, "K2wf": wf_err, "K7f": k7f_err, "K7b": k7b_err})
 
     # Bounds from these shapes. A product is one [T, C] x [C, C] matrix
@@ -414,6 +484,80 @@ def slice_phase(params, dev, style_ids, cont_ids) -> None:
           f"of max {float(gc.abs().max()):.3e} {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("waveform gradient: card and CPU paths disagree")
+
+
+# Bare-evaluation paths: overrides of the bf16 TransferSpec the CLI builds.
+EVAL_PATHS = {
+    "stack 0": dict(stack=0, cont_lyr_ids=(29,)),
+    "full stack": dict(stack=None, cont_lyr_ids=(25,)),
+}
+
+
+def make_eval(params, dev, **path):
+    """The bf16 engine of one path and its loss+gradient function, with the
+    targets the CLI computes from the synthetic clips: (vg, x), x the
+    content window in mu-law space. vg(x) returns (loss, gradient)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.signal.mu_law import mu_law_numpy
+    from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
+    from audio_style_transfer_tpu_torch.transfer.grams import l2_normalize
+    from audio_style_transfer_tpu_torch.transfer.losses import transfer_loss
+
+    spec = TransferSpec(**{**dict(batch_size=T, compute_dtype="bfloat16", fused_encoder=True,
+                                  write_artifacts=False, device=str(dev)), **path})
+    engine = StyleTransfer(spec, params)
+    content = synth_audio(2.0, kind="content")
+    style = synth_audio(2.0, kind="style")
+    phi_c = engine._tensor(engine.get_embeds(content[:T]))
+    phi = engine.get_embeds(content[:T], is_content=False)
+    phi = phi + engine.get_style_phi(style) - engine.get_style_phi(content)
+    phi_s = engine._tensor(l2_normalize(torch.as_tensor(phi), axes=(1, 2)))
+
+    def vg(x):
+        xv = x.detach().requires_grad_(True)
+        loss, _ = transfer_loss(engine.params, xv[None, :], phi_c, phi_s, engine.cfg,
+                                engine.loss_spec)
+        (g,) = torch.autograd.grad(loss, xv)
+        return loss.detach(), g
+
+    return vg, engine._tensor(mu_law_numpy(content[:T][None]))[0]
+
+
+def bare_eval_ms(vg, x, evals: int = 30) -> tuple[float, float]:
+    """(device, host) ms per evaluation of a loop of ``evals`` bare
+    loss+gradient evaluations: CUDA events around the loop (the stream's time,
+    idle gaps included) and the host clock around the same loop, drained."""
+    import torch
+
+    for _ in range(3):
+        loss, g = vg(x)
+    if not (math.isfinite(float(loss)) and bool(torch.isfinite(g).all())):
+        raise AssertionError("bare evaluation: the loss or the gradient is not finite")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(evals):
+        vg(x)
+    end.record()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) * 1e3 / evals
+    return start.elapsed_time(end) / evals, host
+
+
+def eval_phase(params, dev, smi: str) -> None:
+    """A bare bf16 loss+gradient evaluation at stack 0 and at the full stack."""
+    from audio_style_transfer_tpu_torch.ops import _build
+
+    for label, path in EVAL_PATHS.items():
+        vg, x = make_eval(params, dev, **path)
+        device_ms, host_ms = bare_eval_ms(vg, x)
+        _build.reset_launches()
+        vg(x)
+        per_eval = {k: v for k, v in _build.LAUNCHES.items() if v}
+        print(f"[eval bf16 {label}] device {device_ms:.3f} ms, host {host_ms:.3f} ms per "
+              f"evaluation over 30; kernel launches per evaluation {per_eval} ({smi})")
 
 
 def regularizer_phase(params, dev) -> None:
@@ -724,6 +868,7 @@ def main() -> int:
     slice_phase(params, dev, STYLE, (29,))
     slice_phase(params, dev, FULL, (25,))
     regularizer_phase(params, dev)
+    eval_phase(params, dev, smi)
     runs = {
         "cli stack 0": cli_phase(dev, "cli stack 0", ["--stack", "0"], {"K1", "K2", "K5"}),
         "cli full stack": cli_phase(dev, "cli full stack", ["--cont_lyrs", "25"],
@@ -738,9 +883,9 @@ def main() -> int:
 
     src = "audio_style_transfer_tpu_torch/csrc/"
     meta = {  # kernel: (name, source, replaces, the timing key)
-        "K1": ("trunk forward layer", src + "trunk.cu",
+        "K1": ("trunk forward layer", src + "trunk_mma.cu",
                "audio_style_transfer_tpu/ops/pallas_chain.py:521", "K1"),
-        "K2": ("trunk backward layer", src + "trunk.cu",
+        "K2": ("trunk backward layer", src + "trunk_mma.cu",
                "audio_style_transfer_tpu/ops/pallas_chain.py:672", "K2"),
         "K2wf": ("trunk backward wavefront group of 4 layers", src + "trunk_wf.cu",
                  "audio_style_transfer_tpu/ops/pallas_chain.py:851", "K2wf"),

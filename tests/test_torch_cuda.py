@@ -35,11 +35,31 @@ def _rel(a, b):
     return float((a.float() - b.float()).abs().max() / b.float().abs().max().clamp_min(1e-30))
 
 
+@pytest.mark.parametrize("transposed", [False, True])
+def test_tensor_core_product_matches_matmul(dev, transposed):
+    """One product through the bf16 kernels' staging (swizzled 16-byte chunks)
+    and ldmatrix / mma fragments, both weight orientations, 300 rows (a short
+    last tile), against torch.matmul in float32 on the same bf16 values."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    c = chain.WIDTH
+    a = torch.randn((300, c), generator=gen, device=dev).to(torch.bfloat16)
+    w = torch.randn((c, c), generator=gen, device=dev).to(torch.bfloat16)
+    got = chain.product_mma(a, w, transposed)
+    torch.cuda.synchronize()
+    wf = w.float().T if transposed else w.float()
+    # The same 128 float32 products per output, summed in another order.
+    assert _rel(got, a.float() @ wf) <= 2e-5
+
+
+# Three flattened clips. clip 96: rows (288) no multiple of the 128-row tile
+# and clip edges inside tiles; d >= clip: the outer taps read nothing;
+# d = 128 and 512 at clip 1024: the three-tile form of the activation buffer.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [1, 7, 256])
-def test_trunk_layer_kernels_match_plain(dev, dtype, d):
+@pytest.mark.parametrize("clip,d", [(256, 1), (256, 7), (256, 256), (96, 1), (96, 7), (96, 96),
+                                    (96, 128), (1024, 128), (1024, 512)])
+def test_trunk_layer_kernels_match_plain(dev, dtype, clip, d):
     gen = torch.Generator(device=dev).manual_seed(d)
-    c, clip = chain.WIDTH, 256
+    c = chain.WIDTH
     x = torch.randn((3 * clip, c), generator=gen, device=dev).to(dtype)
     wd = (torch.randn((3, c, c), generator=gen, device=dev) * 0.05).to(dtype)
     wr = (torch.randn((c, c), generator=gen, device=dev) * 0.05).to(dtype)
@@ -51,14 +71,51 @@ def test_trunk_layer_kernels_match_plain(dev, dtype, d):
     assert _rel(out_k, out_p) <= TOL[dtype]
     assert float((m_k != m_p).float().mean()) <= 1e-3
     assert torch.equal(im_k, im_p)
+    # The FMA kernels in the same dtype (for bfloat16 the other implementation).
+    out_f, m_f, im_f = chain.layer_fwd_fma(x, wd, bd, wr, br, d, clip, True)
+    torch.cuda.synchronize()
+    assert _rel(out_k, out_f) <= TOL[dtype]
+    assert float((m_k != m_f).float().mean()) <= 1e-3
+    assert torch.equal(im_k, im_f)
+    if dtype == torch.float32:
+        assert torch.equal(out_k, out_f)  # float32 is the FMA kernel
 
     dxn = torch.randn_like(x, dtype=torch.float32).to(dtype)
     dtap = torch.randn_like(x, dtype=torch.float32).to(dtype)
     for tap in (None, dtap):
         dx_p = chain.layer_bwd_plain(dxn, tap, m_p, im_p, wd, wr, d, clip)
         dx_k = chain.layer_bwd(dxn, tap, m_p, im_p, wd, wr, d, clip)
+        dx_f = chain.layer_bwd_fma(dxn, tap, m_p, im_p, wd, wr, d, clip)
         torch.cuda.synchronize()
         assert _rel(dx_k, dx_p) <= TOL[dtype]
+        assert _rel(dx_k, dx_f) <= TOL[dtype]
+        if dtype == torch.bfloat16:
+            dy = chain.layer_bwd_mma_phase1(dxn, tap, m_p, wr, clip)
+            dx_2 = chain.layer_bwd_mma_phase2(dxn, tap, dy, im_p, wd, d, clip)
+            torch.cuda.synchronize()
+            assert torch.equal(dx_2, dx_k)  # the phases alone are the same launches
+
+
+def test_trunk_kernels_choose_by_dtype_and_count(dev):
+    """bfloat16 and float32 both count under K1 / K2; a CPU tensor runs the
+    plain version and counts nothing; float64 is refused."""
+    c = chain.WIDTH
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.ones((64, c), device=dev, dtype=dtype)
+        wd, w = torch.zeros((3, c, c), device=dev, dtype=dtype), torch.zeros((c, c), device=dev,
+                                                                             dtype=dtype)
+        b = torch.zeros((c,), device=dev)
+        _build.reset_launches()
+        out, m, im = chain.layer_fwd(x, wd, b, w, b, 1, 64, True)
+        chain.layer_bwd(x, None, m, im, wd, w, 1, 64)
+        chain.layer_fwd(x.cpu(), wd.cpu(), b.cpu(), w.cpu(), b.cpu(), 1, 64)
+        torch.cuda.synchronize()
+        assert torch.equal(out, x) and int(m.min()) == 1 and int(im.min()) == 1
+        assert _build.LAUNCHES["K1"] == 1 and _build.LAUNCHES["K2"] == 1
+        with pytest.raises(TypeError):
+            chain.layer_fwd(x.double(), wd, b, w, b, 1, 64)
+    with pytest.raises(TypeError):
+        chain.product_mma(torch.ones((64, c), device=dev), w, False)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -191,9 +248,10 @@ def _wf_inputs(dev, dtype, dils, rows, missing=(), seed=0):
                                           ((1, 2, 4), (1,)), ((2, 4), ()), ((8, 4, 2, 1), ())])
 def test_wavefront_group_kernel_matches_plain_and_the_k2_chain(dev, dtype, dils, missing):
     """K2-wf on three flattened clips of 256 rows (halos cross clip edges):
-    against its plain version at the trunk tolerances, and bit for bit
-    against the single-layer K2 launches it replaces (same products, same
-    order per row)."""
+    against its plain version at the trunk tolerances, bit for bit against
+    the single-layer FMA K2 launches built on the same code (same products,
+    same order per row), and against the K2 launches ``layer_bwd`` makes:
+    bit for bit in float32, at the tolerance in bfloat16 (tensor cores)."""
     clip = 256
     args = _wf_inputs(dev, dtype, dils, 3 * clip, missing)
     group = chain.plan_bwd_groups(dils, clip, args[0].element_size())[0]
@@ -205,12 +263,19 @@ def test_wavefront_group_kernel_matches_plain_and_the_k2_chain(dev, dtype, dils,
     want = chain.group_bwd_plain(*args, dils, clip, group.tile, group.splits)
     assert got.dtype == dtype and _rel(got, want) <= TOL[dtype]
     dxn, dtaps, masks, inmask, wd, wr = args
-    dx = dxn
-    for j in range(len(dils) - 1, -1, -1):
-        dx = chain.layer_bwd(dx, dtaps[j], masks[j], masks[j - 1] if j else inmask,
-                             wd[j], wr[j], dils[j], clip)
+    chains = {}
+    for layer in (chain.layer_bwd_fma, chain.layer_bwd):
+        dx = dxn
+        for j in range(len(dils) - 1, -1, -1):
+            dx = layer(dx, dtaps[j], masks[j], masks[j - 1] if j else inmask,
+                       wd[j], wr[j], dils[j], clip)
+        chains[layer] = dx
     torch.cuda.synchronize()
-    assert torch.equal(got, dx)
+    assert torch.equal(got, chains[chain.layer_bwd_fma])
+    if dtype == torch.float32:
+        assert torch.equal(got, chains[chain.layer_bwd])
+    else:
+        assert _rel(got, chains[chain.layer_bwd]) <= TOL[dtype]
 
 
 def test_wavefront_group_kernel_refuses_what_it_does_not_take(dev):
@@ -233,7 +298,10 @@ def test_wavefront_group_kernel_refuses_what_it_does_not_take(dev):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_trunk_backward_with_the_wavefront_switch_on_card(dev, dtype, monkeypatch):
     """dils (1, 2, 4, 8, 64): with the switch on the backward is one K2-wf
-    launch and one K2 launch, and equals the five K2 launches bit for bit."""
+    launch and one K2 launch. It equals the five K2 launches bit for bit where
+    K2 is the FMA kernel K2-wf is built on (float32; bfloat16 with
+    ``layer_bwd_fma`` in ``layer_bwd``'s place), and at the tolerance against
+    the tensor-core K2 in bfloat16."""
     rng = np.random.RandomState(5)
     c, dils, emit = chain.WIDTH, (1, 2, 4, 8, 64), (1, 3, 4)
     arrs = [rng.randn(2, 256, c), rng.randn(5, 3, c, c) * 0.05, rng.randn(5, c) * 0.1,
@@ -241,17 +309,24 @@ def test_trunk_backward_with_the_wavefront_switch_on_card(dev, dtype, monkeypatc
     cts = [torch.tensor(rng.randn(2, 256, c), dtype=torch.float32, device=dev).to(dtype)
            for _ in emit]
     grads = {}
-    for on in (False, True):
-        monkeypatch.setattr(chain, "_BWD_WAVEFRONT", on)
-        ts = [torch.tensor(a, dtype=torch.float32, device=dev).to(dtype) for a in arrs]
-        ts[0].requires_grad_(True)
-        _build.reset_launches()
-        taps = chain.fused_trunk(*ts, dils, emit)
-        (grads[on],) = torch.autograd.grad(taps, ts[0], cts)
-        torch.cuda.synchronize()
-        want = {"K1": 5, "K2": 1, "K2wf": 1} if on else {"K1": 5, "K2": 5, "K2wf": 0}
-        assert {k: _build.LAUNCHES[k] for k in want} == want
-    assert torch.equal(grads[True], grads[False])
+    for fma in (False, True):
+        if fma:
+            monkeypatch.setattr(chain, "layer_bwd", chain.layer_bwd_fma)
+        for on in (False, True):
+            monkeypatch.setattr(chain, "_BWD_WAVEFRONT", on)
+            ts = [torch.tensor(a, dtype=torch.float32, device=dev).to(dtype) for a in arrs]
+            ts[0].requires_grad_(True)
+            _build.reset_launches()
+            taps = chain.fused_trunk(*ts, dils, emit)
+            (grads[fma, on],) = torch.autograd.grad(taps, ts[0], cts)
+            torch.cuda.synchronize()
+            want = {"K1": 5, "K2": 1, "K2wf": 1} if on else {"K1": 5, "K2": 5, "K2wf": 0}
+            assert {k: _build.LAUNCHES[k] for k in want} == want
+    assert torch.equal(grads[True, True], grads[True, False])
+    if dtype == torch.float32:
+        assert torch.equal(grads[False, True], grads[False, False])
+    else:
+        assert _rel(grads[False, True], grads[False, False]) <= TOL[dtype]
 
 
 def test_launch_counters_count_kernel_calls(dev):
