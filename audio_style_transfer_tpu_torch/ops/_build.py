@@ -41,7 +41,7 @@ _SIGNATURES = {
     "ast_encoder_fwd": [_P] * 6 + [_I] * 4 + [_P],
     "ast_encoder_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "ast_pair_gram": [ctypes.POINTER(_P)] + [_I] * 6 + [_P] * 3,
-    "ast_pair_gram_bwd": [ctypes.POINTER(_P)] * 2 + [_I] * 5 + [_P] * 2,
+    "ast_pair_gram_bwd": [ctypes.POINTER(_P)] * 2 + [_I] * 6 + [_P] * 2,
 }
 
 _lock = threading.Lock()

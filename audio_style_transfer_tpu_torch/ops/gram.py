@@ -6,28 +6,73 @@ audio_style_transfer_tpu/ops/pallas_gram.py).
 whatever the taps' dtype. The forward is K5 (csrc/gram.cu) on CUDA tensors
 and the plain einsum (``pair_gram_reference``) on CPU tensors.
 
-The backward follows the JAX routing (pallas_gram.py ``_vjp_bwd``): with
-h = g + g^T in float32, ``dE_a = sum_b h[:, a, b] * E_b``. For L <= 15 taps
-and T <= 32768 it is the plain composition, which is what JAX itself runs
-there (the stack-0 path). Beyond that (the full stack, L=30) it is
-``pair_gram_bwd``: K6 (csrc/gram.cu) on CUDA tensors, the plain composition
-on CPU tensors.
+The backward, with h = g + g^T in float32, is ``dE_a = sum_b h[:, a, b] *
+E_b``: ``pair_gram_bwd``, which is K6 (csrc/gram.cu) on CUDA tensors at any
+L and the plain composition (``pair_gram_bwd_plain``) on CPU tensors. The
+JAX package keeps the plain composition for L <= 15 and T <= 32768
+(pallas_gram.py ``_vjp_bwd``); that threshold is a profile of its own
+device and is not taken over. On an NVIDIA H100 80GB HBM3 at 700 W (bf16,
+T=16384, C=128) the plain composition at L=10 is some 200 launches and 2.2
+ms, K6 one launch (PERF.md has the kernels' times).
+
+The kernels' launch geometry is chosen here, by plain functions the CPU
+tests reach: the tap bucket the kernels are compiled for, K5's time rows per
+partial sum and K6's time rows per block.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from audio_style_transfer_tpu_torch.ops import _build
 
-PLAIN_BWD_MAX_L = 15
-PLAIN_BWD_MAX_T = 32768
-MAX_TAPS = 32       # taps per K5 or K6 launch
-CHANNEL_BLOCK = 32  # K5 needs C to be a multiple of this
-CHUNK = 256         # time rows per K5 partial sum
+MAX_TAPS = 32           # taps per K5 or K6 launch
+CHANNEL_BLOCK = 8       # K5 needs C to be a multiple of this
 BWD_CHANNEL_BLOCK = 16  # K6 needs C to be a multiple of this
+ALIGN = 16              # bytes: the kernels move 16-byte and 4-byte pieces
+MIN_ROWS = 256          # fewest time rows a block is given
+BWD_STEP = 32           # K6 walks its rows 32 at a time
+# Blocks of K6 resident on an SM, by tap bucket (from the kernels' registers
+# and shared memory; csrc/gram.cu).
+BWD_RESIDENT = {8: 4, 16: 4, 24: 2, 32: 2}
+
+
+def tap_bucket(nl: int) -> int:
+    """The tap count the kernels are compiled for: L rounded up to 8."""
+    if not 1 <= nl <= MAX_TAPS:
+        raise ValueError(f"the gram kernels take 1..{MAX_TAPS} taps, got {nl}")
+    return -(-nl // 8) * 8
+
+
+def fwd_chunk_rows(b: int, t: int, c: int, sms: int) -> int:
+    """Time rows per K5 block: T is cut so that the grid (C / 8 channel
+    groups x chunks x B) is about one block an SM, and no finer than
+    MIN_ROWS. Each chunk leaves one partial sum per pair and channel."""
+    chunks = max(1, sms // (b * (c // CHANNEL_BLOCK)))
+    return max(-(-t // chunks), MIN_ROWS)
+
+
+def fwd_scratch_shape(b: int, t: int, c: int, nl: int, rows: int) -> tuple:
+    """K5's partial sums: the upper triangle's pairs, per chunk."""
+    return (b, -(-t // rows), nl * (nl + 1) // 2, c)
+
+
+def bwd_block_rows(b: int, t: int, c: int, nl: int, sms: int) -> int:
+    """Time rows per K6 block, a multiple of BWD_STEP: as few as still make
+    the grid (C / 16 channel groups x blocks x B) one wave of resident
+    blocks, and no fewer than MIN_ROWS (h is staged once per block)."""
+    slots = sms * BWD_RESIDENT[tap_bucket(nl)]
+    per_group = max(1, slots // (b * (c // BWD_CHANNEL_BLOCK)))
+    rows = -(-t // per_group)
+    return max(-(-rows // BWD_STEP) * BWD_STEP, MIN_ROWS)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def pair_gram_reference(*taps: torch.Tensor) -> torch.Tensor:
@@ -53,6 +98,8 @@ def _check_taps(taps, channel_block: int) -> None:
             raise ValueError(f"tap {i} differs from tap 0 in device, dtype or shape")
         if not t.is_contiguous():
             raise ValueError(f"tap {i} must be contiguous")
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"tap {i} must be aligned to {ALIGN} bytes")
 
 
 def pair_gram_fwd(*taps: torch.Tensor) -> torch.Tensor:
@@ -63,12 +110,12 @@ def pair_gram_fwd(*taps: torch.Tensor) -> torch.Tensor:
     nl = len(taps)
     b, t, c = taps[0].shape
     dev = taps[0].device
-    n_chunks = -(-t // CHUNK)
-    partial = torch.empty((b, n_chunks, nl, nl, c), dtype=torch.float32, device=dev)
+    rows = fwd_chunk_rows(b, t, c, _sm_count(dev.index))
+    partial = torch.empty(fwd_scratch_shape(b, t, c, nl, rows), dtype=torch.float32, device=dev)
     out = torch.empty((b, nl, nl, c), dtype=torch.float32, device=dev)
     ptrs = (ctypes.c_void_p * nl)(*[tp.data_ptr() for tp in taps])
     status = _build.lib().ast_pair_gram(
-        ptrs, nl, b, t, c, CHUNK, int(taps[0].dtype == torch.bfloat16),
+        ptrs, nl, b, t, c, rows, int(taps[0].dtype == torch.bfloat16),
         partial.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
     _build.check(status, "ast_pair_gram")
     _build.LAUNCHES["K5"] += 1
@@ -97,20 +144,24 @@ def pair_gram_bwd(taps, h: torch.Tensor):
     _check_taps(taps, BWD_CHANNEL_BLOCK)
     nl = len(taps)
     b, t, c = taps[0].shape
-    if (h.device != taps[0].device or h.dtype != torch.float32
-            or tuple(h.shape) != (b, nl, nl, c) or not h.is_contiguous()):
+    dev = taps[0].device
+    if (h.device != dev or h.dtype != torch.float32
+            or tuple(h.shape) != (b, nl, nl, c) or not h.is_contiguous()
+            or h.data_ptr() % ALIGN):
         raise ValueError(
-            f"h must be a contiguous float32 [{b}, {nl}, {nl}, {c}] tensor on "
-            f"{taps[0].device}, got {h.dtype} {tuple(h.shape)} on {h.device}")
-    outs = [torch.empty_like(tp) for tp in taps]
+            f"h must be a contiguous, {ALIGN}-byte aligned float32 [{b}, {nl}, {nl}, {c}] "
+            f"tensor on {dev}, got {h.dtype} {tuple(h.shape)} on {h.device}")
+    # One allocation for the L cotangents (each slice stays 16-byte aligned:
+    # C is a multiple of 16), handed out as its L views.
+    outs = torch.empty((nl, b, t, c), dtype=taps[0].dtype, device=dev).unbind(0)
     tap_ptrs = (ctypes.c_void_p * nl)(*[tp.data_ptr() for tp in taps])
     out_ptrs = (ctypes.c_void_p * nl)(*[o.data_ptr() for o in outs])
     status = _build.lib().ast_pair_gram_bwd(
-        tap_ptrs, out_ptrs, nl, b, t, c, int(taps[0].dtype == torch.bfloat16),
-        h.data_ptr(), _build.stream_ptr(taps[0].device))
+        tap_ptrs, out_ptrs, nl, b, t, c, bwd_block_rows(b, t, c, nl, _sm_count(dev.index)),
+        int(taps[0].dtype == torch.bfloat16), h.data_ptr(), _build.stream_ptr(dev))
     _build.check(status, "ast_pair_gram_bwd")
     _build.LAUNCHES["K6"] += 1
-    return tuple(outs)
+    return outs
 
 
 class PairGram(torch.autograd.Function):
@@ -123,8 +174,6 @@ class PairGram(torch.autograd.Function):
     def backward(ctx, g):
         taps = ctx.saved_tensors
         h = (g + g.transpose(1, 2)).to(torch.float32).contiguous()
-        if len(taps) <= PLAIN_BWD_MAX_L and taps[0].shape[1] <= PLAIN_BWD_MAX_T:
-            return pair_gram_bwd_plain(taps, h)
         return pair_gram_bwd(taps, h)
 
 

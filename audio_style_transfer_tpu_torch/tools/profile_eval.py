@@ -36,7 +36,7 @@ OURS = {"K1 mma": "trunk_fwd_mma", "K2 dy mma": "trunk_bwd_dy_mma",
         "K2 dx mma": "trunk_bwd_dx_mma", "K1/K7f fma": "trunk_fwd_kernel",
         "K2 dy fma": "trunk_bwd_dy_kernel", "K7b dy": "encoder_bwd_dy",
         "K2/K7b dx fma": "trunk_bwd_dx_kernel", "K2-wf": "trunk_bwd_wf",
-        "K5": "gram_partial", "K5 reduce": "gram_reduce", "K6": "gram_bwd"}
+        "K5": "gram_fwd", "K5 reduce": "gram_reduce", "K6": "gram_bwd"}
 PROFILED_EVALS = 10
 
 

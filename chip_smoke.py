@@ -17,10 +17,12 @@ Phases (any failure raises and exits non-zero):
      bfloat16 K2 is timed per phase), K2-wf on each group of the wavefront
      plan (bit for bit against the FMA K2 launches it is built on, and
      against the K2 launches it replaces), K5 and K6 on the stack-0 taps
-     {0..9} (L=10) and on all 30 taps (L=30), with one torch.einsum beside
-     each gram kernel as a yardstick; then a bare bfloat16 loss+gradient
-     evaluation at stack 0 and at the full stack, CUDA events beside the
-     host clock;
+     {0..9} (L=10) and on all 30 taps (L=30), and on two clips of a ragged
+     T, K5 twice on the same inputs for equal bits, both timed as a
+     replayed CUDA graph with one torch.einsum beside each as a yardstick;
+     then a bare bfloat16 loss+gradient evaluation at stack 0 and at the
+     full stack, CUDA events beside the host clock, with the kernel
+     launches of one evaluation;
   4. one float32 loss + waveform gradient on the card against the plain
      versions on the CPU, for stack 0 and for the full stack (style taps
      0..29, content tap 25); the STFT L1 regularizer's value and gradient
@@ -29,12 +31,13 @@ Phases (any failure raises and exits non-zero):
   5. drive the main paths, each with the launch counts set to 0 just before
      and read just after, checking that it launched exactly its kernels:
      the port's transfer CLI on two synthetic clips (bf16, random weights,
-     3 epochs) at stack 0 {K1, K2, K5} and at the full stack with
-     --cont_lyrs 25 {K1, K2, K5, K6}, one bf16 engine epoch of the
-     per-layer flavour at the full stack {K7f, K7b, K5, K6}, then the
-     chunked long-form CLI (4 windows, --longform --ot_components 8 --gamma
-     1e-3 --stack 0, 2 epochs) with the wavefront backward on {K1, K2, K2wf,
-     K5; K2wf = 3 and K2 = 18 per evaluation} and once more with it off;
+     3 epochs) at stack 0 and at the full stack with --cont_lyrs 25 {K1,
+     K2, K5, K6}, one bf16 engine epoch of the per-layer flavour at the full
+     stack {K7f, K7b, K5, K6}, then the chunked long-form CLI (4 windows,
+     --longform --ot_components 8 --gamma 1e-3 --stack 0, 2 epochs) with the
+     wavefront backward on {K1, K2, K2wf, K5, K6; K2wf = 3 and K2 = 18 per
+     evaluation} and once more with it off; in every run K6 is launched once
+     per evaluation that took a gradient, and K5 at least as often;
   6. print the per-kernel JSON line (time, plain time, bound, library time),
      then the result line.
 
@@ -76,6 +79,7 @@ KERNELS = ("K1", "K2", "K2wf", "K5", "K6", "K7f", "K7b")
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
 WINDOWS = 4  # windows of the long-form run
+RAGGED_T = 1000  # rows of the gram kernels' ragged check: no multiple of their tiles
 
 
 def synth_audio(seconds: float, sr: int = 16000, kind: str = "content"):
@@ -308,16 +312,26 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
           f"K2 launches bit for bit; against the K2 launches it replaces max|d| "
           f"{wf_vs_k2:.3e} (tol rel {tol:.0e}) ok")
 
-    # K5 and K6 on the ten stack-0 taps and on all 30 taps.
+    # K5 and K6 on the ten stack-0 taps and on all 30 taps; then on two
+    # clips of a T that ends inside a tile (the taps' first RAGGED_T rows and
+    # their last). K5 twice on the same inputs: its sums have a fixed order.
     taps = {nl: [xs[j + 1][None] for j in range(nl)] for nl in (10, 30)}
     hs = {nl: torch.randn((1, nl, nl, C), generator=gen, device=dev) for nl in (10, 30)}
     errs = {}
     for nl in (10, 30):
-        errs[f"K5 L={nl}"] = check(f"K5 gram L={nl}", gram.pair_gram_fwd(*taps[nl]),
-                                   gram.pair_gram_reference(*taps[nl]), tol)
-        errs[f"K6 L={nl}"] = check_all(f"K6 gram backward L={nl}",
-                                       gram.pair_gram_bwd(taps[nl], hs[nl]),
-                                       gram.pair_gram_bwd_plain(taps[nl], hs[nl]), tol)
+        ragged = [torch.stack([tp[0, :RAGGED_T], tp[0, -RAGGED_T:]]) for tp in taps[nl]]
+        h2 = torch.randn((2, nl, nl, C), generator=gen, device=dev)
+        for label, tp, h in ((f"L={nl}", taps[nl], hs[nl]),
+                             (f"L={nl}, B=2, T={RAGGED_T}", ragged, h2)):
+            got = gram.pair_gram_fwd(*tp)
+            if not torch.equal(got, gram.pair_gram_fwd(*tp)):
+                raise AssertionError(f"K5 gram {label}: two launches differ in their bits")
+            err = check(f"K5 gram {label} (two launches equal bit for bit)", got,
+                        gram.pair_gram_reference(*tp), tol)
+            errs[f"K5 L={nl}"] = max(errs.get(f"K5 L={nl}", 0.0), err)
+            err = check_all(f"K6 gram backward {label}", gram.pair_gram_bwd(tp, h),
+                            gram.pair_gram_bwd_plain(tp, h), tol)
+            errs[f"K6 L={nl}"] = max(errs.get(f"K6 L={nl}", 0.0), err)
 
     # Times: a whole trunk direction (30 launches) and one gram.
     def fwd(layer):
@@ -345,8 +359,8 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
                     block(xs[j], wd[j], bd[j], wr[j], br[j], d, T)
         return run
 
-    # K1 and K2 are timed as a replayed CUDA graph of the 30 launches (the
-    # kernels' own time) and, beside it, as 30 eager wrapper calls (what a
+    # K1, K2, K5 and K6 are timed as a replayed CUDA graph of their launches
+    # (the kernels' own time) and, beside it, as eager wrapper calls (what a
     # caller that enqueues them one by one sees: the host's time per call
     # where that exceeds the kernel's).
     times = {
@@ -393,19 +407,22 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     # the port.
     library = {}
     for nl in (10, 30):
-        times[f"K5 L={nl}"] = (cuda_ms(lambda: gram.pair_gram_fwd(*taps[nl])),
+        times[f"K5 L={nl}"] = (cuda_ms(lambda: gram.pair_gram_fwd(*taps[nl]), graph=True),
                                cuda_ms(lambda: gram.pair_gram_reference(*taps[nl])))
-        times[f"K6 L={nl}"] = (cuda_ms(lambda: gram.pair_gram_bwd(taps[nl], hs[nl])),
+        times[f"K6 L={nl}"] = (cuda_ms(lambda: gram.pair_gram_bwd(taps[nl], hs[nl]), graph=True),
                                cuda_ms(lambda: gram.pair_gram_bwd_plain(taps[nl], hs[nl])))
+        eager_ms[f"K5 L={nl}"] = cuda_ms(lambda: gram.pair_gram_fwd(*taps[nl]))
+        eager_ms[f"K6 L={nl}"] = cuda_ms(lambda: gram.pair_gram_bwd(taps[nl], hs[nl]))
         e = torch.cat(taps[nl])  # [L, T, C]
         h = hs[nl][0].to(dt)
         library[f"K5 L={nl}"] = cuda_ms(lambda: torch.einsum("atc,btc->abc", e, e))
         library[f"K6 L={nl}"] = cuda_ms(lambda: torch.einsum("abc,btc->atc", h, e))
     for k, (ms, plain_ms) in times.items():
         lib = f", one einsum {library[k]:.4f} ms" if k in library else ""
-        fma = (f" ({eager_ms[k]:.4f} ms per eager wrapper call), fma {fma_ms[k]:.4f} ms"
-               if k in fma_ms else "")
-        print(f"  {k} time per launch: kernel {ms:.4f} ms{fma}, plain {plain_ms:.4f} ms{lib}")
+        eager = f" ({eager_ms[k]:.4f} ms per eager wrapper call)" if k in eager_ms else ""
+        fma = f", fma {fma_ms[k]:.4f} ms" if k in fma_ms else ""
+        print(f"  {k} time per launch: kernel {ms:.4f} ms{eager}{fma}, plain {plain_ms:.4f} ms"
+              f"{lib}")
     errs.update({"K1": k1_err, "K2": k2_err, "K2wf": wf_err, "K7f": k7f_err, "K7b": k7b_err})
 
     # Bounds from these shapes. A product is one [T, C] x [C, C] matrix
@@ -546,8 +563,25 @@ def bare_eval_ms(vg, x, evals: int = 30) -> tuple[float, float]:
     return start.elapsed_time(end) / evals, host
 
 
+def device_launches(fn) -> int:
+    """Kernels, copies and memsets that one call of fn() puts on the card
+    (torch.profiler's device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    count = sum(e.count for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA)
+    if count <= 0:
+        raise RuntimeError("torch.profiler recorded no device event")
+    return count
+
+
 def eval_phase(params, dev, smi: str) -> None:
-    """A bare bf16 loss+gradient evaluation at stack 0 and at the full stack."""
+    """A bare bf16 loss+gradient evaluation at stack 0 and at the full stack:
+    its time, and what it launches (the gram backward is one K6)."""
     from audio_style_transfer_tpu_torch.ops import _build
 
     for label, path in EVAL_PATHS.items():
@@ -556,8 +590,11 @@ def eval_phase(params, dev, smi: str) -> None:
         _build.reset_launches()
         vg(x)
         per_eval = {k: v for k, v in _build.LAUNCHES.items() if v}
+        if per_eval != {"K1": LAYERS, "K2": LAYERS, "K5": 1, "K6": 1}:
+            raise AssertionError(f"[eval bf16 {label}] launched {per_eval}")
         print(f"[eval bf16 {label}] device {device_ms:.3f} ms, host {host_ms:.3f} ms per "
-              f"evaluation over 30; kernel launches per evaluation {per_eval} ({smi})")
+              f"evaluation over 30; {device_launches(lambda: vg(x))} launches per evaluation, of "
+              f"the hand-written kernels {per_eval} ({smi})")
 
 
 def regularizer_phase(params, dev) -> None:
@@ -726,7 +763,8 @@ def longform_phase(dev, wavefront: bool, epochs: int):
     if got != want or launches["K1"] % LAYERS or launches["K1"] < LAYERS * evals:
         raise AssertionError(f"{label}: launches {launches} for {evals} evals, expected {want} "
                              f"and K1 a multiple of {LAYERS} of at least {LAYERS * evals}")
-    check_launches(label, launches, {"K1", "K2", "K5"} | ({"K2wf"} if wavefront else set()))
+    check_launches(label, launches, {"K1", "K2", "K5", "K6"} | ({"K2wf"} if wavefront else set()),
+                   evals)
     print(f"[{label}] {WINDOWS} windows, {evals} L-BFGS evals (K2wf {launches['K2wf']}, K2 "
           f"{launches['K2']}, K1 {launches['K1']}) in {wall:.2f} s wall "
           f"({evals / wall:.2f} evals/s, setup included); OT target "
@@ -736,14 +774,21 @@ def longform_phase(dev, wavefront: bool, epochs: int):
     return launches, evals, wall
 
 
-def check_launches(label: str, launches: dict, expected: set) -> None:
-    """The path launched every kernel of ``expected`` and no other."""
+def check_launches(label: str, launches: dict, expected: set, grad_evals: int) -> None:
+    """The path launched every kernel of ``expected`` and no other, and its
+    gram backward is K6 and nothing else: one launch per evaluation that took
+    a gradient, each after a K5 of its own (K5 also runs in the gradient-free
+    passes that make the targets)."""
     missing = [k for k in sorted(expected) if launches[k] == 0]
     extra = [k for k in KERNELS if k not in expected and launches[k] != 0]
     if missing or extra:
         raise AssertionError(f"{label}: kernels not launched {missing}, launched but not on "
                              f"this path {extra}: {launches}")
-    print(f"[{label}] launches {launches}: {sorted(expected)} all > 0, the rest 0 ok")
+    if launches["K6"] != grad_evals or launches["K5"] < grad_evals:
+        raise AssertionError(f"{label}: K6 {launches['K6']} and K5 {launches['K5']} launches for "
+                             f"{grad_evals} evaluations that took a gradient")
+    print(f"[{label}] launches {launches}: {sorted(expected)} all > 0, the rest 0; K6 == "
+          f"{grad_evals} gradient evaluations <= K5 ok")
 
 
 def check_losses(label: str, losses, audio_or_x) -> None:
@@ -790,7 +835,7 @@ def cli_phase(dev, label: str, path_args: list, expected: set):
     losses = [float(r[2]) for r in rows]
     evals = sum(int(r[1]) for r in rows)
     check_losses(label, losses, audio)
-    check_launches(label, launches, expected)
+    check_launches(label, launches, expected, evals)
     print(f"[{label}] {len(rows)} epochs, losses {losses}, {evals} L-BFGS evals in "
           f"{wall:.2f} s wall ({evals / wall:.2f} evals/s, setup included)")
     return launches, evals, wall
@@ -829,7 +874,7 @@ def per_layer_phase(params, dev):
     losses = [float(v) for v in res["metrics"][:, 0]]
     evals = int(np.sum(res["evals"]))
     check_losses(label, losses, res["x"][0])
-    check_launches(label, launches, {"K7f", "K7b", "K5", "K6"})
+    check_launches(label, launches, {"K7f", "K7b", "K5", "K6"}, evals)
     print(f"[{label}] losses {losses}, {evals} L-BFGS evals in {wall:.2f} s wall "
           f"({evals / wall:.2f} evals/s, setup included)")
     return launches, evals, wall
@@ -870,7 +915,7 @@ def main() -> int:
     regularizer_phase(params, dev)
     eval_phase(params, dev, smi)
     runs = {
-        "cli stack 0": cli_phase(dev, "cli stack 0", ["--stack", "0"], {"K1", "K2", "K5"}),
+        "cli stack 0": cli_phase(dev, "cli stack 0", ["--stack", "0"], {"K1", "K2", "K5", "K6"}),
         "cli full stack": cli_phase(dev, "cli full stack", ["--cont_lyrs", "25"],
                                     {"K1", "K2", "K5", "K6"}),
         "per-layer engine": per_layer_phase(params, dev),

@@ -4,9 +4,10 @@ CUDA kernels have no CPU mode, so every test here needs a GPU and skips
 without one. Run them on the card with
     python -m pytest tests/test_torch_cuda.py -m cuda
 Shapes are small but cover what the CPU tests cannot: clip edges between
-flattened batch rows, a dilation as long as the clip, a T that is not a
-multiple of the gram kernels' tiles, up to the 32 taps a gram launch takes,
-both dtypes, both trunk flavours, and the autograd wiring.
+flattened batch rows, a dilation as long as the clip, every tap bucket of the
+gram kernels up to the 32 taps a launch takes at T = 1, a ragged T and the
+main path's T, the inputs the wrappers refuse, both dtypes, both trunk
+flavours, and the autograd wiring.
 """
 
 import numpy as np
@@ -118,15 +119,63 @@ def test_trunk_kernels_choose_by_dtype_and_count(dev):
         chain.product_mma(torch.ones((64, c), device=dev), w, False)
 
 
+# Tap counts either side of every bucket the gram kernels are compiled for
+# (8, 16, 24, 32), the main path's 10 and 30; one row, a T that ends inside
+# a step, and the main path's T plus 8 rows; two clips; the narrowest C both
+# kernels take and the model's.
+GRAM_L = [1, 2, 8, 9, 10, 16, 17, 30, 32]
+GRAM_T = [1, 1000, 16384 + 8]
+GRAM_C = [32, 128]
+
+
+def _gram_taps(dev, dtype, nl, tl, c, seed, b=2):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return gen, [torch.randn((b, tl, c), generator=gen, device=dev).to(dtype) for _ in range(nl)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nl,tl", [(1, 300), (10, 1000), (16, 257), (32, 64)])
-def test_gram_kernel_matches_plain(dev, dtype, nl, tl):
-    gen = torch.Generator(device=dev).manual_seed(nl)
-    taps = [torch.randn((2, tl, 64), generator=gen, device=dev).to(dtype) for _ in range(nl)]
+@pytest.mark.parametrize("c", GRAM_C)
+@pytest.mark.parametrize("tl", GRAM_T)
+@pytest.mark.parametrize("nl", GRAM_L)
+def test_gram_kernel_matches_plain(dev, dtype, nl, tl, c):
+    _, taps = _gram_taps(dev, dtype, nl, tl, c, nl)
     got = gram.pair_gram_fwd(*taps)
+    again = gram.pair_gram_fwd(*taps)
     torch.cuda.synchronize()
     want = gram.pair_gram_reference(*taps)
+    assert got.shape == (2, nl, nl, c) and got.dtype == torch.float32
     assert _rel(got, want) <= 2e-5  # float32 products and sums either way
+    assert torch.equal(got, again)  # a fixed summation order: no atomics
+    assert torch.equal(got, got.transpose(1, 2))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_gram_kernels_refuse_what_they_do_not_take(dev, dtype):
+    _, taps = _gram_taps(dev, dtype, 3, 64, 32, 0)
+    h = torch.zeros((2, 3, 3, 32), device=dev)
+    # Contiguous, but one element off the 16-byte grid the loads need.
+    flat = torch.zeros((2 * 64 * 32 + 1,), device=dev, dtype=dtype)
+    shifted = flat[1:].view(2, 64, 32)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    strided = torch.zeros((2, 32, 64), device=dev, dtype=dtype).transpose(1, 2)
+    narrow = [tp[:, :, :24].contiguous() for tp in taps]
+    _build.reset_launches()
+    for bad, match in ((shifted, "aligned"), (strided, "contiguous")):
+        with pytest.raises(ValueError, match=match):
+            gram.pair_gram_fwd(taps[0], bad, taps[2])
+        with pytest.raises(ValueError, match=match):
+            gram.pair_gram_bwd([taps[0], bad, taps[2]], h)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        gram.pair_gram_fwd(*[tp[:, :, :20].contiguous() for tp in taps])
+    with pytest.raises(ValueError, match="multiple of 16"):
+        gram.pair_gram_bwd(narrow, h[..., :24].contiguous())
+    with pytest.raises(ValueError, match="h must be"):
+        gram.pair_gram_bwd(taps, h.transpose(1, 2)[:, :, :2])
+    with pytest.raises(ValueError, match="1..32 taps"):
+        gram.pair_gram_fwd(*(taps * 11))
+    with pytest.raises(TypeError):
+        gram.pair_gram_fwd(*[tp.double() for tp in taps])
+    assert not any(_build.LAUNCHES.values())
 
 
 def test_trunk_autograd_on_card_matches_cpu(dev):
@@ -146,11 +195,12 @@ def test_trunk_autograd_on_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nl,tl", [(1, 257), (16, 1000), (30, 257), (30, 1000), (32, 257)])
-def test_gram_backward_kernel_matches_plain(dev, dtype, nl, tl):
-    gen = torch.Generator(device=dev).manual_seed(100 + nl)
-    taps = [torch.randn((2, tl, 64), generator=gen, device=dev).to(dtype) for _ in range(nl)]
-    h = torch.randn((2, nl, nl, 64), generator=gen, device=dev)
+@pytest.mark.parametrize("c", GRAM_C)
+@pytest.mark.parametrize("tl", GRAM_T)
+@pytest.mark.parametrize("nl", GRAM_L)
+def test_gram_backward_kernel_matches_plain(dev, dtype, nl, tl, c):
+    gen, taps = _gram_taps(dev, dtype, nl, tl, c, 100 + nl)
+    h = torch.randn((2, nl, nl, c), generator=gen, device=dev)  # not symmetric
     got = gram.pair_gram_bwd(taps, h)
     torch.cuda.synchronize()
     want = gram.pair_gram_bwd_plain(taps, h)
@@ -159,17 +209,20 @@ def test_gram_backward_kernel_matches_plain(dev, dtype, nl, tl):
         assert _rel(g, w) <= TOL[dtype]
 
 
-def test_gram_autograd_beyond_the_plain_range_runs_the_kernel(dev):
-    """L=16 > 15: the backward goes through K6 and matches the CPU."""
+@pytest.mark.parametrize("nl", [10, 16])
+def test_gram_autograd_on_the_card_runs_the_backward_kernel_at_any_l(dev, nl):
+    """L=10 (the stack-0 tap count) and L=16: the backward of CUDA taps is one
+    K6 launch and matches the CPU's plain composition."""
     rng = np.random.RandomState(1)
-    arrs = [rng.randn(1, 300, 32).astype(np.float32) for _ in range(16)]
-    ct = torch.tensor(rng.randn(1, 16, 16, 32), dtype=torch.float32)
+    arrs = [rng.randn(1, 300, 32).astype(np.float32) for _ in range(nl)]
+    ct = torch.tensor(rng.randn(1, nl, nl, 32), dtype=torch.float32)
     grads = {}
     for where in ("cpu", dev):
         taps = [torch.tensor(a, device=where).requires_grad_(True) for a in arrs]
         _build.reset_launches()
         grads[str(where)] = torch.autograd.grad(gram.pair_gram(*taps), taps, ct.to(where))
-        assert _build.LAUNCHES["K6"] == (0 if where == "cpu" else 1)
+        on_card = int(where != "cpu")
+        assert _build.LAUNCHES["K5"] == on_card and _build.LAUNCHES["K6"] == on_card
     for g_card, g_cpu in zip(grads[str(dev)], grads["cpu"]):
         assert _rel(g_card.cpu(), g_cpu) <= 2e-5
 

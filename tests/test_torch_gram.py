@@ -3,7 +3,10 @@
 On the CPU the port's forward runs its plain einsum and the backward the
 plain composition; JAX runs its forward kernel, and its backward kernel (K6)
 for L > 15 (the L=16, 18 and 30 cases) and for T > 32768, in interpret mode.
-f32, T=256, C=16 (C=8 past the T gate).
+f32, T=256, C=16 (C=8 past the T gate). The port has no such threshold: a
+CPU tensor takes the plain composition and any other tensor
+``pair_gram_bwd`` (K6), at every L and T. The kernels' launch geometry (tap
+bucket, rows per block, scratch shape) is plain Python and is held here too.
 """
 
 import jax
@@ -59,21 +62,99 @@ def test_backward_past_the_t_gate_matches_jax():
         np.testing.assert_allclose(n(g), n(w), rtol=RTOL, atol=ATOL * float(np.abs(n(w)).max()))
 
 
-@pytest.mark.parametrize("nl,tl,routed", [(15, 64, False), (16, 64, True),
-                                          (2, 32768, False), (2, 32769, True)])
-def test_backward_routing_follows_jax(monkeypatch, nl, tl, routed):
-    """The plain composition for L <= 15 and T <= 32768 (pallas_gram.py
-    _vjp_bwd), ``pair_gram_bwd`` (K6 on CUDA) everywhere else."""
-    calls = []
-    real = gram.pair_gram_bwd
-    monkeypatch.setattr(gram, "pair_gram_bwd", lambda taps, h: calls.append(1) or real(taps, h))
+@pytest.mark.parametrize("nl,tl", [(15, 64), (16, 64), (2, 32768), (2, 32769)])
+def test_backward_routing_follows_jax(nl, tl):
+    """Either side of JAX's threshold (pallas_gram.py _vjp_bwd: L <= 15 and
+    T <= 32768) a CPU tensor gets the plain composition's gradient and
+    launches no kernel: the port routes by the tensor's device alone."""
+    _build.reset_launches()
     tt = [t(a).requires_grad_(True) for a in _taps(nl, tl=tl, c=8)]
     grads = torch.autograd.grad(gram.pair_gram(*tt).sum(), tt)
-    assert len(calls) == int(routed)
+    assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
     want = gram.pair_gram_bwd_plain([x.detach() for x in tt],
                                     torch.full((1, nl, nl, 8), 2.0))
     for g, w in zip(grads, want):
         np.testing.assert_allclose(n(g), n(w), rtol=RTOL, atol=ATOL)
+
+
+def test_backward_of_a_tensor_off_the_cpu_goes_to_the_kernel_wrapper(monkeypatch):
+    """L=10 (the stack-0 tap count, inside JAX's plain range): the backward of
+    taps that do not lie on the CPU calls ``pair_gram_bwd`` with h = g + g^T
+    and never the plain composition."""
+    calls = []
+
+    def fake_bwd(taps, h):
+        calls.append((len(taps), h.device.type, h.dtype, tuple(h.shape)))
+        return tuple(torch.empty_like(tp) for tp in taps)
+
+    def no_plain(taps, h):
+        raise AssertionError("the plain composition ran on a tensor off the CPU")
+
+    monkeypatch.setattr(gram, "pair_gram_fwd",
+                        lambda *taps: torch.empty((1, len(taps), len(taps), 8), device="meta"))
+    monkeypatch.setattr(gram, "pair_gram_bwd", fake_bwd)
+    monkeypatch.setattr(gram, "pair_gram_bwd_plain", no_plain)
+    tt = [torch.empty((1, 64, 8), device="meta", requires_grad=True) for _ in range(10)]
+    grads = torch.autograd.grad(gram.pair_gram(*tt).sum(), tt)
+    assert calls == [(10, "meta", torch.float32, (1, 10, 10, 8))]
+    assert all(g.shape == (1, 64, 8) for g in grads)
+
+
+@pytest.mark.parametrize("nl,bucket", [(1, 8), (8, 8), (9, 16), (10, 16), (16, 16), (17, 24),
+                                       (24, 24), (25, 32), (30, 32), (32, 32)])
+def test_tap_bucket_rounds_up_to_eight(nl, bucket):
+    assert gram.tap_bucket(nl) == bucket
+    assert bucket in gram.BWD_RESIDENT
+
+
+@pytest.mark.parametrize("nl", [0, 33])
+def test_tap_bucket_refuses_what_a_launch_cannot_take(nl):
+    with pytest.raises(ValueError, match="1..32 taps"):
+        gram.tap_bucket(nl)
+
+
+# (B, T, C, SMs) -> rows: the main path, two clips, a narrow C, a short and
+# a ragged T, more channel groups than SMs.
+@pytest.mark.parametrize("b,tl,c,sms,rows", [
+    (1, 16384, 128, 132, 2048), (2, 16384, 128, 132, 4096), (1, 16384, 32, 132, 497),
+    (1, 100, 128, 132, 256), (1, 16392, 128, 132, 2049), (16, 16384, 128, 132, 16384)])
+def test_forward_chunk_rows_make_about_one_block_an_sm(b, tl, c, sms, rows):
+    got = gram.fwd_chunk_rows(b, tl, c, sms)
+    assert got == rows
+    chunks = -(-tl // got)
+    blocks = b * (c // gram.CHANNEL_BLOCK) * chunks
+    assert blocks <= max(sms, b * (c // gram.CHANNEL_BLOCK))
+    assert gram.fwd_scratch_shape(b, tl, c, 30, got) == (b, chunks, 465, c)
+
+
+def test_forward_scratch_stays_under_two_megabytes_on_the_main_path():
+    """[B, chunks, pairs, C] float32 at L=30, T=16384, C=128 on 132 SMs."""
+    rows = gram.fwd_chunk_rows(1, 16384, 128, 132)
+    shape = gram.fwd_scratch_shape(1, 16384, 128, 30, rows)
+    assert shape == (1, 8, 465, 128)
+    assert 4 * int(np.prod(shape)) < 2e6
+
+
+@pytest.mark.parametrize("b,tl,c,nl,sms", [
+    (1, 16384, 128, 30, 132), (1, 16384, 128, 10, 132), (2, 16392, 128, 17, 132),
+    (1, 1, 16, 1, 132), (2, 1000, 32, 8, 132), (64, 4096, 128, 32, 132)])
+def test_backward_block_rows_fill_one_wave(b, tl, c, nl, sms):
+    rows = gram.bwd_block_rows(b, tl, c, nl, sms)
+    assert rows % gram.BWD_STEP == 0 and rows >= gram.MIN_ROWS
+    groups = b * (c // gram.BWD_CHANNEL_BLOCK)
+    slots = sms * gram.BWD_RESIDENT[gram.tap_bucket(nl)]
+    blocks = groups * -(-tl // rows)
+    # One wave, unless the channel groups alone exceed it.
+    assert blocks <= max(slots, groups)
+    # And no coarser than that asks for: one step fewer would overflow the
+    # wave, or the floor of MIN_ROWS holds.
+    finer = rows - gram.BWD_STEP
+    assert rows == gram.MIN_ROWS or groups * -(-tl // finer) > slots
+
+
+def test_backward_block_rows_on_the_main_path():
+    assert gram.bwd_block_rows(1, 16384, 128, 30, 132) == 512
+    assert gram.bwd_block_rows(1, 16384, 128, 10, 132) == 256
 
 
 def test_cpu_path_launches_no_kernel():
