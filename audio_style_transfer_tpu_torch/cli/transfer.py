@@ -11,8 +11,9 @@ kernels always run, on the CPU their plain versions; ``--fused`` keeps the
 chained trunk, as the JAX CLI does (it leaves ``chain_encoder`` unset).
 ``--longform`` transfers the whole content clip window by window
 (``--ot_components``/``--ot_blend`` add the NMF + optimal-transport style
-target) and writes ``longform.wav``; ``--exact`` is not ported yet
-(ROADMAP M5-exact).
+target) and writes ``longform.wav``; ``--exact`` optimizes one global window
+over the whole clip instead (``--scan_window N`` runs it as a scan over
+N-sample windows; transfer/longform.py::transfer_exact).
 """
 
 from __future__ import annotations
@@ -97,16 +98,21 @@ def build_parser() -> argparse.ArgumentParser:
                         help="chunked long-form mode: transfer the whole "
                              "content clip window-by-window (transfer/longform.py)")
     parser.add_argument("--ot_components", nargs="?", type=int, default=None,
-                        help="(longform) apply the NMF+OT palette transform to "
+                        help="(longform/exact) apply the NMF+OT palette transform to "
                              "the style target with this many components")
     parser.add_argument("--ot_blend", nargs="?", type=float, default=0.5,
-                        help="(longform) weight of the OT translated-gram "
+                        help="(longform/exact) weight of the OT translated-gram "
                              "correction on the style target (0 = reference "
                              "target, 1 = full correction)")
     parser.add_argument("--exact", action="store_true",
-                        help="exact long-form mode (not ported yet)")
+                        help="exact long-form mode: one global window over the "
+                             "whole clip (no chunk seams, one global gram), on "
+                             "one device (transfer/longform.transfer_exact)")
     parser.add_argument("--scan_window", nargs="?", type=int, default=None,
-                        help="(exact) window scan tile (not ported yet)")
+                        help="(exact) window size of the scan; live memory "
+                             "scales with it, numerics do not. Default: clips up "
+                             "to about 2 minutes run as one unmasked trunk pass, "
+                             "longer clips scan in 32768-sample windows")
     # --- port-only ---
     parser.add_argument("--device", default="cuda",
                         help="torch device the transfer runs on (cuda or cpu)")
@@ -147,10 +153,6 @@ def piece_work(args):
     )
     from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
 
-    if args.exact or args.scan_window is not None:
-        raise NotImplementedError(
-            "--exact/--scan_window are not ported yet (ROADMAP.md M5-exact: exact long-form)")
-
     savepath = get_dir(args.outdir, args)
     logdir = get_dir(args.logdir, args)
     figdir = os.path.join(savepath, "fig")
@@ -189,20 +191,23 @@ def piece_work(args):
         device=args.device,
     )
     engine = StyleTransfer(spec, params)
-    if args.longform:
+    if args.longform or args.exact:
         return _run_longform(engine, args, content, style, savepath)
     return engine.run(content, content, style, epochs=args.epochs, start=args.start)
 
 
 def _run_longform(engine, args, content: str, style: str, savepath: str):
-    """The whole-clip run behind --longform: the content file is
+    """The whole-clip runs behind --longform / --exact: the content file is
     transferred end to end (``--start`` windowing does not apply) and the
-    stitched waveform lands as longform.wav in the run directory."""
+    waveform lands as longform.wav in the run directory."""
     import time
 
     import numpy as np
 
-    from audio_style_transfer_tpu_torch.transfer.longform import transfer_longform
+    from audio_style_transfer_tpu_torch.transfer.longform import (
+        transfer_exact,
+        transfer_longform,
+    )
     from audio_style_transfer_tpu_torch.utils.audio_io import load_audio, write_wav
 
     # audio_channel=0 as engine.run and the reference (utils.py:260-264):
@@ -210,8 +215,13 @@ def _run_longform(engine, args, content: str, style: str, savepath: str):
     content_audio, _ = load_audio(content, sr=args.sr, audio_channel=0)
     style_audio, _ = load_audio(style, sr=args.sr, audio_channel=0)
     t0 = time.time()
-    res = transfer_longform(engine, content_audio, style_audio, epochs=args.epochs,
-                            ot_components=args.ot_components, ot_blend=args.ot_blend)
+    if args.exact:
+        res = transfer_exact(engine, content_audio, style_audio, mesh=None,
+                             epochs=args.epochs, scan_window=args.scan_window,
+                             ot_components=args.ot_components, ot_blend=args.ot_blend)
+    else:
+        res = transfer_longform(engine, content_audio, style_audio, epochs=args.epochs,
+                                ot_components=args.ot_components, ot_blend=args.ot_blend)
     evals = int(np.sum(res.per_window["evals"]))
     print(f"optimized {len(res.audio) / args.sr:.1f}s of audio "
           f"({evals} evals) in {time.time() - t0:.2f}s")

@@ -1,6 +1,7 @@
 // Shared helpers for the port's kernels: element loads and stores in the
 // storage type (float or bf16) with float32 arithmetic, and the rounding that
-// stands in for JAX's `.astype(dt)` cast points.
+// stands in for JAX's `.astype(dt)` cast points; the valid-window predicate of
+// the trunk kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -30,3 +31,9 @@ struct Io<__nv_bfloat16> {
     return __bfloat162float(__float2bfloat16(v));
   }
 };
+
+// Whether row `row` lies inside the valid window [lo, hi) of its clip.
+__device__ __forceinline__ bool in_window(long row, int clip_rows, int lo, int hi) {
+  const int pos = (int)(row % clip_rows);
+  return pos >= lo && pos < hi;
+}

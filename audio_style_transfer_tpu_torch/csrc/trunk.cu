@@ -25,6 +25,14 @@
 //   dx_j = g + dr * inrelu                                   (phase 2)
 // Rows outside their clip [0, T) read as zero (SAME padding).
 //
+// Valid window (the `windowed` branch of the TPU kernels, _window_mask): K1
+// and K2 take in-clip rows [lo, hi), already clamped to the clip. K1 zeroes
+// its output on every other row before the output's mask bit is taken and
+// the tap is stored (the gate bit is unaffected); K2 zeroes g on those rows
+// in both phases, so dy and the pass-through term vanish there. One
+// predicate per row; the full range [0, clip_rows) is the unwindowed kernel
+// bit for bit.
+//
 // Cast points mirror the JAX kernels so bf16 agrees: y accumulates in f32 and
 // bd is added in f32; v = relu(y) is rounded to the storage type; z = v@Wr+br
 // in f32; out = x + round(z); in the backward dy is rounded before the
@@ -72,18 +80,21 @@ struct Smem {
 
 // Stage rows [row0, row0 + TM) shifted by `off` of src's channels
 // [c0, c0 + KC) into sm.a, optionally through relu; zero outside the clip
-// and past `rows`. `src2` (may be null) is added first, rounded to T.
+// and past `rows`. `src2` (may be null) is added first, rounded to T. A
+// source row whose in-clip position lies outside [lo, hi) reads as zero too
+// (the valid window on g; [0, clip_rows) elsewhere).
 template <typename T>
 __device__ __forceinline__ void load_a(Smem& sm, const T* __restrict__ src,
                                        const T* __restrict__ src2, long row0, int off,
-                                       int c0, int rows, int clip_rows, bool relu) {
+                                       int c0, int rows, int clip_rows, bool relu,
+                                       int lo, int hi) {
   for (int e = threadIdx.x; e < KC * TM; e += NT) {
     const int r = e / KC, k = e % KC;
     const long row = row0 + r;
     float v = 0.f;
     if (row < rows) {
       const long pos = row % clip_rows + off;
-      if (pos >= 0 && pos < clip_rows) {
+      if (pos >= lo && pos < hi) {
         const long idx = (row + off) * C + c0 + k;
         v = Io<T>::ld(src, idx);
         if (src2) v = Io<T>::rnd(v + Io<T>::ld(src2, idx));
@@ -110,7 +121,8 @@ __device__ __forceinline__ void dilated_conv(float (&acc)[4][8], Smem& sm,
                                              int clip_rows, int d, int tx, int ty) {
   for (int tap = 0; tap < 3; ++tap) {
     for (int c0 = 0; c0 < C; c0 += KC) {
-      load_a<T>(sm, x, nullptr, row0, (tap - 1) * d, c0, rows, clip_rows, true);
+      load_a<T>(sm, x, nullptr, row0, (tap - 1) * d, c0, rows, clip_rows, true, 0,
+                clip_rows);
       load_b<T>(sm, wd + (long)tap * C * C, c0, false);
       __syncthreads();
       mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
@@ -126,7 +138,7 @@ trunk_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wd,
                  const float* __restrict__ bd, const T* __restrict__ wr,
                  const float* __restrict__ br, T* __restrict__ out,
                  uint8_t* __restrict__ mask, uint8_t* __restrict__ inmask, int rows,
-                 int clip_rows, int d) {
+                 int clip_rows, int d, int lo, int hi) {
   extern __shared__ float smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -166,12 +178,13 @@ trunk_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wd,
   for (int i = 0; i < 4; ++i) {
     const long row = row0 + ty + 16 * i;
     if (row >= rows) continue;
+    const bool valid = in_window(row, clip_rows, lo, hi);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int col = tx + 16 * j;
       const long idx = row * C + col;
       const float xv = Io<T>::ld(x, idx);
-      const float o = Io<T>::rnd(xv + Io<T>::rnd(acc[i][j] + br[col]));
+      const float o = valid ? Io<T>::rnd(xv + Io<T>::rnd(acc[i][j] + br[col])) : 0.f;
       Io<T>::st(out, idx, o);
       if (kMasks) {
         mask[idx] = (uint8_t)((o > 0.f ? 1 : 0) | (((gate >> (8 * i + j)) & 1u) << 1));
@@ -186,7 +199,7 @@ template <typename T>
 __global__ void __launch_bounds__(NT)
 trunk_bwd_dy_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
                     const uint8_t* __restrict__ mask, const T* __restrict__ wr,
-                    T* __restrict__ dy, int rows, int clip_rows) {
+                    T* __restrict__ dy, int rows, int clip_rows, int lo, int hi) {
   extern __shared__ float smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -199,7 +212,7 @@ trunk_bwd_dy_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
     for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
 
   for (int c0 = 0; c0 < C; c0 += KC) {
-    load_a<T>(sm, dxn, dtap, row0, 0, c0, rows, clip_rows, false);
+    load_a<T>(sm, dxn, dtap, row0, 0, c0, rows, clip_rows, false, lo, hi);
     load_b<T>(sm, wr, c0, true);
     __syncthreads();
     mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
@@ -250,7 +263,7 @@ encoder_bwd_dy_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 
   for (int c0 = 0; c0 < C; c0 += KC) {
-    load_a<T>(sm, g, nullptr, row0, 0, c0, rows, clip_rows, false);
+    load_a<T>(sm, g, nullptr, row0, 0, c0, rows, clip_rows, false, 0, clip_rows);
     load_b<T>(sm, wr, c0, true);
     __syncthreads();
     mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
@@ -277,7 +290,7 @@ __global__ void __launch_bounds__(NT)
 trunk_bwd_dx_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
                     const T* __restrict__ dy, const uint8_t* __restrict__ inmask,
                     const T* __restrict__ xin, const T* __restrict__ wd, T* __restrict__ dx,
-                    int rows, int clip_rows, int d) {
+                    int rows, int clip_rows, int d, int lo, int hi) {
   extern __shared__ float smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -291,7 +304,8 @@ trunk_bwd_dx_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
 
   for (int tap = 0; tap < 3; ++tap) {
     for (int c0 = 0; c0 < C; c0 += KC) {
-      load_a<T>(sm, dy, (const T*)nullptr, row0, (1 - tap) * d, c0, rows, clip_rows, false);
+      load_a<T>(sm, dy, (const T*)nullptr, row0, (1 - tap) * d, c0, rows, clip_rows, false, 0,
+                clip_rows);
       load_b<T>(sm, wd + (long)tap * C * C, c0, true);
       __syncthreads();
       mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
@@ -303,11 +317,13 @@ trunk_bwd_dx_kernel(const T* __restrict__ dxn, const T* __restrict__ dtap,
   for (int i = 0; i < 4; ++i) {
     const long row = row0 + ty + 16 * i;
     if (row >= rows) continue;
+    const bool valid = in_window(row, clip_rows, lo, hi);
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const long idx = row * C + tx + 16 * j;
       float g = Io<T>::ld(dxn, idx);
       if (dtap) g = Io<T>::rnd(g + Io<T>::ld(dtap, idx));
+      if (!valid) g = 0.f;
       const float inrelu = kGateFromX ? (Io<T>::ld(xin, idx) > 0.f ? 1.f : 0.f)
                                       : (float)(inmask[idx] & 1);
       Io<T>::st(dx, idx, g + Io<T>::rnd(acc[i][j] * inrelu));
@@ -326,30 +342,31 @@ int n_blocks(int rows) { return (rows + TM - 1) / TM; }
 template <typename T, bool kMasks>
 cudaError_t launch_fwd(const void* x, const void* wd, const void* bd, const void* wr,
                        const void* br, void* out, void* mask, void* inmask, int rows,
-                       int clip_rows, int d, cudaStream_t s) {
+                       int clip_rows, int d, int lo, int hi, cudaStream_t s) {
   const cudaError_t e = prepare(trunk_fwd_kernel<T, kMasks>);
   if (e != cudaSuccess) return e;
   trunk_fwd_kernel<T, kMasks><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
       (const T*)x, (const T*)wd, (const float*)bd, (const T*)wr, (const float*)br, (T*)out,
-      (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d);
+      (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d, lo, hi);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t launch_trunk_bwd(const void* dxn, const void* dtap, const void* mask,
                              const void* inmask, const void* wd, const void* wr, void* dy,
-                             void* dx, int rows, int clip_rows, int d, cudaStream_t s) {
+                             void* dx, int rows, int clip_rows, int d, int lo, int hi,
+                             cudaStream_t s) {
   cudaError_t e = prepare(trunk_bwd_dy_kernel<T>);
   if (e == cudaSuccess) e = prepare(trunk_bwd_dx_kernel<T, false>);
   if (e != cudaSuccess) return e;
   trunk_bwd_dy_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
       (const T*)dxn, (const T*)dtap, (const uint8_t*)mask, (const T*)wr, (T*)dy, rows,
-      clip_rows);
+      clip_rows, lo, hi);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   trunk_bwd_dx_kernel<T, false><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
       (const T*)dxn, (const T*)dtap, (const T*)dy, (const uint8_t*)inmask, nullptr,
-      (const T*)wd, (T*)dx, rows, clip_rows, d);
+      (const T*)wd, (T*)dx, rows, clip_rows, d, lo, hi);
   return cudaGetLastError();
 }
 
@@ -367,7 +384,7 @@ cudaError_t launch_encoder_bwd(const void* x, const void* g, const void* wd, con
   if (e != cudaSuccess) return e;
   trunk_bwd_dx_kernel<T, true><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
       (const T*)g, nullptr, (const T*)dy, nullptr, (const T*)x, (const T*)wd, (T*)dx, rows,
-      clip_rows, d);
+      clip_rows, d, 0, clip_rows);
   return cudaGetLastError();
 }
 
@@ -379,26 +396,28 @@ const char* ast_error_string(int status) { return cudaGetErrorString((cudaError_
 
 // Each entry returns cudaGetLastError() after its launches (0 on success).
 
-// K1: one trunk layer forward with its mask bytes.
+// K1: one trunk layer forward with its mask bytes; [lo, hi) is the valid
+// window in in-clip rows, [0, clip_rows) for none.
 int ast_trunk_fwd(const void* x, const void* wd, const void* bd, const void* wr,
                   const void* br, void* out, void* mask, void* inmask, int rows,
-                  int clip_rows, int d, int is_bf16, void* stream) {
+                  int clip_rows, int d, int lo, int hi, int is_bf16, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16 ? launch_fwd<__nv_bfloat16, true>(x, wd, bd, wr, br, out, mask,
-                                                         inmask, rows, clip_rows, d, s)
+                                                         inmask, rows, clip_rows, d, lo, hi, s)
                        : launch_fwd<float, true>(x, wd, bd, wr, br, out, mask, inmask, rows,
-                                                 clip_rows, d, s));
+                                                 clip_rows, d, lo, hi, s));
 }
 
-// K2: both backward phases for one layer; `dy` is caller-allocated scratch.
+// K2: both backward phases for one layer; `dy` is caller-allocated scratch;
+// [lo, hi) as in ast_trunk_fwd.
 int ast_trunk_bwd(const void* dxn, const void* dtap, const void* mask,
                   const void* inmask, const void* wd, const void* wr, void* dy, void* dx,
-                  int rows, int clip_rows, int d, int is_bf16, void* stream) {
+                  int rows, int clip_rows, int d, int lo, int hi, int is_bf16, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16 ? launch_trunk_bwd<__nv_bfloat16>(dxn, dtap, mask, inmask, wd, wr, dy,
-                                                         dx, rows, clip_rows, d, s)
+                                                         dx, rows, clip_rows, d, lo, hi, s)
                        : launch_trunk_bwd<float>(dxn, dtap, mask, inmask, wd, wr, dy, dx,
-                                                 rows, clip_rows, d, s));
+                                                 rows, clip_rows, d, lo, hi, s));
 }
 
 // K7f: one encoder block forward, output only.
@@ -407,9 +426,10 @@ int ast_encoder_fwd(const void* x, const void* wd, const void* bd, const void* w
                     void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16 ? launch_fwd<__nv_bfloat16, false>(x, wd, bd, wr, br, out, nullptr,
-                                                          nullptr, rows, clip_rows, d, s)
+                                                          nullptr, rows, clip_rows, d, 0,
+                                                          clip_rows, s)
                        : launch_fwd<float, false>(x, wd, bd, wr, br, out, nullptr, nullptr,
-                                                  rows, clip_rows, d, s));
+                                                  rows, clip_rows, d, 0, clip_rows, s));
 }
 
 // K7b: the block's dx from its input x and output cotangent g, recomputing

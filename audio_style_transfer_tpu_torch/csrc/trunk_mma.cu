@@ -11,7 +11,11 @@
 //        bit 0 = (out > 0), bit 1 = (y > 0); optionally inmask = (x > 0)
 //   K2 phase 1:  dy = round((g @ Wr^T) * gate),  g = round(dxn + dtap)
 //   K2 phase 2:  dx = g + round((dy[t+d] W0^T + dy[t] W1^T + dy[t-d] W2^T) * inrelu)
-// Rows outside their clip read as zero (SAME padding).
+// Rows outside their clip read as zero (SAME padding). With a valid window
+// [lo, hi) of in-clip rows (the TPU kernels' `windowed` branch; trunk.cu has
+// the semantics) K1 zeroes out on the other rows before bit 0 is taken, and
+// both phases of K2 zero g there: one predicate per row, in the epilogues
+// and on phase 1's A fragments, beside the clip-edge predicate.
 //
 // What bounds it on the H100 (T=16384, C=128): a layer moves 10.6 MB (K1) or
 // 14.1 MB (K2) against 2.15 GFLOP, so at tensor-core rates the bytes (3-4 us)
@@ -311,7 +315,7 @@ trunk_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wd,
                      const float* __restrict__ bd, const bf16* __restrict__ wr,
                      const float* __restrict__ br, bf16* __restrict__ out,
                      uint8_t* __restrict__ mask, uint8_t* __restrict__ inmask, int rows,
-                     int clip_rows, int d) {
+                     int clip_rows, int d, int lo, int hi) {
   extern __shared__ __align__(1024) uint8_t smem[];
   uint8_t* const act_p = smem + 4 * WBYTES;
   const uint32_t wsm = smem_addr(smem), act = smem_addr(act_p);
@@ -395,10 +399,12 @@ trunk_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wd,
     const Row16 zr = load16_smem(zst, row, cg);
     const Row16 xr = load16_smem(act_p, xbase + row, cg);
     const uint4 gt = *reinterpret_cast<const uint4*>(gst + mchunk_at(row, cg));
+    const bool valid = in_window(grow, clip_rows, lo, hi);
     Row16 o;
 #pragma unroll
     for (int e = 0; e < 8; ++e)
-      o.w[e] = pack2(bf_lo(xr.w[e]) + bf_lo(zr.w[e]), bf_hi(xr.w[e]) + bf_hi(zr.w[e]));
+      o.w[e] = valid ? pack2(bf_lo(xr.w[e]) + bf_lo(zr.w[e]), bf_hi(xr.w[e]) + bf_hi(zr.w[e]))
+                     : 0u;
     const long idx = grow * C + cg * 16;
     store16_global(out, idx, o);
     uint4 m = positive_bytes(o);
@@ -412,12 +418,16 @@ trunk_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wd,
 __global__ void __launch_bounds__(NT, 1)
 trunk_bwd_dy_mma_kernel(const bf16* __restrict__ dxn, const bf16* __restrict__ dtap,
                         const uint8_t* __restrict__ mask, const bf16* __restrict__ wr,
-                        bf16* __restrict__ dy, int rows) {
+                        bf16* __restrict__ dy, int rows, int clip_rows, int lo, int hi) {
   extern __shared__ __align__(1024) uint8_t smem[];
   uint8_t* const a1_p = smem + WBYTES;
   const uint32_t wsm = smem_addr(smem), a1 = smem_addr(a1_p), a2 = a1 + TM * ROWB;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const long row0 = (long)blockIdx.x * TM;
+  // The thread's fragment rows g and g + 8 of the warp's 16.
+  const long r_lo = row0 + warp * 16 + (lane >> 2);
+  const bool ok_lo = in_window(r_lo, clip_rows, lo, hi);
+  const bool ok_hi = in_window(r_lo + 8, clip_rows, lo, hi);
 
   stage_weight(wsm, wr);
   stage_rows(a1, dxn, 0, TM, row0, rows);
@@ -438,6 +448,8 @@ trunk_bwd_dy_mma_kernel(const bf16* __restrict__ dxn, const bf16* __restrict__ d
 #pragma unroll
       for (int i = 0; i < 4; ++i) a[i] = add2(a[i], b[i]);
     }
+    if (!ok_lo) a[0] = a[2] = 0u;
+    if (!ok_hi) a[1] = a[3] = 0u;
     mma_kstep<true>(acc, a, wsm, kk, lane);
   }
 
@@ -469,7 +481,7 @@ __global__ void __launch_bounds__(NT, 1)
 trunk_bwd_dx_mma_kernel(const bf16* __restrict__ dxn, const bf16* __restrict__ dtap,
                         const bf16* __restrict__ dy, const uint8_t* __restrict__ inmask,
                         const bf16* __restrict__ wd, bf16* __restrict__ dx, int rows,
-                        int clip_rows, int d) {
+                        int clip_rows, int d, int lo, int hi) {
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t wsm = smem_addr(smem), act = wsm + 3 * WBYTES;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -514,6 +526,10 @@ trunk_bwd_dx_mma_kernel(const bf16* __restrict__ dxn, const bf16* __restrict__ d
       const Row16 tp = load16_global(dtap, idx);
 #pragma unroll
       for (int e = 0; e < 8; ++e) gr.w[e] = add2(gr.w[e], tp.w[e]);
+    }
+    if (!in_window(grow, clip_rows, lo, hi)) {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) gr.w[e] = 0u;
     }
     const uint4 m = *reinterpret_cast<const uint4*>(inmask + idx);
     Row16 o;
@@ -575,49 +591,51 @@ extern "C" {
 
 // Each entry returns cudaGetLastError() after its launches (0 on success).
 // All tensors are bfloat16 except the float32 biases and the mask bytes.
+// [lo, hi) is the valid window in in-clip rows, [0, clip_rows) for none.
 
 // K1 (bf16): one trunk layer forward with its mask bytes.
 int ast_trunk_fwd_mma(const void* x, const void* wd, const void* bd, const void* wr,
                       const void* br, void* out, void* mask, void* inmask, int rows,
-                      int clip_rows, int d, void* stream) {
+                      int clip_rows, int d, int lo, int hi, void* stream) {
   const cudaError_t e = prepare(trunk_fwd_mma_kernel, FWD_SMEM);
   if (e != cudaSuccess) return (int)e;
   trunk_fwd_mma_kernel<<<n_blocks(rows), NT, FWD_SMEM, (cudaStream_t)stream>>>(
       (const bf16*)x, (const bf16*)wd, (const float*)bd, (const bf16*)wr, (const float*)br,
-      (bf16*)out, (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d);
+      (bf16*)out, (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d, lo, hi);
   return (int)cudaGetLastError();
 }
 
 // K2 (bf16) phase 1 alone: writes dy.
 int ast_trunk_bwd_dy_mma(const void* dxn, const void* dtap, const void* mask, const void* wr,
-                         void* dy, int rows, void* stream) {
+                         void* dy, int rows, int clip_rows, int lo, int hi, void* stream) {
   const cudaError_t e = prepare(trunk_bwd_dy_mma_kernel, DY_SMEM);
   if (e != cudaSuccess) return (int)e;
   trunk_bwd_dy_mma_kernel<<<n_blocks(rows), NT, DY_SMEM, (cudaStream_t)stream>>>(
       (const bf16*)dxn, (const bf16*)dtap, (const uint8_t*)mask, (const bf16*)wr, (bf16*)dy,
-      rows);
+      rows, clip_rows, lo, hi);
   return (int)cudaGetLastError();
 }
 
 // K2 (bf16) phase 2 alone: reads the dy phase 1 wrote.
 int ast_trunk_bwd_dx_mma(const void* dxn, const void* dtap, const void* dy,
                          const void* inmask, const void* wd, void* dx, int rows, int clip_rows,
-                         int d, void* stream) {
+                         int d, int lo, int hi, void* stream) {
   const cudaError_t e = prepare(trunk_bwd_dx_mma_kernel, DX_SMEM);
   if (e != cudaSuccess) return (int)e;
   trunk_bwd_dx_mma_kernel<<<n_blocks(rows), NT, DX_SMEM, (cudaStream_t)stream>>>(
       (const bf16*)dxn, (const bf16*)dtap, (const bf16*)dy, (const uint8_t*)inmask,
-      (const bf16*)wd, (bf16*)dx, rows, clip_rows, d);
+      (const bf16*)wd, (bf16*)dx, rows, clip_rows, d, lo, hi);
   return (int)cudaGetLastError();
 }
 
 // K2 (bf16): both backward phases for one layer; `dy` is caller-allocated scratch.
 int ast_trunk_bwd_mma(const void* dxn, const void* dtap, const void* mask,
                       const void* inmask, const void* wd, const void* wr, void* dy, void* dx,
-                      int rows, int clip_rows, int d, void* stream) {
-  const int e = ast_trunk_bwd_dy_mma(dxn, dtap, mask, wr, dy, rows, stream);
+                      int rows, int clip_rows, int d, int lo, int hi, void* stream) {
+  const int e = ast_trunk_bwd_dy_mma(dxn, dtap, mask, wr, dy, rows, clip_rows, lo, hi, stream);
   if (e != 0) return e;
-  return ast_trunk_bwd_dx_mma(dxn, dtap, dy, inmask, wd, dx, rows, clip_rows, d, stream);
+  return ast_trunk_bwd_dx_mma(dxn, dtap, dy, inmask, wd, dx, rows, clip_rows, d, lo, hi,
+                              stream);
 }
 
 // One product through the kernels' staging and fragment code:

@@ -25,7 +25,11 @@ from typing import Any
 import numpy as np
 import torch
 
-from audio_style_transfer_tpu_torch.ops.chain import fused_trunk, stack_trunk_weights
+from audio_style_transfer_tpu_torch.ops.chain import (
+    fused_trunk,
+    stack_trunk_weights,
+    window_rows,
+)
 from audio_style_transfer_tpu_torch.ops.conv import conv1d, pool1d
 from audio_style_transfer_tpu_torch.ops.encoder import fused_encoder_block
 
@@ -107,18 +111,39 @@ def _apply(params: Params, name: str, x, *, dilation=1, causal=True, dtype=None)
 
 
 def encoder_trunk(params: Params, x_quantized: torch.Tensor,
-                  cfg: WaveNetAEConfig | None = None, needed_taps=None):
-    """The 32-entry ``extracts`` list without hop pooling.
+                  cfg: WaveNetAEConfig | None = None, needed_taps=None, valid_window=None):
+    """The 32-entry ``extracts`` list without hop pooling (any time length).
 
     ``needed_taps``: trunk-layer ids (0..29) the caller consumes; with the
     chained trunk the other trunk entries are None (None asks for every
     tap). The per-layer flavour returns every tap. Ids 30 and 31 derive from
     tap 29, which is always kept.
+
+    ``valid_window``: (lo, hi) Python ints marking the positions that lie
+    inside the global sequence (the halo windows of parallel/halo.py).
+    Positions outside are re-zeroed after the start conv and after every
+    trunk layer, so each conv sees the zeros that SAME padding at the global
+    clip edge would have given it (a zero input alone is not enough: the
+    biases make activations over padding nonzero). The start conv's output is
+    masked in plain torch, the layers by the windowed chained trunk (K1/K2).
+    Batch 1 only; the per-layer flavour (K7f/K7b) has no windowed form, in
+    the JAX package either, and raises. The JAX ``valid_mask`` (arbitrary
+    masks) belongs to the mesh path and is not ported.
     """
     cfg = cfg or WaveNetAEConfig()
     dtype = cfg.compute_dtype
     x_scaled = (x_quantized.to(torch.float32) / 128.0).to(dtype)[..., None]
     enc = _apply(params, "ae_startconv", x_scaled, causal=False, dtype=dtype)
+    if valid_window is not None:
+        if enc.shape[0] != 1:
+            raise ValueError(
+                f"encoder_trunk: a valid window is one clip's state, got batch {enc.shape[0]}")
+        if cfg.fused_encoder and not cfg.chain_encoder:
+            raise NotImplementedError(
+                "encoder_trunk: the per-layer flavour (fused_encoder=True, "
+                "chain_encoder=False) has no valid-window form; use the chained trunk")
+        t = enc.shape[1]
+        enc = enc * window_rows(valid_window, t, t, enc.device).to(dtype)[None]
 
     n = cfg.ae_num_layers
     if cfg.fused_encoder and not cfg.chain_encoder:
@@ -138,11 +163,21 @@ def encoder_trunk(params: Params, x_quantized: torch.Tensor,
               else {min(int(i), n - 1) for i in needed_taps})
     emit = tuple(sorted(needed | {n - 1}))
     wd, bd, wr, br = (a.to(dtype) for a in stack_trunk_weights(params, n))
-    tap_map = dict(zip(emit, fused_trunk(enc, wd, bd, wr, br, dils, emit)))
+    tap_map = dict(zip(emit, fused_trunk(enc, wd, bd, wr, br, dils, emit,
+                                         valid_window=valid_window)))
     extracts = [tap_map.get(k) for k in range(n)]
     extracts.append(extracts[-1])  # enc_ duplicate tap (reference model.py:118-119)
     extracts.append(_apply(params, "ae_bottleneck", extracts[-1], dtype=dtype))
     return extracts
+
+
+def receptive_field_radius(cfg: WaveNetAEConfig | None = None) -> int:
+    """One-sided receptive field of the encoder trunk in samples: 1 for the
+    start conv plus each layer's dilation (filter 3, symmetric); 3070 at the
+    full geometry."""
+    cfg = cfg or WaveNetAEConfig()
+    half = (cfg.ae_filter_length - 1) // 2
+    return half + sum(cfg.ae_dilation(k) * half for k in range(cfg.ae_num_layers))
 
 
 def encoder_extracts(params: Params, x_quantized: torch.Tensor,

@@ -21,6 +21,16 @@ wrapper runs its plain torch version (``layer_fwd_plain``/``layer_bwd_plain``,
 same cast points as the kernel); on a CUDA tensor it launches the kernel or
 raises. Weight gradients, when asked for, come from autograd through the
 plain ``reference_trunk`` (a recompute, as the JAX custom VJP does).
+
+``valid_window=(lo, hi)`` (plain Python ints, in-clip rows; JAX
+``fused_trunk(valid_window=)``) re-zeroes every layer's output outside
+[max(lo, 0), min(hi, clip_rows)): the forward is ``x_{j+1} = w * (x_j +
+f(x_j))`` with the multiply before the output's mask bit is taken and the tap
+is written, the backward masks ``g = w * (dxn + dtap)``. K1 and K2 take the
+window as two ints (one predicate per row); ``None`` is the full range, which
+the kernels and the plain versions compute bit for bit as before. K2-wf has
+no windowed form (it is opt-in and slower than the K2 launches it replaces):
+``trunk_backward`` refuses a window while ``_BWD_WAVEFRONT`` is on.
 """
 
 from __future__ import annotations
@@ -63,15 +73,40 @@ def stack_trunk_weights(params, num_layers: int = 30):
     return wd, bd, wr, br
 
 
-def reference_trunk(x, wd, bd, wr, br, dils, emit):
+def clamp_window(valid_window, clip_rows: int) -> tuple:
+    """(lo, hi) clamped to the clip as the kernels take it; None is the full
+    range. The window is host state: two Python ints."""
+    if valid_window is None:
+        return 0, clip_rows
+    lo, hi = (int(v) for v in valid_window)
+    return max(lo, 0), min(hi, clip_rows)
+
+
+def window_rows(valid_window, rows: int, clip_rows: int, device):
+    """[rows, 1] bool, True on the rows inside the window of their clip; None
+    without a window."""
+    if valid_window is None:
+        return None
+    lo, hi = clamp_window(valid_window, clip_rows)
+    pos = torch.arange(rows, device=device) % clip_rows
+    return ((pos >= lo) & (pos < hi))[:, None]
+
+
+def _zero_outside(a, inside):
+    return a if inside is None else torch.where(inside, a, torch.zeros_like(a))
+
+
+def reference_trunk(x, wd, bd, wr, br, dils, emit, valid_window=None):
     """Unfused oracle through ops.conv (JAX ``reference_trunk``): the taps
-    of ``emit`` in ascending order. x is [T, C] or [B, T, C]."""
+    of ``emit`` in ascending order. x is [T, C] or [B, T, C]. With
+    ``valid_window`` every layer's output is re-zeroed outside it."""
     squeeze = x.dim() == 2
     cur = x[None] if squeeze else x
+    inside = window_rows(valid_window, cur.shape[1], cur.shape[1], cur.device)
     taps = {}
     for j, d in enumerate(dils):
         y = conv1d(torch.relu(cur), wd[j], bd[j], dilation=d, causal=False)
-        cur = cur + conv1d(torch.relu(y), wr[j][None], br[j])
+        cur = _zero_outside(cur + conv1d(torch.relu(y), wr[j][None], br[j]), inside)
         if j in emit:
             taps[j] = cur[0] if squeeze else cur
     return tuple(taps[j] for j in sorted(taps))
@@ -123,20 +158,25 @@ def transposed_conv_plain(dy, wd, d: int, clip_rows: int):
 
 
 def layer_fwd_plain(x, wd, bd, wr, br, d: int, clip_rows: int,
-                    want_inmask: bool = False):
-    """Plain version of K1 for one layer: (out, mask, inmask or None)."""
+                    want_inmask: bool = False, valid_window=None):
+    """Plain version of K1 for one layer: (out, mask, inmask or None). The
+    window zeroes ``out`` before its mask bit is taken."""
     y = dilated_conv_plain(x, wd, bd, d, clip_rows)
-    out = block_out_plain(x, y, wr, br)
+    out = _zero_outside(block_out_plain(x, y, wr, br),
+                        window_rows(valid_window, x.shape[0], clip_rows, x.device))
     inmask = (x > 0).to(torch.uint8) if want_inmask else None
     return out, _masks(out, y), inmask
 
 
-def layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
+def layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int,
+                    valid_window=None):
     """Plain version of K2 for one layer: the cotangent of the layer input
     from the output cotangent ``dxn``, the emitted tap's cotangent ``dtap``
-    (or None), this layer's mask bytes and the input's relu mask (bit 0)."""
+    (or None), this layer's mask bytes and the input's relu mask (bit 0).
+    The window zeroes g = dxn + dtap (the emitted tap is the masked value)."""
     dt = dxn.dtype
-    g = dxn if dtap is None else dxn + dtap
+    g = _zero_outside(dxn if dtap is None else dxn + dtap,
+                      window_rows(valid_window, dxn.shape[0], clip_rows, dxn.device))
     dv = g.to(_F32) @ wr.to(_F32).T
     dy = (dv * ((mask >> 1) & 1).to(_F32)).to(dt).to(_F32)
     dr = transposed_conv_plain(dy, wd, d, clip_rows)
@@ -328,7 +368,8 @@ def _check_bf16(t):
         raise TypeError(f"the tensor-core kernels take bfloat16, got {t.dtype}")
 
 
-def _layer_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool, mma: bool):
+def _layer_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool, mma: bool,
+                    valid_window=None):
     """Launch K1 on CUDA tensors: the tensor-core kernel (bfloat16 only) when
     ``mma``, else the float32-FMA kernel in x's dtype."""
     check_layer(x, clip_rows)
@@ -342,7 +383,8 @@ def _layer_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool
     mask = torch.empty(x.shape, dtype=torch.uint8, device=dev)
     inmask = torch.empty_like(mask) if want_inmask else None
     args = (x.data_ptr(), wd.data_ptr(), bd.data_ptr(), wr.data_ptr(), br.data_ptr(),
-            out.data_ptr(), mask.data_ptr(), _ptr(inmask), x.shape[0], clip_rows, d)
+            out.data_ptr(), mask.data_ptr(), _ptr(inmask), x.shape[0], clip_rows, d,
+            *clamp_window(valid_window, clip_rows))
     if mma:
         name = "ast_trunk_fwd_mma"
         status = _build.lib().ast_trunk_fwd_mma(*args, _build.stream_ptr(dev))
@@ -355,24 +397,28 @@ def _layer_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool
     return out, mask, inmask
 
 
-def layer_fwd(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = False):
+def layer_fwd(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = False,
+              valid_window=None):
     """One trunk layer forward: K1 on CUDA (bfloat16: the tensor-core kernel
     of csrc/trunk_mma.cu; float32: the FMA kernel of csrc/trunk.cu), the
     plain version on the CPU.
 
     x [rows, C] (rows = clips * clip_rows), wd [3, C, C], wr [C, C] in x's
-    dtype; bd, br [C] float32. Returns (out, mask, inmask or None)."""
+    dtype; bd, br [C] float32; valid_window (lo, hi) in in-clip rows or None.
+    Returns (out, mask, inmask or None)."""
     if x.device.type == "cpu":
-        return layer_fwd_plain(x, wd, bd, wr, br, d, clip_rows, want_inmask)
+        return layer_fwd_plain(x, wd, bd, wr, br, d, clip_rows, want_inmask, valid_window)
     return _layer_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, want_inmask,
-                           mma=x.dtype == torch.bfloat16)
+                           mma=x.dtype == torch.bfloat16, valid_window=valid_window)
 
 
-def layer_fwd_fma(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = False):
+def layer_fwd_fma(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = False,
+                  valid_window=None):
     """K1's FMA kernel (csrc/trunk.cu) in x's dtype, bfloat16 included: the
     code K7f, K7b and K2-wf are built on. For comparisons only; no transfer
     path calls it."""
-    return _layer_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, want_inmask, mma=False)
+    return _layer_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, want_inmask, mma=False,
+                           valid_window=valid_window)
 
 
 def _check_layer_bwd(dxn, dtap, mask, inmask, wd, wr, clip_rows: int):
@@ -390,14 +436,16 @@ def _check_layer_bwd(dxn, dtap, mask, inmask, wd, wr, clip_rows: int):
         check_cuda("wr", wr, (c, c), dt, dev)
 
 
-def _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, mma: bool):
+def _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, mma: bool,
+                    valid_window=None):
     """Launch K2 (both phases) on CUDA tensors; ``mma`` as in ``_layer_fwd_cuda``."""
     _check_layer_bwd(dxn, dtap, mask, inmask, wd, wr, clip_rows)
     dev = dxn.device
     dy = torch.empty_like(dxn)
     dx = torch.empty_like(dxn)
     args = (dxn.data_ptr(), _ptr(dtap), mask.data_ptr(), inmask.data_ptr(), wd.data_ptr(),
-            wr.data_ptr(), dy.data_ptr(), dx.data_ptr(), dxn.shape[0], clip_rows, d)
+            wr.data_ptr(), dy.data_ptr(), dx.data_ptr(), dxn.shape[0], clip_rows, d,
+            *clamp_window(valid_window, clip_rows))
     if mma:
         name = "ast_trunk_bwd_mma"
         status = _build.lib().ast_trunk_bwd_mma(*args, _build.stream_ptr(dev))
@@ -410,23 +458,24 @@ def _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, mma
     return dx
 
 
-def layer_bwd(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
+def layer_bwd(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, valid_window=None):
     """One trunk layer backward: K2 on CUDA (bfloat16: csrc/trunk_mma.cu;
     float32: csrc/trunk.cu), the plain version on the CPU."""
     if dxn.device.type == "cpu":
-        return layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d, clip_rows)
+        return layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d, clip_rows, valid_window)
     return _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d, clip_rows,
-                           mma=dxn.dtype == torch.bfloat16)
+                           mma=dxn.dtype == torch.bfloat16, valid_window=valid_window)
 
 
-def layer_bwd_fma(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int):
+def layer_bwd_fma(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, valid_window=None):
     """K2's FMA kernels (csrc/trunk.cu) in dxn's dtype, bfloat16 included: the
     launches K2-wf equals bit for bit. For comparisons only; no transfer path
     calls it."""
-    return _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d, clip_rows, mma=False)
+    return _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d, clip_rows, mma=False,
+                           valid_window=valid_window)
 
 
-def layer_bwd_mma_phase1(dxn, dtap, mask, wr, clip_rows: int):
+def layer_bwd_mma_phase1(dxn, dtap, mask, wr, clip_rows: int, valid_window=None):
     """Phase 1 of the bfloat16 K2 alone (for timing it): dy. Not counted as a
     K2 launch."""
     _check_bf16(dxn)
@@ -434,12 +483,13 @@ def layer_bwd_mma_phase1(dxn, dtap, mask, wr, clip_rows: int):
     dy = torch.empty_like(dxn)
     status = _build.lib().ast_trunk_bwd_dy_mma(
         dxn.data_ptr(), _ptr(dtap), mask.data_ptr(), wr.data_ptr(), dy.data_ptr(),
-        dxn.shape[0], _build.stream_ptr(dxn.device))
+        dxn.shape[0], clip_rows, *clamp_window(valid_window, clip_rows),
+        _build.stream_ptr(dxn.device))
     _build.check(status, "ast_trunk_bwd_dy_mma")
     return dy
 
 
-def layer_bwd_mma_phase2(dxn, dtap, dy, inmask, wd, d: int, clip_rows: int):
+def layer_bwd_mma_phase2(dxn, dtap, dy, inmask, wd, d: int, clip_rows: int, valid_window=None):
     """Phase 2 of the bfloat16 K2 alone (for timing it): dx from phase 1's dy.
     Not counted as a K2 launch."""
     _check_bf16(dxn)
@@ -448,7 +498,8 @@ def layer_bwd_mma_phase2(dxn, dtap, dy, inmask, wd, d: int, clip_rows: int):
     dx = torch.empty_like(dxn)
     status = _build.lib().ast_trunk_bwd_dx_mma(
         dxn.data_ptr(), _ptr(dtap), dy.data_ptr(), inmask.data_ptr(), wd.data_ptr(),
-        dx.data_ptr(), dxn.shape[0], clip_rows, d, _build.stream_ptr(dxn.device))
+        dx.data_ptr(), dxn.shape[0], clip_rows, d, *clamp_window(valid_window, clip_rows),
+        _build.stream_ptr(dxn.device))
     _build.check(status, "ast_trunk_bwd_dx_mma")
     return dx
 
@@ -510,7 +561,7 @@ def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int
     return dx
 
 
-def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int):
+def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int, valid_window=None):
     """All layers forward on [rows, C]: (outs per layer, masks per layer,
     input relu mask). Weights are cast to the activation dtype, biases to
     float32, as the kernels take them."""
@@ -521,7 +572,7 @@ def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int):
     cur = x2d
     for j, d in enumerate(dils):
         cur, m, im = layer_fwd(cur, wd[j], bd[j], wr[j], br[j], d, clip_rows,
-                               want_inmask=(j == 0))
+                               want_inmask=(j == 0), valid_window=valid_window)
         if j == 0:
             inmask = im
         outs.append(cur)
@@ -529,11 +580,17 @@ def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int):
     return outs, masks, inmask
 
 
-def trunk_backward(dtaps: dict, masks, inmask, wd, wr, dils, clip_rows: int):
+def trunk_backward(dtaps: dict, masks, inmask, wd, wr, dils, clip_rows: int,
+                   valid_window=None):
     """Waveform cotangent of the trunk input from tap cotangents
     ({layer: [rows, C] or None}); the last layer's seeds the chain. With
     ``_BWD_WAVEFRONT`` on, the groups of ``plan_bwd_groups`` run through
-    ``group_bwd`` and the remaining layers through ``layer_bwd``."""
+    ``group_bwd`` and the remaining layers through ``layer_bwd``; K2-wf has no
+    windowed form, so that setting with a window raises."""
+    if _BWD_WAVEFRONT and valid_window is not None:
+        raise NotImplementedError(
+            "the grouped wavefront backward (K2-wf) has no valid-window form: switch "
+            "_BWD_WAVEFRONT / AST_CHAIN_BWD_WAVEFRONT off for a windowed trunk")
     last = len(dils) - 1
     seed = dtaps.get(last)
     if seed is None:
@@ -550,7 +607,8 @@ def trunk_backward(dtaps: dict, masks, inmask, wd, wr, dils, clip_rows: int):
         in_m = masks[j0 - 1] if j0 > 0 else inmask
         taps = [dtaps.get(j) if j != last else None for j in range(j0, j0 + k)]
         if group.splits is None:
-            dx = layer_bwd(dx, taps[0], masks[j0], in_m, wd[j0], wr[j0], dils[j0], clip_rows)
+            dx = layer_bwd(dx, taps[0], masks[j0], in_m, wd[j0], wr[j0], dils[j0], clip_rows,
+                           valid_window)
         else:
             dx = group_bwd(dx, taps, masks[j0:j0 + k], in_m, wd[j0:j0 + k], wr[j0:j0 + k],
                            group, clip_rows)
@@ -564,19 +622,19 @@ class TrunkFunction(torch.autograd.Function):
     only when asked for."""
 
     @staticmethod
-    def forward(ctx, x, wd, bd, wr, br, dils, emit):
+    def forward(ctx, x, wd, bd, wr, br, dils, emit, valid_window=None):
         b, t, c = x.shape
         outs, masks, inmask = trunk_forward(
-            x.reshape(b * t, c).contiguous(), wd, bd, wr, br, dils, t)
+            x.reshape(b * t, c).contiguous(), wd, bd, wr, br, dils, t, valid_window)
         ctx.save_for_backward(x, wd, bd, wr, br, inmask, *masks)
-        ctx.dils, ctx.emit = dils, emit
+        ctx.dils, ctx.emit, ctx.valid_window = dils, emit, valid_window
         ctx.set_materialize_grads(False)
         return tuple(outs[j].view(b, t, c) for j in emit)
 
     @staticmethod
     def backward(ctx, *dtaps):
         x, wd, bd, wr, br, inmask, *masks = ctx.saved_tensors
-        dils, emit = ctx.dils, ctx.emit
+        dils, emit, valid_window = ctx.dils, ctx.emit, ctx.valid_window
         b, t, c = x.shape
         dx = dwd = dbd = dwr = dbr = None
         if ctx.needs_input_grad[0]:
@@ -587,23 +645,34 @@ class TrunkFunction(torch.autograd.Function):
             last = len(dils) - 1
             if last not in flat:
                 flat[last] = x.new_zeros(b * t, c)
-            dx = trunk_backward(flat, masks, inmask, wd, wr, dils, t).view(b, t, c)
+            dx = trunk_backward(flat, masks, inmask, wd, wr, dils, t,
+                                valid_window).view(b, t, c)
         if any(ctx.needs_input_grad[1:5]):
             with torch.enable_grad():
                 ws = [w.detach().requires_grad_(True) for w in (wd, bd, wr, br)]
-                taps = reference_trunk(x.detach(), *ws, dils, emit)
+                taps = reference_trunk(x.detach(), *ws, dils, emit, valid_window)
                 pairs = [(tp, g) for tp, g in zip(taps, dtaps) if g is not None]
                 dwd, dbd, dwr, dbr = torch.autograd.grad(
                     [p[0] for p in pairs], ws, [p[1] for p in pairs],
                     allow_unused=True)
-        return dx, dwd, dbd, dwr, dbr, None, None
+        return dx, dwd, dbd, dwr, dbr, None, None, None
 
 
-def fused_trunk(x, wd, bd, wr, br, dils, emit):
+def fused_trunk(x, wd, bd, wr, br, dils, emit, valid_window=None):
     """The trunk's taps of ``emit`` (the last layer is always added), in
-    ascending layer order. x is [B, T, C] or [T, C]."""
+    ascending layer order. x is [B, T, C] or [T, C].
+
+    ``valid_window``: (lo, hi) Python ints; every layer's output is re-zeroed
+    outside [lo, hi) (the halo windows of the exact long-form scan). The
+    window is one clip's state: batch 1 only, as in the JAX package."""
     dils = tuple(int(d) for d in dils)
     emit = tuple(sorted(set(int(e) for e in emit) | {len(dils) - 1}))
+    if valid_window is not None:
+        if x.dim() == 3 and x.shape[0] != 1:
+            raise ValueError(
+                f"fused_trunk: a valid window is one clip's state, got batch {x.shape[0]}")
+        valid_window = (int(valid_window[0]), int(valid_window[1]))
     if x.dim() == 2:
-        return tuple(tp[0] for tp in TrunkFunction.apply(x[None], wd, bd, wr, br, dils, emit))
-    return TrunkFunction.apply(x, wd, bd, wr, br, dils, emit)
+        return tuple(tp[0] for tp in TrunkFunction.apply(x[None], wd, bd, wr, br, dils, emit,
+                                                         valid_window))
+    return TrunkFunction.apply(x, wd, bd, wr, br, dils, emit, valid_window)

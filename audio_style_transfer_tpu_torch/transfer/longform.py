@@ -10,8 +10,10 @@ Optionally the style target is first mapped through the NMF + optimal
 transport palette transform (reference utils.py:132-145), the "OT loss"
 flavour of BASELINE.json config 5.
 
-Exact mode (one window spanning the whole clip, ``transfer_exact``) is not
-ported yet.
+Exact mode (``transfer_exact``) optimizes ONE window spanning the whole
+clip with one global gram, on one device: as a single unmasked trunk pass, or
+as a scan over halo-extended windows (parallel/halo.py). Its mesh form waits
+for the multi-device slice.
 """
 
 from __future__ import annotations
@@ -186,10 +188,121 @@ def _ot_transform_gram(engine, style_audio, content_audio, phi_t,
     return l2_normalize(torch.as_tensor(phi_t + blend * (g_ot - g_c)), axes=(1, 2)).numpy()
 
 
-def transfer_exact(*args, **kwargs):
-    """Exact long-form mode (one window spanning the whole clip): not ported."""
-    raise NotImplementedError(
-        "transfer_exact is not ported yet (ROADMAP.md M5-exact: exact long-form)")
+SINGLE_WINDOW_MAX = 2_097_152  # samples; longer clips scan by default
+
+
+def transfer_exact(
+    engine: StyleTransfer,
+    content_audio: np.ndarray,
+    style_audio: np.ndarray,
+    mesh=None,
+    epochs: int | None = None,
+    max_style_examples: int = 5,
+    scan_window: int | None = None,
+    ot_components: int | None = None,
+    ot_blend: float = 0.5,
+) -> LongformResult:
+    """Exact long-form mode: one window spanning the whole clip.
+
+    One global gram over the full sequence, no chunk seams, no crossfade,
+    content features kept at every sample. Style statistics stay
+    chunk-averaged as in the reference (methods.py:97-111): only the optimized
+    window is global. Per-epoch L-BFGS restarts (zoom, no restart on a failed
+    search) and the ``< early_stop_evals`` stop follow the engine's spec.
+
+    Clips up to ``SINGLE_WINDOW_MAX`` samples run as one unmasked trunk pass
+    (the whole clip's taps and mask bytes are live); longer ones, or any clip
+    when ``scan_window`` is given and shorter than it, run as a scan over
+    ``scan_window``-sample halo-extended windows whose live memory is one
+    window's (``halo.make_scan_exact_value_and_grad_fn``).
+
+    ``ot_components`` / ``ot_blend``: as in ``transfer_longform``; the
+    correction applies to the chunk-averaged ``phi_t`` before the gram
+    translation.
+
+    The clip is trimmed to a multiple of 4096 samples in single-window mode.
+    Scan mode trims to a multiple of 512 and zero-pads up to whole windows,
+    the pad masked out of the loss. ``per_window`` holds ``metrics`` (the
+    loss after each epoch), ``evals``, ``epochs_done``, ``t_optimized`` (the
+    length the loss ran over: in scan mode the padded one, which is what a
+    per-evaluation cost divides by) and ``x`` [1, t_optimized].
+
+    ``mesh``: the time-sharded form over several devices; not ported yet.
+    """
+    from audio_style_transfer_tpu_torch.parallel.halo import (
+        make_scan_exact_embeds_fn,
+        make_scan_exact_value_and_grad_fn,
+    )
+    from audio_style_transfer_tpu_torch.transfer.lbfgs import LBFGSOptions, lbfgs_minimize
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "transfer_exact(mesh=...) is not ported yet (ROADMAP.md M8: multi-device)")
+    spec = engine.spec
+    epochs = epochs or spec.epochs
+    if scan_window is None:
+        scan_window = (len(content_audio) if len(content_audio) <= SINGLE_WINDOW_MAX
+                       else 32768)
+    if scan_window >= len(content_audio):  # single-window mode
+        quantum, scan_window = 4096, len(content_audio)
+    else:
+        quantum = 512
+    t_valid = (len(content_audio) // quantum) * quantum
+    if t_valid == 0:
+        raise ValueError(f"content ({len(content_audio)} samples) shorter than one "
+                         f"{quantum}-sample quantum")
+    if scan_window < t_valid:
+        # Scan mode: pad to whole windows; the pad is masked out of the loss.
+        t_total = -(-t_valid // scan_window) * scan_window
+    else:
+        t_total = t_valid
+    content = np.pad(content_audio[:t_valid], (0, t_total - t_valid))
+
+    # Reference-semantics style statistics (chunk-averaged).
+    phi_t = engine.get_style_phi(style_audio, max_examples=max_style_examples)
+    phi_s = engine.get_style_phi(content_audio, max_examples=max_style_examples)
+    if ot_components is not None:
+        phi_t = _ot_transform_gram(engine, style_audio, content_audio,
+                                   phi_t, ot_components, blend=ot_blend)
+
+    geometry = (engine.cfg, engine.loss_spec, t_total, scan_window, t_valid)
+    embeds_fn = make_scan_exact_embeds_fn(*geometry)
+    value_and_grad = make_scan_exact_value_and_grad_fn(*geometry)
+
+    # Full-sequence content targets through one exact encoder pass.
+    to_dev = engine._tensor
+    with torch.no_grad():
+        phi_c, phi_full = embeds_fn(engine.params, to_dev(mu_law_numpy(content[None])))
+        phi_c = phi_c.to(torch.float32)
+        phi = l2_normalize(phi_full.to(torch.float32) + to_dev(phi_t) - to_dev(phi_s),
+                           axes=(1, 2))
+
+    def vg(x):
+        loss, g = value_and_grad(engine.params, x[None, :], phi_c, phi)
+        return loss, g[0]
+
+    opts = LBFGSOptions(maxiter=spec.maxiter, line_search="zoom", restart_on_ls_fail=False)
+    x = to_dev(np.full((t_total,), 1e-6, np.float32))
+    metrics, evals = [], []
+    for _ in range(epochs):
+        res = lbfgs_minimize(vg, x, opts)
+        x = res.x
+        metrics.append(float(res.f))
+        evals.append(int(res.n_evals))
+        if evals[-1] < spec.early_stop_evals:
+            break
+
+    x_np = x.detach().cpu().numpy()[None, :]
+    return LongformResult(
+        audio=inv_mu_law_numpy(x_np[0, :t_valid]),
+        per_window={
+            "metrics": np.asarray(metrics, np.float32),
+            "evals": np.asarray(evals, np.int32),
+            "epochs_done": len(evals),
+            "t_optimized": int(t_total),
+            "x": x_np,
+        },
+    )
 
 
 def _stitch(windows: list[np.ndarray], crossfade: int) -> np.ndarray:

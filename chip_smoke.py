@@ -20,6 +20,12 @@ Phases (any failure raises and exits non-zero):
      {0..9} (L=10) and on all 30 taps (L=30), and on two clips of a ragged
      T, K5 twice on the same inputs for equal bits, both timed as a
      replayed CUDA graph with one torch.einsum beside each as a yardstick;
+     K1 and K2 once more with a valid window whose edges cut 128-row tiles
+     (the exact long-form scan's edge windows), against their windowed plain
+     versions and timed beside the unwindowed kernels; then K1, K2, K5 and
+     K6 against their plain versions at the shapes the exact long-form runs
+     give them (the scan's 40960-row window with its two edge windows and
+     with none, its cropped 32768-row gram, the single window's 237568 rows);
      then a bare bfloat16 loss+gradient evaluation at stack 0 and at the
      full stack, CUDA events beside the host clock, with the kernel
      launches of one evaluation;
@@ -28,6 +34,9 @@ Phases (any failure raises and exits non-zero):
      0..29, content tap 25); the STFT L1 regularizer's value and gradient
      card against CPU; one More-Thuente line search on the card on the
      stack-0 loss with the regularizer (Wolfe conditions at the step taken);
+     the exact long-form loss and waveform gradient at the 1e-6 start in its
+     two flavours (one window over the clip; a scan over 8 halo-extended
+     windows with the pad masked) against each other, float32 and bfloat16;
   5. drive the main paths, each with the launch counts set to 0 just before
      and read just after, checking that it launched exactly its kernels:
      the port's transfer CLI on two synthetic clips (bf16, random weights,
@@ -37,7 +46,13 @@ Phases (any failure raises and exits non-zero):
      --longform --ot_components 8 --gamma 1e-3 --stack 0, 2 epochs) with the
      wavefront backward on {K1, K2, K2wf, K5, K6; K2wf = 3 and K2 = 18 per
      evaluation} and once more with it off; in every run K6 is launched once
-     per evaluation that took a gradient, and K5 at least as often;
+     per evaluation that took a gradient, and K5 at least as often; the
+     stack-0 and full-stack CLI runs again in float32 (the full-stack final
+     loss held to a band) and the --gatys CLI in both types {K1, K2}, with
+     the bf16 / f32 ratio of final losses printed per path; then the exact
+     long-form CLI (--exact, bf16, --stack 0 --gamma 1e-3) on a 15 s clip as
+     one window and as a scan of 32768-sample windows, launches per
+     evaluation checked, with evals/s, ms per evaluation and peak memory;
   6. print the per-kernel JSON line (time, plain time, bound, library time),
      then the result line.
 
@@ -80,6 +95,20 @@ PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
 WINDOWS = 4  # windows of the long-form run
 RAGGED_T = 1000  # rows of the gram kernels' ragged check: no multiple of their tiles
+# The valid window of the windowed K1/K2 check, in rows: both edges inside a
+# 128-row tile of the bf16 kernels and a 64-row tile of the f32 ones.
+WINDOW = (1000, T - 1500)
+# The exact long-form runs: a 15 s clip; one window trims it to a multiple of
+# 4096; the scan trims to a multiple of 512 and pads to 8 windows.
+EXACT_SAMPLES = 240000
+SCAN_WINDOW = 32768
+# The float32 full-stack CLI run (3 epochs from the 1e-6 start, these clips and
+# weights) ended at 6.8539 or 6.8540 in all four kernel / plain combinations
+# of the gram (NVIDIA H100 80GB HBM3). The start point is ill-conditioned
+# (the first step is scaled by 1/||g||_1 and the trajectory amplifies rounding
+# differences), so the band is 1% wide, not a few ulps.
+F32_FULL_STACK_LOSS = 6.854
+F32_BAND = 0.01
 
 
 def synth_audio(seconds: float, sr: int = 16000, kind: str = "content"):
@@ -170,6 +199,116 @@ def check_all(name: str, outs, wants, tol: float) -> float:
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain version")
     return abs_err
+
+
+def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
+    """K1 and K2 over the 30 layers at x0's row count (one clip), with the
+    valid window ``window`` or None, layer by layer on the plain chain's own
+    inputs, masks and cotangents. Returns (K1 max|d|, K2 max|d|, the plain
+    chain's first ten outputs)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import chain
+
+    wd, bd, wr, br = weights
+    rows = x0.shape[0]
+    dils = tuple(2 ** (k % 10) for k in range(LAYERS))
+    cur, masks, inmask, outs = x0, [], None, []
+    k1_err, k1_share = 0.0, 0.0
+    for j, d in enumerate(dils):
+        out_p, m_p, im_p = chain.layer_fwd_plain(cur, wd[j], bd[j], wr[j], br[j], d, rows,
+                                                 want_inmask=(j == 0), valid_window=window)
+        out_k, m_k, im_k = chain.layer_fwd(cur, wd[j], bd[j], wr[j], br[j], d, rows,
+                                           want_inmask=(j == 0), valid_window=window)
+        abs_err, rel = rel_err(out_k, out_p)
+        share = float((m_k != m_p).float().mean())
+        if j == 0:
+            share = max(share, float((im_k != im_p).float().mean()))
+            inmask = im_p
+        masked_ok = True
+        if window is not None:
+            lo, hi = chain.clamp_window(window, rows)
+            outside = torch.cat([out_k[:lo], out_k[hi:]])
+            bits = torch.cat([m_k[:lo], m_k[hi:]]) & 1
+            masked_ok = not (bool(outside.any()) or bool(bits.any()))
+        if rel > tol or share > MASK_TOL or not masked_ok:
+            raise AssertionError(f"K1 layer {j}, {rows} rows, {label}: rel err {rel:.3e}, "
+                                 f"{share:.2e} of mask bytes differ, or a masked row is not zero")
+        k1_err, k1_share = max(k1_err, abs_err), max(k1_share, share)
+        cur = out_p
+        masks.append(m_p)
+        if j < len(STYLE):
+            outs.append(out_p)
+    dx, k2_err = dtaps[LAYERS - 1], 0.0
+    for j in range(LAYERS - 1, -1, -1):
+        dtap = dtaps.get(j) if j != LAYERS - 1 else None
+        in_m = masks[j - 1] if j > 0 else inmask
+        dx_p = chain.layer_bwd_plain(dx, dtap, masks[j], in_m, wd[j], wr[j], dils[j], rows, window)
+        abs_err, rel = rel_err(
+            chain.layer_bwd(dx, dtap, masks[j], in_m, wd[j], wr[j], dils[j], rows, window), dx_p)
+        if rel > tol:
+            raise AssertionError(f"K2 layer {j}, {rows} rows, {label}: rel err {rel:.3e} > {tol}")
+        k2_err = max(k2_err, abs_err)
+        dx = dx_p
+    zeros = "" if window is None else ", masked rows zero with a zero bit 0"
+    print(f"  K1 at {rows} rows, {label}: max|d| {k1_err:.3e} over 30 layers (tol rel {tol:.0e}), "
+          f"mask bytes differing <= {k1_share:.2e}{zeros} ok; K2: max|d| {k2_err:.3e} ok")
+    return k1_err, k2_err, outs
+
+
+def exact_shapes_phase(dtype_name: str, params, dev) -> dict:
+    """K1, K2, K5 and K6 against their plain versions at the shapes the exact
+    long-form runs give them: the scan's halo-extended window (its two edge
+    windows masked, a middle one not) and its cropped ten-tap gram, and the
+    single window's whole clip. Returns the largest max|d| per kernel."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+    from audio_style_transfer_tpu_torch.ops import chain, gram
+    from audio_style_transfer_tpu_torch.parallel import halo
+
+    dt = getattr(torch, dtype_name)
+    tol = TOL[dtype_name]
+    wd, bd, wr, br = chain.stack_trunk_weights(params, LAYERS)
+    weights = (wd.to(dev, dt).contiguous(), bd.to(dev, torch.float32).contiguous(),
+               wr.to(dev, dt).contiguous(), br.to(dev, torch.float32).contiguous())
+    radius = halo._window_radius(WaveNetAEConfig(), align=2048)
+    w_ext = SCAN_WINDOW + 2 * radius
+    scan_valid = (EXACT_SAMPLES // 512) * 512
+    last = scan_valid // SCAN_WINDOW  # the window that holds the clip's end
+    one_window = (EXACT_SAMPLES // 4096) * 4096
+    cases = (  # rows, valid window, rows cropped each side for the gram
+        (w_ext, (radius, w_ext), radius),  # the scan's first window
+        (w_ext, (0, scan_valid - last * SCAN_WINDOW + radius), None),  # its last
+        (w_ext, None, None),  # a middle window
+        (one_window, None, 0),  # the single window
+    )
+    print(f"[exact shapes {dtype_name}] scan windows of {w_ext} rows (radius {radius}), one "
+          f"window of {one_window} rows")
+    errs = {k: 0.0 for k in ("K1", "K2", "K5", "K6")}
+    gen = torch.Generator(device=dev).manual_seed(1)
+    for rows, window, crop in cases:
+        x0 = (torch.randn((rows, C), generator=gen, device=dev) * 0.5).to(dt)
+        dtaps = {j: (torch.randn((rows, C), generator=gen, device=dev) * 1e-3).to(dt)
+                 for j in EMIT}
+        label = "no window" if window is None else f"the valid window {window}"
+        k1, k2, outs = chain_check(label, weights, x0, dtaps, window, tol)
+        errs["K1"], errs["K2"] = max(errs["K1"], k1), max(errs["K2"], k2)
+        del dtaps
+        if crop is None:
+            continue
+        taps = [o[None, crop:rows - crop] for o in outs]
+        nl = len(taps)
+        h = torch.randn((1, nl, nl, C), generator=gen, device=dev)
+        where = f"L={nl}, T={rows - 2 * crop}"
+        errs["K5"] = max(errs["K5"], check(f"K5 gram {where}", gram.pair_gram_fwd(*taps),
+                                           gram.pair_gram_reference(*taps), tol))
+        errs["K6"] = max(errs["K6"], check_all(f"K6 gram backward {where}",
+                                               gram.pair_gram_bwd(taps, h),
+                                               gram.pair_gram_bwd_plain(taps, h), tol))
+        del taps, outs
+    torch.cuda.empty_cache()
+    return errs
 
 
 def kernel_phase(dtype_name: str, params, dev) -> dict:
@@ -312,6 +451,10 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
           f"K2 launches bit for bit; against the K2 launches it replaces max|d| "
           f"{wf_vs_k2:.3e} (tol rel {tol:.0e}) ok")
 
+    # K1 and K2 with a valid window that cuts tiles.
+    k1w_err, k2w_err, _ = chain_check(f"the valid window {WINDOW}", (wd, bd, wr, br), x0, dtaps,
+                                      WINDOW, tol)
+
     # K5 and K6 on the ten stack-0 taps and on all 30 taps; then on two
     # clips of a T that ends inside a tile (the taps' first RAGGED_T rows and
     # their last). K5 twice on the same inputs: its sums have a fixed order.
@@ -334,20 +477,20 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
             errs[f"K6 L={nl}"] = max(errs.get(f"K6 L={nl}", 0.0), err)
 
     # Times: a whole trunk direction (30 launches) and one gram.
-    def fwd(layer):
+    def fwd(layer, window=None):
         def run():
             cur = x0
             for j, d in enumerate(dils):
-                cur = layer(cur, wd[j], bd[j], wr[j], br[j], d, T, j == 0)[0]
+                cur = layer(cur, wd[j], bd[j], wr[j], br[j], d, T, j == 0, window)[0]
         return run
 
-    def bwd(layer):
+    def bwd(layer, window=None):
         def run():
             cur = dtaps[LAYERS - 1]
             for j in range(LAYERS - 1, -1, -1):
                 in_m = masks[j - 1] if j > 0 else inmask
                 dtap = dtaps.get(j) if j != LAYERS - 1 else None
-                cur = layer(cur, dtap, masks[j], in_m, wd[j], wr[j], dils[j], T)
+                cur = layer(cur, dtap, masks[j], in_m, wd[j], wr[j], dils[j], T, window)
         return run
 
     def blocks(block, backward: bool):
@@ -377,6 +520,15 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
               "K2": cuda_ms(bwd(chain.layer_bwd_fma), graph=True) / LAYERS}
     eager_ms = {"K1": cuda_ms(fwd(chain.layer_fwd)) / LAYERS,
                 "K2": cuda_ms(bwd(chain.layer_bwd)) / LAYERS}
+    # The windowed kernels between two timings of the unwindowed ones (the
+    # same launches with two more integers; the same bytes and bound).
+    windowed_ms = {}
+    for k, run in (("K1", fwd), ("K2", bwd)):
+        layer = chain.layer_fwd if k == "K1" else chain.layer_bwd
+        ms = [cuda_ms(run(layer, w), graph=True) / LAYERS for w in (None, WINDOW, WINDOW, None)]
+        windowed_ms[k] = min(ms[1:3])
+        print(f"  {k} with the valid window, time per launch: {ms[1]:.4f}, {ms[2]:.4f} ms between "
+              f"{ms[0]:.4f} and {ms[3]:.4f} ms without a window")
     if dt == torch.bfloat16:
         # The tensor-core K2 phase by phase, on the plain chain's cotangents.
         layer_args = [(dxs[j], dtaps.get(j) if j != LAYERS - 1 else None,
@@ -424,6 +576,8 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         print(f"  {k} time per launch: kernel {ms:.4f} ms{eager}{fma}, plain {plain_ms:.4f} ms"
               f"{lib}")
     errs.update({"K1": k1_err, "K2": k2_err, "K2wf": wf_err, "K7f": k7f_err, "K7b": k7b_err})
+    windowed = {"K1": {"windowed_max_abs_err": k1w_err, "windowed_ms": windowed_ms["K1"]},
+                "K2": {"windowed_max_abs_err": k2w_err, "windowed_ms": windowed_ms["K2"]}}
 
     # Bounds from these shapes. A product is one [T, C] x [C, C] matrix
     # product; an activation or cotangent array is T * C elements.
@@ -453,7 +607,7 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     for k, b in bounds.items():
         print(f"  {k} bound: {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {k: dict(max_abs_err=errs[k], ms=times[k][0], plain_ms=times[k][1],
-                    library_ms=library.get(k), **bounds[k]) for k in errs}
+                    library_ms=library.get(k), **bounds[k], **windowed.get(k, {})) for k in errs}
 
 
 def slice_phase(params, dev, style_ids, cont_ids) -> None:
@@ -784,6 +938,9 @@ def check_launches(label: str, launches: dict, expected: set, grad_evals: int) -
     if missing or extra:
         raise AssertionError(f"{label}: kernels not launched {missing}, launched but not on "
                              f"this path {extra}: {launches}")
+    if "K6" not in expected:  # the Gatys gram is a plain matmul: no gram kernel at all
+        print(f"[{label}] launches {launches}: {sorted(expected)} all > 0, the rest 0 ok")
+        return
     if launches["K6"] != grad_evals or launches["K5"] < grad_evals:
         raise AssertionError(f"{label}: K6 {launches['K6']} and K5 {launches['K5']} launches for "
                              f"{grad_evals} evaluations that took a gradient")
@@ -791,18 +948,28 @@ def check_launches(label: str, launches: dict, expected: set, grad_evals: int) -
           f"{grad_evals} gradient evaluations <= K5 ok")
 
 
-def check_losses(label: str, losses, audio_or_x) -> None:
+def check_losses(label: str, losses, audio_or_x, samples: int = T, band=None) -> None:
+    """Finite, not increasing across epochs, a finite waveform of ``samples``;
+    with ``band`` = (centre, relative half-width) the final loss lies in it."""
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{label}: non-finite losses {losses}")
     if any(b > a for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"{label}: losses increase across epochs: {losses}")
-    if audio_or_x.shape != (T,) or not np.all(np.isfinite(audio_or_x)):
-        raise AssertionError(f"{label}: the output waveform is not finite [{T}]")
+    if audio_or_x.shape != (samples,) or not np.all(np.isfinite(audio_or_x)):
+        raise AssertionError(f"{label}: the output waveform is not finite [{samples}]")
+    if band is not None:
+        centre, width = band
+        ok = abs(losses[-1] - centre) <= width * centre
+        print(f"[{label}] final loss {losses[-1]:.4f} against {centre} +- {100 * width:.0f}% "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: final loss {losses[-1]} outside the band")
 
 
-def cli_phase(dev, label: str, path_args: list, expected: set):
-    """The port's CLI, 3 epochs of bf16 transfer; returns (launches, evals,
-    wall seconds)."""
+def cli_phase(dev, label: str, path_args: list, expected: set, precision: str = "bfloat16",
+              band=None):
+    """The port's CLI, 3 epochs of transfer in ``precision``; returns
+    (launches, evals, wall seconds, final loss)."""
     import torch
 
     from audio_style_transfer_tpu_torch.cli.transfer import main
@@ -815,7 +982,7 @@ def cli_phase(dev, label: str, path_args: list, expected: set):
         write_wav(os.path.join(src, "style.wav"), synth_audio(3.0, kind="style"), 16000)
         argv = ["content", "style", "--dir", src, "--outdir", os.path.join(tmp, "out"),
                 "--logdir", os.path.join(tmp, "log"), *path_args,
-                "--precision", "bfloat16", "--fused", "--random_init", "--no_artifacts",
+                "--precision", precision, "--fused", "--random_init", "--no_artifacts",
                 "--epochs", "3", "--device", str(dev)]
         print(f"[{label}] {' '.join(argv[:2])} {' '.join(argv[8:])}")
         buf = io.StringIO()
@@ -834,11 +1001,143 @@ def cli_phase(dev, label: str, path_args: list, expected: set):
         raise AssertionError(f"{label}: the CLI printed no epoch lines")
     losses = [float(r[2]) for r in rows]
     evals = sum(int(r[1]) for r in rows)
-    check_losses(label, losses, audio)
+    check_losses(label, losses, audio, band=band)
     check_launches(label, launches, expected, evals)
     print(f"[{label}] {len(rows)} epochs, losses {losses}, {evals} L-BFGS evals in "
           f"{wall:.2f} s wall ({evals / wall:.2f} evals/s, setup included)")
-    return launches, evals, wall
+    return launches, evals, wall, losses[-1]
+
+
+def exact_flavours_phase(params, dev, dtype_name: str) -> None:
+    """The exact long-form loss and its waveform gradient at the 1e-6 start
+    (the optimizer's first evaluation) on the 15 s clip, full width, stack 0,
+    gamma 1e-3: one unmasked window against the scan over halo-extended
+    windows with the pad masked. Both flavours run the same kernels row for
+    row on the valid rows; what differs is the order of the gram's and the
+    content term's float32 sums across windows (about 1e-6), and in bfloat16
+    a tap cotangent that lands on the other side of a rounding boundary
+    (2^-8 of it). Hence loss rtol 1e-4 / 1e-3 and gradient max|d| within
+    1e-4 / 2e-2 of its largest entry (float32 / bfloat16)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.parallel import halo
+    from audio_style_transfer_tpu_torch.signal.mu_law import mu_law_numpy
+    from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
+
+    engine = StyleTransfer(TransferSpec(stack=0, gamma=1e-3, compute_dtype=dtype_name,
+                                        fused_encoder=True, write_artifacts=False,
+                                        device=str(dev)), params)
+    t_valid = (EXACT_SAMPLES // 4096) * 4096
+    t_total = -(-t_valid // SCAN_WINDOW) * SCAN_WINDOW
+    content = synth_audio(EXACT_SAMPLES / 16000, kind="content")[:t_valid]
+    xq = engine._tensor(mu_law_numpy(content[None]))
+    phi_s = engine._tensor(engine.get_style_phi(synth_audio(3.0, kind="style")))
+    cfg, lspec = engine.cfg, engine.loss_spec
+    with torch.no_grad():
+        phi_c, _ = halo.make_scan_exact_embeds_fn(cfg, lspec, t_valid, t_valid)(engine.params, xq)
+        phi_c = phi_c.to(torch.float32)
+    x = torch.full((1, t_valid), 1e-6, device=dev)
+    pad = t_total - t_valid
+    f1, g1 = halo.make_scan_exact_value_and_grad_fn(cfg, lspec, t_valid, t_valid)(
+        engine.params, x, phi_c, phi_s)
+    f2, g2 = halo.make_scan_exact_value_and_grad_fn(cfg, lspec, t_total, SCAN_WINDOW, t_valid)(
+        engine.params, torch.nn.functional.pad(x, (0, pad)),
+        torch.nn.functional.pad(phi_c, (0, 0, 0, pad)), phi_s)
+    torch.cuda.synchronize()
+    loss_tol, grad_tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2e-2)}[dtype_name]
+    print(f"[exact flavours {dtype_name}] first evaluation on {t_valid} samples: one window "
+          f"{float(f1):.6f}, scan of {t_total // SCAN_WINDOW} windows {float(f2):.6f}")
+    check("loss, scan against one window", f2, f1, loss_tol)
+    check("waveform gradient, scan against one window", g2[:, :t_valid], g1, grad_tol)
+    if bool(g2[:, t_valid:].any()):
+        raise AssertionError("exact scan: the pad tail's gradient is not zero")
+
+
+def exact_phase(dev, label: str, scan_window):
+    """The exact long-form CLI (bf16, stack 0, gamma 1e-3, 2 epochs) on the
+    15 s clip, as one window or as a scan; returns (launches, evals, wall
+    seconds, final loss)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.cli.transfer import main
+    from audio_style_transfer_tpu_torch.ops import _build
+    from audio_style_transfer_tpu_torch.transfer import lbfgs, longform
+
+    scan = scan_window is not None
+    quantum = 512 if scan else 4096
+    t_valid = (EXACT_SAMPLES // quantum) * quantum
+    t_total = -(-t_valid // scan_window) * scan_window if scan else t_valid
+    n_win = t_total // scan_window if scan else 1
+    captured, in_lbfgs = {}, [0.0]
+    originals = (longform.transfer_exact, lbfgs.lbfgs_minimize)
+
+    def keep_result(*args, **kwargs):
+        captured["res"] = originals[0](*args, **kwargs)
+        return captured["res"]
+
+    def timed_minimize(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = originals[1](*args, **kwargs)
+        torch.cuda.synchronize()
+        in_lbfgs[0] += time.perf_counter() - t0
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "src")
+        os.makedirs(src)
+        write_wav(os.path.join(src, "content.wav"),
+                  synth_audio(EXACT_SAMPLES / 16000, kind="content"), 16000)
+        write_wav(os.path.join(src, "style.wav"), synth_audio(3.0, kind="style"), 16000)
+        argv = ["content", "style", "--dir", src, "--outdir", os.path.join(tmp, "out"),
+                "--logdir", os.path.join(tmp, "log"), "--exact",
+                *(["--scan_window", str(scan_window)] if scan else []),
+                "--gamma", "1e-3", "--stack", "0", "--epochs", "2", "--precision", "bfloat16",
+                "--fused", "--random_init", "--no_artifacts", "--device", str(dev)]
+        print(f"[{label}] {' '.join(argv[:2])} {' '.join(argv[8:])}")
+        buf = io.StringIO()
+        longform.transfer_exact, lbfgs.lbfgs_minimize = keep_result, timed_minimize
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                audio = main(argv)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = dict(_build.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+        finally:
+            longform.transfer_exact, lbfgs.lbfgs_minimize = originals
+    print(buf.getvalue(), end="")
+    per = captured["res"].per_window
+    losses = [float(v) for v in per["metrics"]]
+    evals = int(np.sum(per["evals"]))
+    check_losses(label, losses, audio, samples=t_valid)
+    if per["t_optimized"] != t_total or per["x"].shape != (1, t_total):
+        raise AssertionError(f"{label}: optimized {per['t_optimized']} samples, x "
+                             f"{per['x'].shape}, expected {t_total}")
+    # Per evaluation every window runs the trunk forward (30 K1, one K5) and
+    # backward (30 K2, one K6); the scan's two-pass scheme runs each window's
+    # forward once more without a graph. Gradient-free passes: the style
+    # statistics of the style clip (2 engine windows) and the content clip
+    # (5), and the exact targets (every window once).
+    passes = 2 if scan else 1
+    want = {"K1": LAYERS * (passes * n_win * evals + 7 + n_win),
+            "K2": LAYERS * n_win * evals, "K2wf": 0,
+            "K5": passes * n_win * evals + 7 + n_win, "K6": n_win * evals, "K7f": 0, "K7b": 0}
+    if launches != want:
+        raise AssertionError(f"{label}: launches {launches} for {evals} evaluations over "
+                             f"{n_win} windows, expected {want}")
+    print(f"[{label}] launches {launches} == per evaluation K1 {LAYERS * passes * n_win}, K2 "
+          f"{LAYERS * n_win}, K5 {passes * n_win}, K6 {n_win}, plus {7 + n_win} gradient-free "
+          f"passes ok")
+    print(f"[{label}] {per['epochs_done']} epochs, evals {per['evals'].tolist()}, losses {losses}; "
+          f"t_optimized {per['t_optimized']}, t_out {len(audio)}; {evals} evals in {wall:.2f} s "
+          f"wall ({evals / wall:.2f} evals/s, setup included), {1e3 * in_lbfgs[0] / evals:.3f} ms "
+          f"per eval in L-BFGS; peak memory {peak / 2**30:.3f} GiB")
+    return launches, evals, wall, losses[-1]
 
 
 def per_layer_phase(params, dev):
@@ -907,23 +1206,42 @@ def main() -> int:
           f"({_build.library_path().name})")
 
     params = init_params(0, WaveNetAEConfig())
-    results = {}
+    results, exact_shapes = {}, {}
     for dtype_name in ("float32", "bfloat16"):
         results[dtype_name] = kernel_phase(dtype_name, params, dev)
+        exact_shapes[dtype_name] = exact_shapes_phase(dtype_name, params, dev)
     slice_phase(params, dev, STYLE, (29,))
     slice_phase(params, dev, FULL, (25,))
     regularizer_phase(params, dev)
     eval_phase(params, dev, smi)
-    runs = {
-        "cli stack 0": cli_phase(dev, "cli stack 0", ["--stack", "0"], {"K1", "K2", "K5", "K6"}),
-        "cli full stack": cli_phase(dev, "cli full stack", ["--cont_lyrs", "25"],
-                                    {"K1", "K2", "K5", "K6"}),
+    for dtype_name in ("float32", "bfloat16"):
+        exact_flavours_phase(params, dev, dtype_name)
+    grams = {"K1", "K2", "K5", "K6"}
+    cli_paths = {  # path: (CLI arguments, kernels, band of the float32 final loss)
+        "cli stack 0": (["--stack", "0"], grams, None),
+        "cli full stack": (["--cont_lyrs", "25"], grams, (F32_FULL_STACK_LOSS, F32_BAND)),
+        "cli gatys": (["--gatys", "--stack", "0"], {"K1", "K2"}, None),
+    }
+    runs = {}
+    for label, (path_args, expected, band) in cli_paths.items():
+        runs[label] = cli_phase(dev, label, path_args, expected)
+        runs[f"{label}, float32"] = cli_phase(dev, f"{label}, float32", path_args, expected,
+                                              precision="float32", band=band)
+    runs.update({
         "per-layer engine": per_layer_phase(params, dev),
         "longform, wavefront on": longform_phase(dev, wavefront=True, epochs=2),
         "longform, wavefront off": longform_phase(dev, wavefront=False, epochs=1),
-    }
-    for label, (_, evals, wall) in runs.items():
+        "exact, one window": exact_phase(dev, "exact, one window", None),
+        "exact, scan": exact_phase(dev, "exact, scan", SCAN_WINDOW),
+    })
+    for label, (_, evals, wall, *_) in runs.items():
         print(f"[{label}] {evals} evals, {evals / wall:.2f} evals/s setup included ({smi})")
+    # bf16 against f32 from the same 1e-6 start. Printed, not yet a check: the
+    # bf16 zoom search from that start lands in one of two basins by rounding
+    # (ROADMAP.md, faults, item 1), in the JAX package as in the port.
+    for label in cli_paths:
+        b16, f32 = runs[label][3], runs[f"{label}, float32"][3]
+        print(f"[{label}] final loss bf16 {b16:.4f} / f32 {f32:.4f} = {b16 / f32:.4f}")
     launches = {k: sum(r[0][k] for r in runs.values()) for k in KERNELS}
 
     src = "audio_style_transfer_tpu_torch/csrc/"
@@ -951,6 +1269,11 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+        if "windowed_ms" in r:  # K1, K2: the same kernel with a valid window
+            kernels[-1].update(windowed_ms=r["windowed_ms"],
+                               windowed_max_abs_err=r["windowed_max_abs_err"])
+        if k in exact_shapes["bfloat16"]:  # K1, K2, K5 (L=10), K6 (L=10)
+            kernels[-1]["exact_shapes_max_abs_err"] = exact_shapes["bfloat16"][k]
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

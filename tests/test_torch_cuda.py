@@ -97,6 +97,143 @@ def test_trunk_layer_kernels_match_plain(dev, dtype, clip, d):
             assert torch.equal(dx_2, dx_k)  # the phases alone are the same launches
 
 
+# Valid windows of the exact long-form scan, in in-clip rows: both edges
+# inside 128-row tiles, from 0, to the end, empty, clamped, one row; at the
+# engine's T and at the scan's extended window (32768 + 2 * 4096 rows, no
+# multiple of 16384), with a dilation on either side of the tile size.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(16384, 1), (16384, 512), (40960, 4), (40960, 256)])
+def test_windowed_trunk_kernels_match_plain(dev, dtype, rows, d):
+    gen = torch.Generator(device=dev).manual_seed(d)
+    c = chain.WIDTH
+    x = torch.randn((rows, c), generator=gen, device=dev).to(dtype)
+    wd = (torch.randn((3, c, c), generator=gen, device=dev) * 0.05).to(dtype)
+    wr = (torch.randn((c, c), generator=gen, device=dev) * 0.05).to(dtype)
+    bd = torch.randn((c,), generator=gen, device=dev) * 0.1
+    br = torch.randn((c,), generator=gen, device=dev) * 0.1
+    dxn = torch.randn_like(x, dtype=torch.float32).to(dtype)
+    dtap = torch.randn_like(x, dtype=torch.float32).to(dtype)
+    base = chain.layer_fwd(x, wd, bd, wr, br, d, rows, True)
+    for vw in [(4096 + 37, rows - 4096 - 61), (0, 1000), (rows - 200, rows), (300, 300),
+               (-50, rows + 50), (777, 778)]:
+        lo, hi = max(vw[0], 0), min(vw[1], rows)
+        out_p, m_p, im_p = chain.layer_fwd_plain(x, wd, bd, wr, br, d, rows, True, vw)
+        out_k, m_k, im_k = chain.layer_fwd(x, wd, bd, wr, br, d, rows, True, vw)
+        torch.cuda.synchronize()
+        assert _rel(out_k, out_p) <= TOL[dtype]
+        assert float((m_k != m_p).float().mean()) <= 1e-3
+        assert torch.equal(im_k, im_p)
+        # Masked rows: zero output, zero bit 0, the gate bit as without a window.
+        for part in (slice(0, lo), slice(hi, rows)):
+            assert not out_k[part].any() and not (m_k[part] & 1).any()
+            assert torch.equal(m_k[part] >> 1, base[1][part] >> 1)
+        assert torch.equal(out_k[lo:hi], base[0][lo:hi])
+        if (lo, hi) == (0, rows):  # the full range is the unwindowed kernel bit for bit
+            assert torch.equal(out_k, base[0]) and torch.equal(m_k, base[1])
+        if dtype == torch.bfloat16:  # the FMA kernel's window in bfloat16
+            out_f, m_f, _ = chain.layer_fwd_fma(x, wd, bd, wr, br, d, rows, True, vw)
+            assert _rel(out_f, out_p) <= TOL[dtype]
+            assert float((m_f != m_p).float().mean()) <= 1e-3
+            for part in (slice(0, lo), slice(hi, rows)):
+                assert not out_f[part].any() and not (m_f[part] & 1).any()
+        for tap in (None, dtap):
+            dx_p = chain.layer_bwd_plain(dxn, tap, m_p, im_p, wd, wr, d, rows, vw)
+            dx_k = chain.layer_bwd(dxn, tap, m_p, im_p, wd, wr, d, rows, vw)
+            torch.cuda.synchronize()
+            assert _rel(dx_k, dx_p) <= TOL[dtype]
+            if (lo, hi) == (0, rows):
+                assert torch.equal(dx_k, chain.layer_bwd(dxn, tap, m_p, im_p, wd, wr, d, rows))
+            if dtype == torch.bfloat16:
+                dy = chain.layer_bwd_mma_phase1(dxn, tap, m_p, wr, rows, vw)
+                dx_2 = chain.layer_bwd_mma_phase2(dxn, tap, dy, im_p, wd, d, rows, vw)
+                torch.cuda.synchronize()
+                assert torch.equal(dx_2, dx_k)
+                assert not dy[:lo].any() and not dy[hi:].any()
+                dx_f = chain.layer_bwd_fma(dxn, tap, m_p, im_p, wd, wr, d, rows, vw)
+                assert _rel(dx_k, dx_f) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_windowed_trunk_takes_the_window_per_clip(dev, dtype):
+    """Three flattened clips of 96 rows (clip edges and window edges inside
+    one tile): the window is in in-clip rows."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    c, clip, vw = chain.WIDTH, 96, (10, 70)
+    x = torch.randn((3 * clip, c), generator=gen, device=dev).to(dtype)
+    wd = (torch.randn((3, c, c), generator=gen, device=dev) * 0.05).to(dtype)
+    wr = (torch.randn((c, c), generator=gen, device=dev) * 0.05).to(dtype)
+    b = torch.randn((c,), generator=gen, device=dev) * 0.1
+    out_p, m_p, im_p = chain.layer_fwd_plain(x, wd, b, wr, b, 7, clip, True, vw)
+    out_k, m_k, _ = chain.layer_fwd(x, wd, b, wr, b, 7, clip, True, vw)
+    dxn = torch.randn_like(x, dtype=torch.float32).to(dtype)
+    dx_p = chain.layer_bwd_plain(dxn, dxn, m_p, im_p, wd, wr, 7, clip, vw)
+    dx_k = chain.layer_bwd(dxn, dxn, m_p, im_p, wd, wr, 7, clip, vw)
+    torch.cuda.synchronize()
+    assert _rel(out_k, out_p) <= TOL[dtype] and _rel(dx_k, dx_p) <= TOL[dtype]
+    assert float((m_k != m_p).float().mean()) <= 1e-3
+    for k in range(3):
+        assert not out_k[k * clip:k * clip + 10].any()
+        assert not out_k[k * clip + 70:(k + 1) * clip].any()
+
+
+def test_kernels_at_the_rows_of_a_60_s_single_window(dev):
+    """958 464 rows (60 s trimmed to 4096): every index product of the trunk
+    and gram kernels at the longest clip the single-window exact mode takes by
+    default is far past 2^27 elements; bfloat16, one layer and 10 taps."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    c, rows, d, dt = chain.WIDTH, 958464, 512, torch.bfloat16
+    x = torch.randn((rows, c), generator=gen, device=dev).to(dt)
+    wd = (torch.randn((3, c, c), generator=gen, device=dev) * 0.05).to(dt)
+    wr = (torch.randn((c, c), generator=gen, device=dev) * 0.05).to(dt)
+    b = torch.randn((c,), generator=gen, device=dev) * 0.1
+    vw = (4096, rows - 5000)
+    out_p, m_p, im_p = chain.layer_fwd_plain(x, wd, b, wr, b, d, rows, True, vw)
+    out_k, m_k, im_k = chain.layer_fwd(x, wd, b, wr, b, d, rows, True, vw)
+    torch.cuda.synchronize()
+    assert _rel(out_k, out_p) <= TOL[dt] and torch.equal(im_k, im_p)
+    assert float((m_k != m_p).float().mean()) <= 1e-3
+    assert not out_k[rows - 5000:].any() and out_k[rows - 5001].any()
+    dx_p = chain.layer_bwd_plain(x, out_p, m_p, im_p, wd, wr, d, rows, vw)
+    dx_k = chain.layer_bwd(x, out_p, m_p, im_p, wd, wr, d, rows, vw)
+    torch.cuda.synchronize()
+    assert _rel(dx_k, dx_p) <= TOL[dt]
+    del out_k, m_k, im_k, dx_p, dx_k
+    taps = [torch.roll(x, k, 0)[None] * (0.5 + 0.1 * k) for k in range(10)]
+    got = gram.pair_gram_fwd(*taps)
+    torch.cuda.synchronize()
+    # Sums of 958 464 products: float32 in another order, 1e-4 of the largest.
+    assert _rel(got, gram.pair_gram_reference(*taps)) <= 1e-4
+    h = torch.randn((1, 10, 10, c), generator=gen, device=dev)
+    outs = gram.pair_gram_bwd(taps, h)
+    want = gram.pair_gram_bwd_plain(taps, h)
+    torch.cuda.synchronize()
+    assert max(_rel(o, w) for o, w in zip(outs, want)) <= TOL[dt]
+
+
+def test_windowed_fused_trunk_gradient_on_the_card(dev):
+    """autograd through the windowed trunk on the card (K1, then K2) against
+    the plain versions on the CPU, float32, five layers."""
+    gen = torch.Generator().manual_seed(9)
+    c, rows, dils, vw = chain.WIDTH, 2048, (1, 2, 64, 128, 512), (300, 1700)
+    x = torch.randn((rows, c), generator=gen)
+    wd = torch.randn((5, 3, c, c), generator=gen) * 0.05
+    wr = torch.randn((5, c, c), generator=gen) * 0.05
+    bd, br = torch.randn((5, c), generator=gen) * 0.1, torch.randn((5, c), generator=gen) * 0.1
+    ct = torch.randn((rows, c), generator=gen)
+    grads = {}
+    for where in ("cpu", dev):
+        xt = x.to(where).requires_grad_(True)
+        _build.reset_launches()
+        taps = chain.fused_trunk(xt, *(a.to(where) for a in (wd, bd, wr, br)), dils, (1, 4),
+                                 valid_window=vw)
+        (g,) = torch.autograd.grad(taps, xt, [ct.to(where)] * 2)
+        grads[str(where)] = g.cpu()
+        want = 5 if where != "cpu" else 0
+        assert _build.LAUNCHES["K1"] == want and _build.LAUNCHES["K2"] == want
+    rel = float((grads[str(dev)] - grads["cpu"]).norm() / grads["cpu"].norm())
+    assert rel <= 5e-3, rel  # a relu gate near zero may flip between the two paths
+
+
 def test_trunk_kernels_choose_by_dtype_and_count(dev):
     """bfloat16 and float32 both count under K1 / K2; a CPU tensor runs the
     plain version and counts nothing; float64 is refused."""

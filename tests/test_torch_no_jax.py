@@ -37,6 +37,8 @@ MODULES = [
     "audio_style_transfer_tpu_torch.transfer.lbfgs",
     "audio_style_transfer_tpu_torch.transfer.engine",
     "audio_style_transfer_tpu_torch.transfer.longform",
+    "audio_style_transfer_tpu_torch.parallel",
+    "audio_style_transfer_tpu_torch.parallel.halo",
     "audio_style_transfer_tpu_torch.cli.transfer",
     "chip_smoke",
 ]
@@ -50,8 +52,9 @@ def _run(code, cwd=REPO, args=()):
 
 
 def test_port_imports_no_jax_and_builds_nothing(tmp_path):
-    """Every module of the port, then a one-epoch CPU run of its CLI, in one
-    subprocess: no JAX, no module of the JAX package, no kernel library."""
+    """Every module of the port, then a one-epoch CPU run of its CLI and one
+    of its ``--exact`` mode, in one subprocess: no JAX, no module of the JAX
+    package, no kernel library."""
     code = (
         "import importlib, sys, wave\n"
         "import numpy as np, torch\n"
@@ -73,6 +76,9 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
         "main(['tone', 'square', '--dir', tmp, '--outdir', tmp + '/out', '--logdir',\n"
         "      tmp + '/log', '--device', 'cpu', '--random_init', '--no_artifacts', '--stack',\n"
         "      '0', '--batch_size', '4096', '--epochs', '1', '--maxiter', '2', '--start', '0.1'])\n"
+        "main(['tone', 'square', '--dir', tmp, '--outdir', tmp + '/out', '--logdir',\n"
+        "      tmp + '/log', '--device', 'cpu', '--random_init', '--no_artifacts', '--stack',\n"
+        "      '0', '--batch_size', '4096', '--epochs', '1', '--maxiter', '1', '--exact'])\n"
         "bad = [m for m in foreign() if m != 'matplotlib']\n"
         "print('imported:', bad)\n"
         "sys.exit(1 if bad or _build._lib is not None else 0)\n"
@@ -80,6 +86,7 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     r = _run(code, args=(str(tmp_path),))
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
     assert "optimized 1 epochs" in r.stdout
+    assert "optimized 0.5s of audio" in r.stdout
 
 
 def test_port_sources_name_no_module_of_the_jax_package():
