@@ -1,13 +1,13 @@
 // Encoder trunk kernels with float32 FMA products: one residual block per
 // launch, forward (K1) and the mask-only waveform backward (K2).
 //
-// This file is the float32 path of K1 and K2 (TF32 would not keep float32's
-// digits, so float32 products stay on the CUDA cores), the code the
-// per-layer encoder blocks K7f and K7b run in both types, and (through
-// trunk_tiles.h) what the grouped backward K2-wf is built on. For bfloat16
-// tensors K1 and K2 run on the tensor cores instead (trunk_mma.cu); the
-// bfloat16 instantiation here stays callable (ops/chain.py::layer_fwd_fma,
-// layer_bwd_fma) for comparisons.
+// This file is the float32 path of K1, K2 and the per-layer encoder blocks
+// K7f and K7b (TF32 would not keep float32's digits, so float32 products stay
+// on the CUDA cores), and (through trunk_tiles.h) what the grouped backward
+// K2-wf is built on. For bfloat16 tensors K1, K2, K7f and K7b run on the
+// tensor cores instead (trunk_mma.cu); the bfloat16 instantiation here stays
+// callable (ops/chain.py::layer_fwd_fma, layer_bwd_fma,
+// ops/encoder.py::block_fwd_fma, block_bwd_fma) for comparisons.
 //
 // Replaces: audio_style_transfer_tpu/ops/pallas_chain.py::_fwd_group_kernel
 // (K1) and ::_bwd_group_kernel (K2). The TPU kernels chain groups of up to
@@ -57,11 +57,13 @@
 //   (encoder_bwd_dy_kernel) runs K1's dilated conv on x to get y, then
 //   dy = round((g @ Wr^T) * [y > 0]); its phase 2 is K2's phase 2 with the
 //   input relu gate read as x > 0 (kGateFromX) instead of a mask byte.
+// Both take the valid window as K1 and K2 do (JAX's masked(enc + d) on the
+// per-layer path): K7f zeroes out, K7b zeroes g in both phases.
 // The TPU kernel needs x with a 2d halo to recompute y on the rows its
 // transposed conv reads; here phase 1 writes dy for every row to scratch and
-// phase 2 reads it shifted, so no halo is held. K7b does five products per
-// layer against K2's four (about 2.7 GFLOP), all on the CUDA cores; bytes
-// (x, g in; dy out and in; dx out) stay near 10 MB.
+// phase 2 reads it shifted, so no halo is held. K7b does seven products per
+// layer against K2's four (3.76 GFLOP); bytes (x, g in; dy out and in; dx
+// out) stay near 21 MB.
 
 #include "trunk_tiles.h"
 
@@ -239,7 +241,7 @@ __global__ void __launch_bounds__(NT)
 encoder_bwd_dy_kernel(const T* __restrict__ x, const T* __restrict__ g,
                       const T* __restrict__ wd, const float* __restrict__ bd,
                       const T* __restrict__ wr, T* __restrict__ dy, int rows, int clip_rows,
-                      int d) {
+                      int d, int lo, int hi) {
   extern __shared__ float smem_raw[];
   Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
@@ -263,7 +265,7 @@ encoder_bwd_dy_kernel(const T* __restrict__ x, const T* __restrict__ g,
   }
 
   for (int c0 = 0; c0 < C; c0 += KC) {
-    load_a<T>(sm, g, nullptr, row0, 0, c0, rows, clip_rows, false, 0, clip_rows);
+    load_a<T>(sm, g, nullptr, row0, 0, c0, rows, clip_rows, false, lo, hi);
     load_b<T>(sm, wr, c0, true);
     __syncthreads();
     mma_chunk(acc, &sm.a[0][0], TM + 1, sm.b, tx, ty);
@@ -373,18 +375,18 @@ cudaError_t launch_trunk_bwd(const void* dxn, const void* dtap, const void* mask
 template <typename T>
 cudaError_t launch_encoder_bwd(const void* x, const void* g, const void* wd, const void* bd,
                                const void* wr, void* dy, void* dx, int rows, int clip_rows,
-                               int d, cudaStream_t s) {
+                               int d, int lo, int hi, cudaStream_t s) {
   cudaError_t e = prepare(encoder_bwd_dy_kernel<T>);
   if (e == cudaSuccess) e = prepare(trunk_bwd_dx_kernel<T, true>);
   if (e != cudaSuccess) return e;
   encoder_bwd_dy_kernel<T><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
       (const T*)x, (const T*)g, (const T*)wd, (const float*)bd, (const T*)wr, (T*)dy, rows,
-      clip_rows, d);
+      clip_rows, d, lo, hi);
   e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   trunk_bwd_dx_kernel<T, true><<<n_blocks(rows), NT, sizeof(Smem), s>>>(
       (const T*)g, nullptr, (const T*)dy, nullptr, (const T*)x, (const T*)wd, (T*)dx, rows,
-      clip_rows, d, 0, clip_rows);
+      clip_rows, d, lo, hi);
   return cudaGetLastError();
 }
 
@@ -420,28 +422,27 @@ int ast_trunk_bwd(const void* dxn, const void* dtap, const void* mask,
                                                  rows, clip_rows, d, lo, hi, s));
 }
 
-// K7f: one encoder block forward, output only.
+// K7f: one encoder block forward, output only; [lo, hi) as in ast_trunk_fwd.
 int ast_encoder_fwd(const void* x, const void* wd, const void* bd, const void* wr,
-                    const void* br, void* out, int rows, int clip_rows, int d, int is_bf16,
-                    void* stream) {
+                    const void* br, void* out, int rows, int clip_rows, int d, int lo, int hi,
+                    int is_bf16, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16 ? launch_fwd<__nv_bfloat16, false>(x, wd, bd, wr, br, out, nullptr,
-                                                          nullptr, rows, clip_rows, d, 0,
-                                                          clip_rows, s)
+                                                          nullptr, rows, clip_rows, d, lo, hi, s)
                        : launch_fwd<float, false>(x, wd, bd, wr, br, out, nullptr, nullptr,
-                                                  rows, clip_rows, d, 0, clip_rows, s));
+                                                  rows, clip_rows, d, lo, hi, s));
 }
 
 // K7b: the block's dx from its input x and output cotangent g, recomputing
-// the gate; `dy` is caller-allocated scratch.
+// the gate; `dy` is caller-allocated scratch; [lo, hi) as in ast_trunk_bwd.
 int ast_encoder_bwd(const void* x, const void* g, const void* wd, const void* bd,
-                    const void* wr, void* dy, void* dx, int rows, int clip_rows, int d,
-                    int is_bf16, void* stream) {
+                    const void* wr, void* dy, void* dx, int rows, int clip_rows, int d, int lo,
+                    int hi, int is_bf16, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   return (int)(is_bf16 ? launch_encoder_bwd<__nv_bfloat16>(x, g, wd, bd, wr, dy, dx, rows,
-                                                           clip_rows, d, s)
+                                                           clip_rows, d, lo, hi, s)
                        : launch_encoder_bwd<float>(x, g, wd, bd, wr, dy, dx, rows, clip_rows,
-                                                   d, s));
+                                                   d, lo, hi, s));
 }
 
 }  // extern "C"

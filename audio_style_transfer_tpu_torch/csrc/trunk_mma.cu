@@ -1,24 +1,32 @@
 // Encoder trunk kernels for bfloat16 on the tensor cores: one residual block
-// per launch, forward (K1) and the mask-only waveform backward (K2, two
-// phases). trunk.cu holds the float32 path of the same functions and the
-// arithmetic notes; this file computes the same sums with bf16 inputs and
-// f32 accumulation, so no cast point moves.
+// per launch, forward (K1, and K7f without the mask bytes) and the waveform
+// backward (K2 from mask bytes, K7b with the gate recomputed from x; two
+// phases each). trunk.cu holds the float32 path of the same functions and
+// the arithmetic notes; this file computes the same sums with bf16 inputs
+// and f32 accumulation, so no cast point moves.
 //
-// Replaces: audio_style_transfer_tpu/ops/pallas_chain.py::_fwd_group_kernel
-// (K1) and ::_bwd_group_kernel (K2) for bfloat16 tensors.
+// Replaces, for bfloat16 tensors:
+// audio_style_transfer_tpu/ops/pallas_chain.py::_fwd_group_kernel (K1) and
+// ::_bwd_group_kernel (K2); audio_style_transfer_tpu/ops/pallas_encoder.py::
+// _fwd_kernel (K7f) and ::_bwd_kernel (K7b).
 //
 //   K1:  out = x + round(relu_r(conv3_d(relu x) + bd) @ Wr + br), mask bytes
 //        bit 0 = (out > 0), bit 1 = (y > 0); optionally inmask = (x > 0)
+//   K7f: the same out, no mask bytes (kMasks = false)
 //   K2 phase 1:  dy = round((g @ Wr^T) * gate),  g = round(dxn + dtap)
-//   K2 phase 2:  dx = g + round((dy[t+d] W0^T + dy[t] W1^T + dy[t-d] W2^T) * inrelu)
+//   K7b phase 1: y = conv3_d(relu x) + bd recomputed as K1 computes it,
+//                dy = round((g @ Wr^T) * [y > 0]),  g the block's output cotangent
+//   phase 2 (both):  dx = g + round((dy[t+d] W0^T + dy[t] W1^T + dy[t-d] W2^T) * inrelu),
+//                inrelu = bit 0 of the input mask (K2) or x > 0 (K7b, kGateFromX)
 // Rows outside their clip read as zero (SAME padding). With a valid window
 // [lo, hi) of in-clip rows (the TPU kernels' `windowed` branch; trunk.cu has
-// the semantics) K1 zeroes out on the other rows before bit 0 is taken, and
-// both phases of K2 zero g there: one predicate per row, in the epilogues
-// and on phase 1's A fragments, beside the clip-edge predicate.
+// the semantics) the forwards zero out on the other rows before bit 0 is
+// taken, and both backward phases zero g there: one predicate per row, in
+// the epilogues and on phase 1's A fragments, beside the clip-edge predicate.
 //
-// What bounds it on the H100 (T=16384, C=128): a layer moves 10.6 MB (K1) or
-// 14.1 MB (K2) against 2.15 GFLOP, so at tensor-core rates the bytes (3-4 us)
+// What bounds it on the H100 (T=16384, C=128): a layer moves 10.6 MB (K1),
+// 8.5 MB (K7f), 14.1 MB (K2) or 12.7 MB (K7b) against 2.15 GFLOP (K7b: 3.76,
+// the conv again for the gate), so at tensor-core rates the bytes (3-4 us)
 // and the launch decide, not the products.
 //
 // Design:
@@ -38,11 +46,11 @@
 //    commit group per tap (that tap's weight and the activation rows it
 //    adds), then the residual weight; products of tap p start when group p
 //    has landed. Rows past the array are zero-filled (src-size 0).
-//  - Shared memory is unpadded (K1: 4 weights of 32 KB + 384 activation rows
-//    of 256 B = 224 KB of the 227 KB); the 16-byte chunk c of row r sits at
-//    position c ^ (r & 7), so ldmatrix's eight rows fall in eight different
-//    bank groups. For d < 128 the activation buffer is one window of
-//    128 + 2d rows; for d >= 128 three separate 128-row tiles.
+//  - Shared memory is unpadded (K1, K7f, K7b phase 1: 4 weights of 32 KB +
+//    384 activation rows of 256 B = 224 KB of the 227 KB); the 16-byte chunk
+//    c of row r sits at position c ^ (r & 7), so ldmatrix's eight rows fall
+//    in eight different bank groups. For d < 128 the activation buffer is one
+//    window of 128 + 2d rows; for d >= 128 three separate 128-row tiles.
 //  - Clip edges and the array's end are applied to the A fragments in
 //    registers (a row whose shifted source lies outside its clip is zeroed),
 //    so a tile may hold rows of several clips and any rows / clip_rows / d.
@@ -50,6 +58,14 @@
 //    registers; K1's v = relu(y + bd) never leaves registers: the accumulator
 //    tiles 2k and 2k+1 are, register for register, the A fragment of k-chunk
 //    k of the second product.
+//  - K7b phase 1 has no room for a fifth 32 KB tile: g's 128 rows land in tap
+//    0's weight slot, their own commit group, started once every warp is past
+//    tap 0's product (the barrier before tap 1's), so they stream in under
+//    taps 1 and 2. y's gate stays in registers: its 16 accumulator tiles and
+//    those of g @ Wr^T have one fragment layout, so 64 gate bits a thread in
+//    two registers select the second product's accumulators element for
+//    element. The conv is K1's code in K1's order, so the gate is bit 1 of
+//    K1's mask bytes, bit for bit.
 //  - Epilogues stage the rounded product through shared memory (rows private
 //    to the warp) and finish in a pass of 16 columns a thread: 16-byte loads
 //    of the residual, cotangents and mask bytes, 16-byte stores.
@@ -309,7 +325,26 @@ __device__ __forceinline__ uint4 positive_bytes(const Row16& r) {
   return make_uint4(out[0], out[1], out[2], out[3]);
 }
 
-// K1: one trunk layer forward with its mask bytes.
+// y = acc + bd on accumulator tile j (rows g, g + 8 by columns 2t, 2t + 1),
+// in float32, with its four gate bits y > 0 set in gate (4 bits a tile).
+__device__ __forceinline__ float4 bias_gate(const float (&a)[4], const float* __restrict__ bd,
+                                            int j, int t, uint32_t (&gate)[2]) {
+  const float2 b = *reinterpret_cast<const float2*>(bd + j * 8 + 2 * t);
+  const float4 y = make_float4(a[0] + b.x, a[1] + b.y, a[2] + b.x, a[3] + b.y);
+  const uint32_t bits = (y.x > 0.f ? 1u : 0u) | (y.y > 0.f ? 2u : 0u) | (y.z > 0.f ? 4u : 0u) |
+                        (y.w > 0.f ? 8u : 0u);
+  gate[j >> 3] |= bits << ((j & 7) * 4);
+  return y;
+}
+
+// The four gate bits of accumulator tile j, in the order of its registers.
+__device__ __forceinline__ uint32_t gate_of(const uint32_t (&gate)[2], int j) {
+  return (gate[j >> 3] >> ((j & 7) * 4)) & 0xfu;
+}
+
+// K1: one trunk layer forward with its mask bytes; kMasks = false is K7f,
+// the same block writing its output only.
+template <bool kMasks>
 __global__ void __launch_bounds__(NT, 1)
 trunk_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wd,
                      const float* __restrict__ bd, const bf16* __restrict__ wr,
@@ -352,14 +387,9 @@ trunk_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wd,
   uint32_t v[8][4];
 #pragma unroll
   for (int j = 0; j < 16; ++j) {
-    const float2 b = *reinterpret_cast<const float2*>(bd + j * 8 + 2 * t);
-    const float y0 = acc[j][0] + b.x, y1 = acc[j][1] + b.y;
-    const float y2 = acc[j][2] + b.x, y3 = acc[j][3] + b.y;
-    const uint32_t bits = (y0 > 0.f ? 1u : 0u) | (y1 > 0.f ? 2u : 0u) | (y2 > 0.f ? 4u : 0u) |
-                          (y3 > 0.f ? 8u : 0u);
-    gate[j >> 3] |= bits << ((j & 7) * 4);
-    v[j >> 1][(j & 1) * 2] = pack2(fmaxf(y0, 0.f), fmaxf(y1, 0.f));
-    v[j >> 1][(j & 1) * 2 + 1] = pack2(fmaxf(y2, 0.f), fmaxf(y3, 0.f));
+    const float4 y = bias_gate(acc[j], bd, j, t, gate);
+    v[j >> 1][(j & 1) * 2] = pack2(fmaxf(y.x, 0.f), fmaxf(y.y, 0.f));
+    v[j >> 1][(j & 1) * 2 + 1] = pack2(fmaxf(y.z, 0.f), fmaxf(y.w, 0.f));
   }
   zero(acc);
 
@@ -369,16 +399,16 @@ trunk_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wd,
 #pragma unroll
   for (int kk = 0; kk < 8; ++kk) mma_kstep<false>(acc, v[kk], wsm + 3 * WBYTES, kk, lane);
 
-  // Stage round(z + br) in wd[0]'s buffer and the gate bits, one byte each,
-  // in wd[1]'s; rows private to the warp.
+  // Stage round(z + br) in wd[0]'s buffer and (K1) the gate bits, one byte
+  // each, in wd[1]'s; rows private to the warp.
   uint8_t* const zst = smem;
   uint8_t* const gst = smem + WBYTES;
   stage_acc(zst, acc, br, warp, lane);
-  {
+  if (kMasks) {
     const int row = warp * 16 + g;
 #pragma unroll
     for (int j = 0; j < 16; ++j) {
-      const uint32_t bits = (gate[j >> 3] >> ((j & 7) * 4)) & 0xfu;
+      const uint32_t bits = gate_of(gate, j);
       const uint32_t off = (j & 1) * 8 + 2 * t;
       *reinterpret_cast<uint16_t*>(gst + mchunk_at(row, j >> 1) + off) =
           (uint16_t)((bits & 1u) | ((bits & 2u) << 7));
@@ -388,7 +418,7 @@ trunk_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wd,
   }
   __syncwarp();
 
-  // 16 columns a thread: out = x + z, the mask bytes, the input's relu mask.
+  // 16 columns a thread: out = x + z; K1: the mask bytes, the input's relu mask.
   const int xbase = win.base(1);
 #pragma unroll
   for (int it = 0; it < 4; ++it) {
@@ -398,7 +428,6 @@ trunk_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wd,
     if (grow >= rows) continue;
     const Row16 zr = load16_smem(zst, row, cg);
     const Row16 xr = load16_smem(act_p, xbase + row, cg);
-    const uint4 gt = *reinterpret_cast<const uint4*>(gst + mchunk_at(row, cg));
     const bool valid = in_window(grow, clip_rows, lo, hi);
     Row16 o;
 #pragma unroll
@@ -407,10 +436,13 @@ trunk_fwd_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ wd,
                      : 0u;
     const long idx = grow * C + cg * 16;
     store16_global(out, idx, o);
-    uint4 m = positive_bytes(o);
-    m.x |= gt.x << 1, m.y |= gt.y << 1, m.z |= gt.z << 1, m.w |= gt.w << 1;
-    *reinterpret_cast<uint4*>(mask + idx) = m;
-    if (inmask) *reinterpret_cast<uint4*>(inmask + idx) = positive_bytes(xr);
+    if (kMasks) {
+      const uint4 gt = *reinterpret_cast<const uint4*>(gst + mchunk_at(row, cg));
+      uint4 m = positive_bytes(o);
+      m.x |= gt.x << 1, m.y |= gt.y << 1, m.z |= gt.z << 1, m.w |= gt.w << 1;
+      *reinterpret_cast<uint4*>(mask + idx) = m;
+      if (inmask) *reinterpret_cast<uint4*>(inmask + idx) = positive_bytes(xr);
+    }
   }
 }
 
@@ -475,13 +507,101 @@ trunk_bwd_dy_mma_kernel(const bf16* __restrict__ dxn, const bf16* __restrict__ d
   }
 }
 
-// K2 phase 2: dx = g + round(dr * inrelu),
+// K7b phase 1: y = conv3_d(relu x) + bd recomputed on the block's rows as
+// K1 computes it, then dy = round((g @ Wr^T) * [y > 0]).
+__global__ void __launch_bounds__(NT, 1)
+encoder_bwd_dy_mma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                          const bf16* __restrict__ wd, const float* __restrict__ bd,
+                          const bf16* __restrict__ wr, bf16* __restrict__ dy, int rows,
+                          int clip_rows, int d, int lo, int hi) {
+  extern __shared__ __align__(1024) uint8_t smem[];
+  uint8_t* const dyst = smem + WBYTES;
+  const uint32_t wsm = smem_addr(smem), act = wsm + 4 * WBYTES;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t = lane & 3;
+  const long row0 = (long)blockIdx.x * TM;
+  const Window win(d);
+
+  // K1's loads: commit groups 0-2 the taps, 3 the residual weight.
+  for (int p = 0; p < 3; ++p) {
+    stage_weight(wsm + p * WBYTES, wd + (long)p * C * C);
+    win.stage(act, x, p, row0, rows);
+    cp_async_commit();
+  }
+  stage_weight(wsm + 3 * WBYTES, wr);
+  cp_async_commit();
+
+  float acc[16][4];
+  zero(acc);
+  const long r_lo = row0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int p = 0; p < 3; ++p) {
+    // p = 0 waits for group 0; p = 1 for group 1, then every warp is past
+    // tap 0's product and its weight slot takes g's tile (group 4); p = 2
+    // waits for group 2 with groups 3 and 4 still in flight.
+    cp_async_wait(p == 0 ? 3 : 2);
+    __syncthreads();
+    if (p == 1) {
+      stage_rows(wsm, g, 0, TM, row0, rows);
+      cp_async_commit();
+    }
+    const long off = (long)(p - 1) * d;
+    tap_product<false, true>(acc, act, win.base(p) + warp * 16, wsm + p * WBYTES,
+                             tap_ok(r_lo, off, rows, clip_rows),
+                             tap_ok(r_lo + 8, off, rows, clip_rows), lane);
+  }
+
+  // The gate y > 0 (y in float32 with bd added in float32), as K1 takes it.
+  uint32_t gate[2] = {0u, 0u};
+#pragma unroll
+  for (int j = 0; j < 16; ++j) bias_gate(acc[j], bd, j, t, gate);
+  zero(acc);
+
+  // g and Wr have landed; every warp is past the conv.
+  cp_async_wait(0);
+  __syncthreads();
+  const bool ok_lo = in_window(r_lo, clip_rows, lo, hi);
+  const bool ok_hi = in_window(r_lo + 8, clip_rows, lo, hi);
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    uint32_t a[4];
+    load_a_frag(a, wsm, warp * 16, kk, lane);
+    if (!ok_lo) a[0] = a[2] = 0u;
+    if (!ok_hi) a[1] = a[3] = 0u;
+    mma_kstep<true>(acc, a, wsm + 3 * WBYTES, kk, lane);
+  }
+#pragma unroll
+  for (int j = 0; j < 16; ++j) {
+    const uint32_t bits = gate_of(gate, j);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (!((bits >> i) & 1u)) acc[j][i] = 0.f;
+  }
+
+  // Stage round(dy) in tap 1's weight slot (rows private to the warp), then
+  // 16 columns a thread.
+  stage_acc(dyst, acc, nullptr, warp, lane);
+  __syncwarp();
+#pragma unroll
+  for (int it = 0; it < 4; ++it) {
+    const int i = it * 32 + lane;
+    const int row = warp * 16 + (i >> 3), cg = i & 7;
+    const long grow = row0 + row;
+    if (grow >= rows) continue;
+    store16_global(dy, grow * C + cg * 16, load16_smem(dyst, row, cg));
+  }
+}
+
+// Phase 2 of K2 and K7b: dx = g + round(dr * inrelu),
 // dr[t] = dy[t+d] W0^T + dy[t] W1^T + dy[t-d] W2^T, g = round(dxn + dtap).
+// inrelu is bit 0 of the input mask bytes (K2) or, with kGateFromX (K7b),
+// x > 0 from the block input xin.
+template <bool kGateFromX>
 __global__ void __launch_bounds__(NT, 1)
 trunk_bwd_dx_mma_kernel(const bf16* __restrict__ dxn, const bf16* __restrict__ dtap,
                         const bf16* __restrict__ dy, const uint8_t* __restrict__ inmask,
-                        const bf16* __restrict__ wd, bf16* __restrict__ dx, int rows,
-                        int clip_rows, int d, int lo, int hi) {
+                        const bf16* __restrict__ xin, const bf16* __restrict__ wd,
+                        bf16* __restrict__ dx, int rows, int clip_rows, int d, int lo, int hi) {
   extern __shared__ __align__(1024) uint8_t smem[];
   const uint32_t wsm = smem_addr(smem), act = wsm + 3 * WBYTES;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -531,13 +651,24 @@ trunk_bwd_dx_mma_kernel(const bf16* __restrict__ dxn, const bf16* __restrict__ d
 #pragma unroll
       for (int e = 0; e < 8; ++e) gr.w[e] = 0u;
     }
-    const uint4 m = *reinterpret_cast<const uint4*>(inmask + idx);
+    bool on[16];
+    if (kGateFromX) {
+      const Row16 xr = load16_global(xin, idx);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        on[2 * e] = bf_lo(xr.w[e]) > 0.f, on[2 * e + 1] = bf_hi(xr.w[e]) > 0.f;
+    } else {
+      const uint4 m = *reinterpret_cast<const uint4*>(inmask + idx);
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        on[2 * e] = mask_byte(m, e, false) & 1u, on[2 * e + 1] = mask_byte(m, e, true) & 1u;
+    }
     Row16 o;
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const float lo = (mask_byte(m, e, false) & 1u) ? bf_lo(dr.w[e]) : 0.f;
-      const float hi = (mask_byte(m, e, true) & 1u) ? bf_hi(dr.w[e]) : 0.f;
-      o.w[e] = pack2(bf_lo(gr.w[e]) + lo, bf_hi(gr.w[e]) + hi);
+      const float r0 = on[2 * e] ? bf_lo(dr.w[e]) : 0.f;
+      const float r1 = on[2 * e + 1] ? bf_hi(dr.w[e]) : 0.f;
+      o.w[e] = pack2(bf_lo(gr.w[e]) + r0, bf_hi(gr.w[e]) + r1);
     }
     store16_global(dx, idx, o);
   }
@@ -573,7 +704,7 @@ product_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
   }
 }
 
-constexpr int FWD_SMEM = 4 * WBYTES + ACT_ROWS * ROWB;  // 229376
+constexpr int FWD_SMEM = 4 * WBYTES + ACT_ROWS * ROWB;  // 229376 (K1, K7f, K7b phase 1)
 constexpr int DY_SMEM = WBYTES + 2 * TM * ROWB;         // 98304
 constexpr int DX_SMEM = 3 * WBYTES + ACT_ROWS * ROWB;   // 196608
 constexpr int PRODUCT_SMEM = WBYTES + TM * ROWB;        // 65536
@@ -584,6 +715,30 @@ cudaError_t prepare(K kernel, int bytes) {
 }
 
 int n_blocks(int rows) { return (rows + TM - 1) / TM; }
+
+template <bool kMasks>
+int launch_fwd(const void* x, const void* wd, const void* bd, const void* wr, const void* br,
+               void* out, void* mask, void* inmask, int rows, int clip_rows, int d, int lo,
+               int hi, void* stream) {
+  const cudaError_t e = prepare(trunk_fwd_mma_kernel<kMasks>, FWD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  trunk_fwd_mma_kernel<kMasks><<<n_blocks(rows), NT, FWD_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)wd, (const float*)bd, (const bf16*)wr, (const float*)br,
+      (bf16*)out, (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d, lo, hi);
+  return (int)cudaGetLastError();
+}
+
+template <bool kGateFromX>
+int launch_dx(const void* dxn, const void* dtap, const void* dy, const void* inmask,
+              const void* xin, const void* wd, void* dx, int rows, int clip_rows, int d, int lo,
+              int hi, void* stream) {
+  const cudaError_t e = prepare(trunk_bwd_dx_mma_kernel<kGateFromX>, DX_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  trunk_bwd_dx_mma_kernel<kGateFromX><<<n_blocks(rows), NT, DX_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)dxn, (const bf16*)dtap, (const bf16*)dy, (const uint8_t*)inmask,
+      (const bf16*)xin, (const bf16*)wd, (bf16*)dx, rows, clip_rows, d, lo, hi);
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -597,12 +752,8 @@ extern "C" {
 int ast_trunk_fwd_mma(const void* x, const void* wd, const void* bd, const void* wr,
                       const void* br, void* out, void* mask, void* inmask, int rows,
                       int clip_rows, int d, int lo, int hi, void* stream) {
-  const cudaError_t e = prepare(trunk_fwd_mma_kernel, FWD_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  trunk_fwd_mma_kernel<<<n_blocks(rows), NT, FWD_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)wd, (const float*)bd, (const bf16*)wr, (const float*)br,
-      (bf16*)out, (uint8_t*)mask, (uint8_t*)inmask, rows, clip_rows, d, lo, hi);
-  return (int)cudaGetLastError();
+  return launch_fwd<true>(x, wd, bd, wr, br, out, mask, inmask, rows, clip_rows, d, lo, hi,
+                          stream);
 }
 
 // K2 (bf16) phase 1 alone: writes dy.
@@ -620,12 +771,8 @@ int ast_trunk_bwd_dy_mma(const void* dxn, const void* dtap, const void* mask, co
 int ast_trunk_bwd_dx_mma(const void* dxn, const void* dtap, const void* dy,
                          const void* inmask, const void* wd, void* dx, int rows, int clip_rows,
                          int d, int lo, int hi, void* stream) {
-  const cudaError_t e = prepare(trunk_bwd_dx_mma_kernel, DX_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  trunk_bwd_dx_mma_kernel<<<n_blocks(rows), NT, DX_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)dxn, (const bf16*)dtap, (const bf16*)dy, (const uint8_t*)inmask,
-      (const bf16*)wd, (bf16*)dx, rows, clip_rows, d, lo, hi);
-  return (int)cudaGetLastError();
+  return launch_dx<false>(dxn, dtap, dy, inmask, nullptr, wd, dx, rows, clip_rows, d, lo, hi,
+                          stream);
 }
 
 // K2 (bf16): both backward phases for one layer; `dy` is caller-allocated scratch.
@@ -636,6 +783,43 @@ int ast_trunk_bwd_mma(const void* dxn, const void* dtap, const void* mask,
   if (e != 0) return e;
   return ast_trunk_bwd_dx_mma(dxn, dtap, dy, inmask, wd, dx, rows, clip_rows, d, lo, hi,
                               stream);
+}
+
+// K7f (bf16): one encoder block forward, output only.
+int ast_encoder_fwd_mma(const void* x, const void* wd, const void* bd, const void* wr,
+                        const void* br, void* out, int rows, int clip_rows, int d, int lo,
+                        int hi, void* stream) {
+  return launch_fwd<false>(x, wd, bd, wr, br, out, nullptr, nullptr, rows, clip_rows, d, lo,
+                           hi, stream);
+}
+
+// K7b (bf16) phase 1 alone: dy from x (the gate recomputed) and g.
+int ast_encoder_bwd_dy_mma(const void* x, const void* g, const void* wd, const void* bd,
+                           const void* wr, void* dy, int rows, int clip_rows, int d, int lo,
+                           int hi, void* stream) {
+  const cudaError_t e = prepare(encoder_bwd_dy_mma_kernel, FWD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  encoder_bwd_dy_mma_kernel<<<n_blocks(rows), NT, FWD_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)g, (const bf16*)wd, (const float*)bd, (const bf16*)wr,
+      (bf16*)dy, rows, clip_rows, d, lo, hi);
+  return (int)cudaGetLastError();
+}
+
+// K7b (bf16) phase 2 alone: dx from g, phase 1's dy and the gate x > 0.
+int ast_encoder_bwd_dx_mma(const void* x, const void* g, const void* dy, const void* wd,
+                           void* dx, int rows, int clip_rows, int d, int lo, int hi,
+                           void* stream) {
+  return launch_dx<true>(g, nullptr, dy, nullptr, x, wd, dx, rows, clip_rows, d, lo, hi, stream);
+}
+
+// K7b (bf16): the block's dx from its input x and output cotangent g; `dy`
+// is caller-allocated scratch.
+int ast_encoder_bwd_mma(const void* x, const void* g, const void* wd, const void* bd,
+                        const void* wr, void* dy, void* dx, int rows, int clip_rows, int d,
+                        int lo, int hi, void* stream) {
+  const int e = ast_encoder_bwd_dy_mma(x, g, wd, bd, wr, dy, rows, clip_rows, d, lo, hi, stream);
+  if (e != 0) return e;
+  return ast_encoder_bwd_dx_mma(x, g, dy, wd, dx, rows, clip_rows, d, lo, hi, stream);
 }
 
 // One product through the kernels' staging and fragment code:

@@ -14,9 +14,12 @@
 // cotangent, the tap cotangents of the layers inside the group, each layer's
 // mask bytes (bit 0: x_{j+1} > 0, bit 1: gate) and the group input's relu
 // mask. The cotangents between the layers never go to device memory: one
-// read of dx, one write. The windowed variant of the TPU kernel (a validity
-// window on the rows) comes with `valid_window` for K1/K2/K2-wf in the
-// exact-mode slice.
+// read of dx, one write. With a valid window [lo, hi) of in-clip rows (the
+// TPU kernel's `windowed` branch, _bwd_group_kernel_wf's multiply of the
+// carry plus tap cotangent by _window_mask) g is zeroed on every other row,
+// in both phases of every piece, as K2 zeroes it: the predicate takes the
+// row's global in-clip position, so a window edge inside a block's halo
+// cuts there too. [0, clip_rows) is the unwindowed kernel bit for bit.
 //
 // Design. The TPU kernel keeps a tile plus halo in a 13 MB VMEM window and
 // relies on program order to make neighbouring pieces overlap; a Hopper block
@@ -83,6 +86,7 @@ struct WfArgs {
   int prefix[MAXK + 1];        // n_j
   int split[MAXK];             // by step s
   int k, tile, rows, clip_rows;
+  int lo, hi;                  // the valid window in in-clip rows
 };
 
 struct Stage {  // one per warp group
@@ -151,6 +155,7 @@ __device__ void piece(const WfArgs& p, Stage& st, T* carry, int wg, int tid, int
           v = Io<T>::ld(src, (long)c * C + c0 + kk);
           if (dtap && pos >= 0 && pos < p.clip_rows)
             v = Io<T>::rnd(v + Io<T>::ld(dtap, (row0 + c - nk) * C + c0 + kk));
+          if (pos < p.lo || pos >= p.hi) v = 0.f;
         }
         st.a[kk][r] = v;
       }
@@ -194,12 +199,14 @@ __device__ void piece(const WfArgs& p, Stage& st, T* carry, int wg, int tid, int
       if (r >= nrows) continue;
       const int c = m0 + r, pos = pos0 + c - nk;
       const bool in_clip = pos >= 0 && pos < p.clip_rows;
+      const bool in_win = pos >= p.lo && pos < p.hi;
       const long grow = row0 + c - nk;
 #pragma unroll
       for (int jj = 0; jj < 8; ++jj) {
         const int col = tx + 16 * jj;
         float g = Io<T>::ld(src, (long)c * C + col);
         if (dtap && in_clip) g = Io<T>::rnd(g + Io<T>::ld(dtap, grow * C + col));
+        if (!in_win) g = 0.f;
         const float inrelu = in_clip ? (float)(inmask[grow * C + col] & 1) : 0.f;
         const float v = g + Io<T>::rnd(acc[i][jj] * inrelu);
         if (last)
@@ -284,11 +291,12 @@ extern "C" {
 // dtaps and masks are host arrays of k device pointers (a dtap may be null),
 // dils and splits host arrays of k ints (splits by backward step). Returns
 // cudaGetLastError() after the launch, cudaErrorInvalidValue for a geometry
-// the kernel does not take.
+// the kernel does not take. [lo, hi) is the valid window in in-clip rows,
+// [0, clip_rows) for none.
 int ast_trunk_bwd_group(const void* dxn, const void* const* dtaps, const void* const* masks,
                         const void* inmask, const void* wd, const void* wr, void* dx,
                         const int* dils, const int* splits, int k, int tile, int rows,
-                        int clip_rows, int is_bf16, void* stream) {
+                        int clip_rows, int lo, int hi, int is_bf16, void* stream) {
   if (k < 2 || k > MAXK) return (int)cudaErrorInvalidValue;
   WfArgs a;
   a.dxn = dxn;
@@ -300,6 +308,8 @@ int ast_trunk_bwd_group(const void* dxn, const void* const* dtaps, const void* c
   a.tile = tile;
   a.rows = rows;
   a.clip_rows = clip_rows;
+  a.lo = lo;
+  a.hi = hi;
   a.prefix[0] = 0;
   for (int j = 0; j < MAXK; ++j) {
     a.dtap[j] = j < k ? dtaps[j] : nullptr;

@@ -125,10 +125,11 @@ def encoder_trunk(params: Params, x_quantized: torch.Tensor,
     trunk layer, so each conv sees the zeros that SAME padding at the global
     clip edge would have given it (a zero input alone is not enough: the
     biases make activations over padding nonzero). The start conv's output is
-    masked in plain torch, the layers by the windowed chained trunk (K1/K2).
-    Batch 1 only; the per-layer flavour (K7f/K7b) has no windowed form, in
-    the JAX package either, and raises. The JAX ``valid_mask`` (arbitrary
-    masks) belongs to the mesh path and is not ported.
+    masked in plain torch, the layers by the windowed chained trunk (K1/K2)
+    or, in the per-layer flavour, by the windowed blocks (K7f/K7b: JAX runs
+    that flavour as masked XLA convs, ``masked(enc + d)``, with the same
+    result). Batch 1 only. The JAX ``valid_mask`` (arbitrary masks) belongs to
+    the mesh path and is not ported.
     """
     cfg = cfg or WaveNetAEConfig()
     dtype = cfg.compute_dtype
@@ -138,10 +139,6 @@ def encoder_trunk(params: Params, x_quantized: torch.Tensor,
         if enc.shape[0] != 1:
             raise ValueError(
                 f"encoder_trunk: a valid window is one clip's state, got batch {enc.shape[0]}")
-        if cfg.fused_encoder and not cfg.chain_encoder:
-            raise NotImplementedError(
-                "encoder_trunk: the per-layer flavour (fused_encoder=True, "
-                "chain_encoder=False) has no valid-window form; use the chained trunk")
         t = enc.shape[1]
         enc = enc * window_rows(valid_window, t, t, enc.device).to(dtype)[None]
 
@@ -152,7 +149,7 @@ def encoder_trunk(params: Params, x_quantized: torch.Tensor,
             pd, pr = params[f"ae_dilatedconv_{k}"], params[f"ae_res_{k}"]
             enc = fused_encoder_block(enc, pd["w"].to(dtype), pd["b"].to(dtype),
                                       pr["w"].to(dtype), pr["b"].to(dtype),
-                                      cfg.ae_dilation(k - 1))
+                                      cfg.ae_dilation(k - 1), valid_window)
             extracts.append(enc)
         extracts.append(enc)  # enc_ duplicate tap (reference model.py:118-119)
         extracts.append(_apply(params, "ae_bottleneck", enc, dtype=dtype))

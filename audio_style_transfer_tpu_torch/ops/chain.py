@@ -26,11 +26,10 @@ plain ``reference_trunk`` (a recompute, as the JAX custom VJP does).
 ``fused_trunk(valid_window=)``) re-zeroes every layer's output outside
 [max(lo, 0), min(hi, clip_rows)): the forward is ``x_{j+1} = w * (x_j +
 f(x_j))`` with the multiply before the output's mask bit is taken and the tap
-is written, the backward masks ``g = w * (dxn + dtap)``. K1 and K2 take the
-window as two ints (one predicate per row); ``None`` is the full range, which
-the kernels and the plain versions compute bit for bit as before. K2-wf has
-no windowed form (it is opt-in and slower than the K2 launches it replaces):
-``trunk_backward`` refuses a window while ``_BWD_WAVEFRONT`` is on.
+is written, the backward masks ``g = w * (dxn + dtap)``. K1, K2 and K2-wf
+take the window as two ints (one predicate per row; K2-wf's on each row's
+in-clip position, halo rows included); ``None`` is the full range, which the
+kernels and the plain versions compute bit for bit as before.
 """
 
 from __future__ import annotations
@@ -92,7 +91,8 @@ def window_rows(valid_window, rows: int, clip_rows: int, device):
     return ((pos >= lo) & (pos < hi))[:, None]
 
 
-def _zero_outside(a, inside):
+def zero_outside(a, inside):
+    """a with the rows outside ``inside`` (window_rows' mask, or None) zeroed."""
     return a if inside is None else torch.where(inside, a, torch.zeros_like(a))
 
 
@@ -106,7 +106,7 @@ def reference_trunk(x, wd, bd, wr, br, dils, emit, valid_window=None):
     taps = {}
     for j, d in enumerate(dils):
         y = conv1d(torch.relu(cur), wd[j], bd[j], dilation=d, causal=False)
-        cur = _zero_outside(cur + conv1d(torch.relu(y), wr[j][None], br[j]), inside)
+        cur = zero_outside(cur + conv1d(torch.relu(y), wr[j][None], br[j]), inside)
         if j in emit:
             taps[j] = cur[0] if squeeze else cur
     return tuple(taps[j] for j in sorted(taps))
@@ -162,7 +162,7 @@ def layer_fwd_plain(x, wd, bd, wr, br, d: int, clip_rows: int,
     """Plain version of K1 for one layer: (out, mask, inmask or None). The
     window zeroes ``out`` before its mask bit is taken."""
     y = dilated_conv_plain(x, wd, bd, d, clip_rows)
-    out = _zero_outside(block_out_plain(x, y, wr, br),
+    out = zero_outside(block_out_plain(x, y, wr, br),
                         window_rows(valid_window, x.shape[0], clip_rows, x.device))
     inmask = (x > 0).to(torch.uint8) if want_inmask else None
     return out, _masks(out, y), inmask
@@ -175,7 +175,7 @@ def layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int,
     (or None), this layer's mask bytes and the input's relu mask (bit 0).
     The window zeroes g = dxn + dtap (the emitted tap is the masked value)."""
     dt = dxn.dtype
-    g = _zero_outside(dxn if dtap is None else dxn + dtap,
+    g = zero_outside(dxn if dtap is None else dxn + dtap,
                       window_rows(valid_window, dxn.shape[0], clip_rows, dxn.device))
     dv = g.to(_F32) @ wr.to(_F32).T
     dy = (dv * ((mask >> 1) & 1).to(_F32)).to(dt).to(_F32)
@@ -280,22 +280,24 @@ def _tile_windows(a: torch.Tensor, clip_rows: int, tile: int, halo: int) -> torc
     return win.permute(0, 1, 3, 2).reshape(-1, tile + 2 * halo, c)
 
 
-def group_bwd_chain_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows: int):
+def group_bwd_chain_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows: int,
+                          valid_window=None):
     """The oracle of K2-wf: ``layer_bwd_plain`` layer by layer, last first."""
     dx = dxn
     for j in range(len(dils) - 1, -1, -1):
         dx = layer_bwd_plain(dx, dtaps[j], masks[j], masks[j - 1] if j else inmask,
-                             wd[j], wr[j], dils[j], clip_rows)
+                             wd[j], wr[j], dils[j], clip_rows, valid_window)
     return dx
 
 
 def group_bwd_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows: int,
-                    tile: int, splits):
+                    tile: int, splits, valid_window=None):
     """Plain version of K2-wf with the kernel's own schedule: every tile with
     its halo in a three-slot carry, the pieces in the order A_0, A_1, B_0,
     A_2, B_1, ... B_{k-1}, each reading slot (s-1) % 3 and writing its rows
     of slot s % 3, with ``layer_bwd_plain``'s cast points. All tiles advance
-    together as a leading dimension."""
+    together as a leading dimension. The window zeroes g = carry + dtap on
+    the rows whose in-clip position lies outside it, halo rows included."""
     k, dt = len(dils), dxn.dtype
     n = _prefix(dils)
     nk = n[-1]
@@ -305,6 +307,8 @@ def group_bwd_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows: int,
     dtap_w = [None if g is None else windows(g) for g in dtaps]
     mask_w = [windows(m) for m in masks]
     inmask_w = windows(inmask)
+    inside = window_rows(valid_window, dxn.shape[0], clip_rows, dxn.device)
+    inside_w = None if inside is None else windows(inside.to(torch.uint8)).bool()
 
     def piece(s, lo, hi):
         j = k - 1 - s
@@ -312,6 +316,8 @@ def group_bwd_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows: int,
         g = carry[(s - 1) % 3][:, lo - d:hi + d]
         if dtap_w[j] is not None:
             g = g + dtap_w[j][:, lo - d:hi + d]
+        if inside_w is not None:
+            g = zero_outside(g, inside_w[:, lo - d:hi + d])
         dv = g.to(_F32) @ wr[j].to(_F32).T
         gate = ((mask_w[j][:, lo - d:hi + d] >> 1) & 1).to(_F32)
         dy = (dv * gate).to(dt).to(_F32)
@@ -363,7 +369,8 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _check_bf16(t):
+def check_bf16(t):
+    """Refuse a tensor that is not bfloat16 (the tensor-core kernels' type)."""
     if t.dtype != torch.bfloat16:
         raise TypeError(f"the tensor-core kernels take bfloat16, got {t.dtype}")
 
@@ -415,8 +422,8 @@ def layer_fwd(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = Fal
 def layer_fwd_fma(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = False,
                   valid_window=None):
     """K1's FMA kernel (csrc/trunk.cu) in x's dtype, bfloat16 included: the
-    code K7f, K7b and K2-wf are built on. For comparisons only; no transfer
-    path calls it."""
+    code of the float32 K7f and K7b and of K2-wf. For comparisons only; no
+    transfer path calls it."""
     return _layer_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, want_inmask, mma=False,
                            valid_window=valid_window)
 
@@ -478,7 +485,7 @@ def layer_bwd_fma(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, valid
 def layer_bwd_mma_phase1(dxn, dtap, mask, wr, clip_rows: int, valid_window=None):
     """Phase 1 of the bfloat16 K2 alone (for timing it): dy. Not counted as a
     K2 launch."""
-    _check_bf16(dxn)
+    check_bf16(dxn)
     _check_layer_bwd(dxn, dtap, mask, None, None, wr, clip_rows)
     dy = torch.empty_like(dxn)
     status = _build.lib().ast_trunk_bwd_dy_mma(
@@ -492,7 +499,7 @@ def layer_bwd_mma_phase1(dxn, dtap, mask, wr, clip_rows: int, valid_window=None)
 def layer_bwd_mma_phase2(dxn, dtap, dy, inmask, wd, d: int, clip_rows: int, valid_window=None):
     """Phase 2 of the bfloat16 K2 alone (for timing it): dx from phase 1's dy.
     Not counted as a K2 launch."""
-    _check_bf16(dxn)
+    check_bf16(dxn)
     _check_layer_bwd(dxn, dtap, None, inmask, wd, None, clip_rows)
     check_cuda("dy", dy, dxn.shape, dxn.dtype, dxn.device)
     dx = torch.empty_like(dxn)
@@ -509,7 +516,7 @@ def product_mma(a, w, transposed: bool):
     through the staging and fragment code of csrc/trunk_mma.cu: one product
     of the tensor-core kernels alone, for testing them."""
     check_layer(a, a.shape[0])
-    _check_bf16(a)
+    check_bf16(a)
     check_cuda("a", a, a.shape, torch.bfloat16, a.device)
     check_cuda("w", w, (WIDTH, WIDTH), torch.bfloat16, a.device)
     out = torch.empty(a.shape, dtype=_F32, device=a.device)
@@ -520,20 +527,22 @@ def product_mma(a, w, transposed: bool):
     return out
 
 
-def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int):
+def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int,
+              valid_window=None):
     """The cotangent of a wavefront group's input from ``dxn``, the cotangent
     of its output: K2-wf on CUDA, ``group_bwd_plain`` on the CPU.
 
     dtaps: per layer of the group the emitted tap's cotangent or None; masks:
     per layer its mask bytes; inmask: bit 0 is the group input's relu mask;
-    wd [k, 3, C, C], wr [k, C, C] of the group in dxn's dtype."""
+    wd [k, 3, C, C], wr [k, C, C] of the group in dxn's dtype; valid_window
+    (lo, hi) in in-clip rows or None, as in ``layer_bwd``."""
     dils, k = group.dils, len(group.dils)
     if group.splits is None or len(dtaps) != k or len(masks) != k:
         raise ValueError(f"group_bwd needs a planned group of {k} layers with their "
                          f"tap cotangents and masks, got {group}")
     if dxn.device.type == "cpu":
         return group_bwd_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows,
-                               group.tile, group.splits)
+                               group.tile, group.splits, valid_window)
     check_layer(dxn, clip_rows)
     c, dev, dt = WIDTH, dxn.device, dxn.dtype
     if clip_rows % group.tile:
@@ -555,7 +564,8 @@ def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int
         (ctypes.c_void_p * k)(*[m.data_ptr() for m in masks]),
         inmask.data_ptr(), wd.data_ptr(), wr.data_ptr(), dx.data_ptr(),
         (ctypes.c_int * k)(*dils), (ctypes.c_int * k)(*group.splits), k, group.tile,
-        dxn.shape[0], clip_rows, int(dt == torch.bfloat16), _build.stream_ptr(dev))
+        dxn.shape[0], clip_rows, *clamp_window(valid_window, clip_rows),
+        int(dt == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(status, "ast_trunk_bwd_group")
     _build.LAUNCHES["K2wf"] += 1
     return dx
@@ -585,12 +595,8 @@ def trunk_backward(dtaps: dict, masks, inmask, wd, wr, dils, clip_rows: int,
     """Waveform cotangent of the trunk input from tap cotangents
     ({layer: [rows, C] or None}); the last layer's seeds the chain. With
     ``_BWD_WAVEFRONT`` on, the groups of ``plan_bwd_groups`` run through
-    ``group_bwd`` and the remaining layers through ``layer_bwd``; K2-wf has no
-    windowed form, so that setting with a window raises."""
-    if _BWD_WAVEFRONT and valid_window is not None:
-        raise NotImplementedError(
-            "the grouped wavefront backward (K2-wf) has no valid-window form: switch "
-            "_BWD_WAVEFRONT / AST_CHAIN_BWD_WAVEFRONT off for a windowed trunk")
+    ``group_bwd`` and the remaining layers through ``layer_bwd``, all with
+    the valid window."""
     last = len(dils) - 1
     seed = dtaps.get(last)
     if seed is None:
@@ -611,7 +617,7 @@ def trunk_backward(dtaps: dict, masks, inmask, wd, wr, dils, clip_rows: int,
                            valid_window)
         else:
             dx = group_bwd(dx, taps, masks[j0:j0 + k], in_m, wd[j0:j0 + k], wr[j0:j0 + k],
-                           group, clip_rows)
+                           group, clip_rows, valid_window)
     return dx
 
 

@@ -41,22 +41,32 @@ def parse_ptxas(log: str) -> list[tuple[str, int, int, int, int]]:
     return rows
 
 
-def main(argv: list[str]) -> int:
+def compile_resources(names: list[str]) -> dict[str, list[tuple[str, int, int, int, int]]]:
+    """Source file name -> ``parse_ptxas`` rows of every kernel in it, for
+    the named sources of csrc/ (all when ``names`` is empty), compiled side
+    by side with the build's flags plus ``-Xptxas -v``."""
     nvcc = _build._nvcc()
-    sources = [s for s in _build._sources() if not argv or s.name in argv]
-    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(nvcc), "cu++filt")
+    sources = [s for s in _build._sources() if not names or s.name in names]
     with tempfile.TemporaryDirectory() as tmp:
         procs = [subprocess.Popen(
             [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I", str(_build.CSRC), "-c", "-o",
              os.path.join(tmp, s.stem + ".o"), str(s)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for s in sources]
         logs = [p.communicate()[0] for p in procs]
+    out = {}
     for src, proc, log in zip(sources, procs, logs):
         if proc.returncode != 0:
             print(log)
             raise RuntimeError(f"nvcc failed on {src.name}")
-        print(f"{src.name}:")
-        for name, regs, st, ld, smem in parse_ptxas(log):
+        out[src.name] = parse_ptxas(log)
+    return out
+
+
+def main(argv: list[str]) -> int:
+    filt = shutil.which("cu++filt") or os.path.join(os.path.dirname(_build._nvcc()), "cu++filt")
+    for src, rows in compile_resources(argv).items():
+        print(f"{src}:")
+        for name, regs, st, ld, smem in rows:
             if os.path.exists(filt):
                 name = subprocess.run([filt, name], capture_output=True, text=True,
                                       check=True).stdout.strip()

@@ -32,11 +32,12 @@ from audio_style_transfer_tpu_torch.transfer import lbfgs
 PATHS = {**cs.EVAL_PATHS,
          "full stack, per-layer": dict(stack=None, cont_lyr_ids=(25,), chain_encoder=False)}
 # Kernel-name fragments of the hand-written kernels, for the summary line.
-OURS = {"K1 mma": "trunk_fwd_mma", "K2 dy mma": "trunk_bwd_dy_mma",
-        "K2 dx mma": "trunk_bwd_dx_mma", "K1/K7f fma": "trunk_fwd_kernel",
-        "K2 dy fma": "trunk_bwd_dy_kernel", "K7b dy": "encoder_bwd_dy",
-        "K2/K7b dx fma": "trunk_bwd_dx_kernel", "K2-wf": "trunk_bwd_wf",
-        "K5": "gram_fwd", "K5 reduce": "gram_reduce", "K6": "gram_bwd"}
+OURS = {"K1/K7f mma": "trunk_fwd_mma", "K2 dy mma": "trunk_bwd_dy_mma",
+        "K7b dy mma": "encoder_bwd_dy_mma", "K2/K7b dx mma": "trunk_bwd_dx_mma",
+        "K1/K7f fma": "trunk_fwd_kernel", "K2 dy fma": "trunk_bwd_dy_kernel",
+        "K7b dy fma": "encoder_bwd_dy_kernel", "K2/K7b dx fma": "trunk_bwd_dx_kernel",
+        "K2-wf": "trunk_bwd_wf", "K5": "gram_fwd", "K5 reduce": "gram_reduce",
+        "K6": "gram_bwd"}
 PROFILED_EVALS = 10
 
 

@@ -11,21 +11,26 @@ Phases (any failure raises and exits non-zero):
   3. hold each kernel against its plain PyTorch version at full width
      (T=16384, C=128, the 30 trunk layers), in float32 with TF32 off and in
      bfloat16, and time both (CUDA events, median of runs): K1/K2 and
-     K7f/K7b layer by layer on the plain chain's own inputs (K1/K2 are the
-     tensor-core kernels in bfloat16 and the FMA kernels in float32; the
-     FMA kernels are also held against them and timed beside them, and the
-     bfloat16 K2 is timed per phase), K2-wf on each group of the wavefront
-     plan (bit for bit against the FMA K2 launches it is built on, and
+     K7f/K7b layer by layer on the plain chain's own inputs (all four are
+     the tensor-core kernels in bfloat16 and the FMA kernels in float32; the
+     FMA kernels are also held against them and timed beside them, the
+     bfloat16 K2 and K7b are timed per phase, and K7b's recomputed gate is
+     held to bit 1 of K1's mask bytes bit for bit), K2-wf on each group of
+     the wavefront plan (bit for bit against the FMA K2 launches it is built on, and
      against the K2 launches it replaces), K5 and K6 on the stack-0 taps
      {0..9} (L=10) and on all 30 taps (L=30), and on two clips of a ragged
      T, K5 twice on the same inputs for equal bits, both timed as a
      replayed CUDA graph with one torch.einsum beside each as a yardstick;
-     K1 and K2 once more with a valid window whose edges cut 128-row tiles
-     (the exact long-form scan's edge windows), against their windowed plain
-     versions and timed beside the unwindowed kernels; then K1, K2, K5 and
-     K6 against their plain versions at the shapes the exact long-form runs
-     give them (the scan's 40960-row window with its two edge windows and
-     with none, its cropped 32768-row gram, the single window's 237568 rows);
+     K1, K2, K7f, K7b and K2-wf once more with a valid window whose edges
+     cut 128-row tiles (the exact long-form scan's edge windows), against
+     their windowed plain versions and timed beside the unwindowed kernels;
+     then each kernel against its plain version at the shapes the exact
+     long-form runs give it: K1, K2 and K2-wf (also bit for bit against the
+     FMA K2 launches) on the chained scan's 40960-row window with its two
+     edge windows and with none and on the single window's 237568 rows, K5
+     and K6 on the scan's cropped 32768-row gram and the single window's,
+     K7f and K7b on the per-layer scan's 24576-row window with its two edge
+     windows and with none;
      then a bare bfloat16 loss+gradient evaluation at stack 0 and at the
      full stack, CUDA events beside the host clock, with the kernel
      launches of one evaluation;
@@ -42,7 +47,13 @@ Phases (any failure raises and exits non-zero):
      the port's transfer CLI on two synthetic clips (bf16, random weights,
      3 epochs) at stack 0 and at the full stack with --cont_lyrs 25 {K1,
      K2, K5, K6}, one bf16 engine epoch of the per-layer flavour at the full
-     stack {K7f, K7b, K5, K6}, then the chunked long-form CLI (4 windows,
+     stack {K7f, K7b, K5, K6}, the per-layer flavour's exact scan (2.5
+     windows of 16384, the edge windows through the windowed K7f / K7b: its
+     first evaluation against the chained flavour's, then one epoch) {K7f,
+     K7b, K5, K6}, the exact scan of the 15 s clip with the
+     wavefront backward on (its first evaluation against the same with it
+     off, then 3 L-BFGS iterations; K2-wf with and without a valid window)
+     {K1, K2, K2wf, K5, K6}, then the chunked long-form CLI (4 windows,
      --longform --ot_components 8 --gamma 1e-3 --stack 0, 2 epochs) with the
      wavefront backward on {K1, K2, K2wf, K5, K6; K2wf = 3 and K2 = 18 per
      evaluation} and once more with it off; in every run K6 is launched once
@@ -53,8 +64,9 @@ Phases (any failure raises and exits non-zero):
      long-form CLI (--exact, bf16, --stack 0 --gamma 1e-3) on a 15 s clip as
      one window and as a scan of 32768-sample windows, launches per
      evaluation checked, with evals/s, ms per evaluation and peak memory;
-  6. print the per-kernel JSON line (time, plain time, bound, library time),
-     then the result line.
+  6. print the per-kernel JSON line (time, plain time, bound, library time,
+     FMA time, windowed time, the error at the exact runs' shapes), then the
+     result line.
 
 It imports nothing of JAX. Numbers it prints are for the card it ran on.
 """
@@ -62,6 +74,7 @@ It imports nothing of JAX. Numbers it prints are for the card it ran on.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -102,6 +115,12 @@ WINDOW = (1000, T - 1500)
 # 4096; the scan trims to a multiple of 512 and pads to 8 windows.
 EXACT_SAMPLES = 240000
 SCAN_WINDOW = 32768
+EXACT_WF_MAXITER = 3  # evaluations of the wavefront exact run: a few
+# The per-layer flavour's windowed run: a clip of 2.5 windows of T, as a scan
+# whose first and last windows are masked, one epoch of a few evaluations.
+PER_LAYER_SAMPLES = 40000
+PER_LAYER_SCAN = T
+PER_LAYER_MAXITER = 10
 # The float32 full-stack CLI run (3 epochs from the 1e-6 start, these clips and
 # weights) ended at 6.8539 or 6.8540 in all four kernel / plain combinations
 # of the gram (NVIDIA H100 80GB HBM3). The start point is ill-conditioned
@@ -201,10 +220,40 @@ def check_all(name: str, outs, wants, tol: float) -> float:
     return abs_err
 
 
+def group_inputs(g, dxs, dtaps, masks, inmask, wd, wr) -> tuple:
+    """K2-wf's arguments for the wavefront group g on the plain chain's
+    cotangents: dxs[j] is that of layer j's output before its tap's, dtaps
+    the tap cotangents (the last layer's is the start of the chain)."""
+    js = range(g.j0, g.j0 + len(g.dils))
+    return (dxs[js[-1]], [dtaps.get(j) if j != LAYERS - 1 else None for j in js],
+            [masks[j] for j in js], masks[g.j0 - 1] if g.j0 else inmask,
+            wd[g.j0:js[-1] + 1], wr[g.j0:js[-1] + 1])
+
+
+def k2_chain(args, g, layer, rows: int, window=None):
+    """The single-layer K2 launches (``layer``) that the group g replaces, on
+    K2-wf's arguments ``args``."""
+    dxn, gtaps, gmasks, in_m, gwd, gwr = args
+    for j in range(len(g.dils) - 1, -1, -1):
+        dxn = layer(dxn, gtaps[j], gmasks[j], gmasks[j - 1] if j else in_m,
+                    gwd[j], gwr[j], g.dils[j], rows, window)
+    return dxn
+
+
+def wavefront_groups(dils, rows: int, itemsize: int) -> list:
+    """The groups of the wavefront plan that run as one K2-wf launch."""
+    from audio_style_transfer_tpu_torch.ops import chain
+
+    return [g for g in chain.plan_bwd_groups(dils, rows, itemsize) if g.splits is not None]
+
+
 def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
     """K1 and K2 over the 30 layers at x0's row count (one clip), with the
     valid window ``window`` or None, layer by layer on the plain chain's own
-    inputs, masks and cotangents. Returns (K1 max|d|, K2 max|d|, the plain
+    inputs, masks and cotangents; then K2-wf on every group of the wavefront
+    plan at these rows, against its plain version and bit for bit against
+    the FMA K2 launches it is built on, with the same window. Returns (K1
+    max|d|, K2 max|d|, K2-wf max|d| or None without a group, the plain
     chain's first ten outputs)."""
     import torch
 
@@ -239,8 +288,9 @@ def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
         masks.append(m_p)
         if j < len(STYLE):
             outs.append(out_p)
-    dx, k2_err = dtaps[LAYERS - 1], 0.0
+    dx, k2_err, dxs = dtaps[LAYERS - 1], 0.0, {}
     for j in range(LAYERS - 1, -1, -1):
+        dxs[j] = dx
         dtap = dtaps.get(j) if j != LAYERS - 1 else None
         in_m = masks[j - 1] if j > 0 else inmask
         dx_p = chain.layer_bwd_plain(dx, dtap, masks[j], in_m, wd[j], wr[j], dils[j], rows, window)
@@ -250,50 +300,129 @@ def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
             raise AssertionError(f"K2 layer {j}, {rows} rows, {label}: rel err {rel:.3e} > {tol}")
         k2_err = max(k2_err, abs_err)
         dx = dx_p
+    groups = wavefront_groups(dils, rows, x0.element_size())
+    wf_err = None
+    for g in groups:
+        args = group_inputs(g, dxs, dtaps, masks, inmask, wd, wr)
+        got = chain.group_bwd(*args, g, rows, window)
+        abs_err, rel = rel_err(got, chain.group_bwd_plain(*args, g.dils, rows, g.tile, g.splits,
+                                                          window))
+        fma = k2_chain(args, g, chain.layer_bwd_fma, rows, window)
+        if rel > tol or not torch.equal(got, fma):
+            raise AssertionError(f"K2-wf group at layer {g.j0}, {rows} rows, {label}: rel err "
+                                 f"{rel:.3e}, or not the FMA K2 launches bit for bit")
+        wf_err = max(wf_err or 0.0, abs_err)
     zeros = "" if window is None else ", masked rows zero with a zero bit 0"
+    wf = (f"; K2-wf: max|d| {wf_err:.3e} over {len(groups)} groups, equal to the FMA K2 "
+          f"launches bit for bit" if groups else "; no wavefront group")
     print(f"  K1 at {rows} rows, {label}: max|d| {k1_err:.3e} over 30 layers (tol rel {tol:.0e}), "
-          f"mask bytes differing <= {k1_share:.2e}{zeros} ok; K2: max|d| {k2_err:.3e} ok")
-    return k1_err, k2_err, outs
+          f"mask bytes differing <= {k1_share:.2e}{zeros} ok; K2: max|d| {k2_err:.3e}{wf} ok")
+    return k1_err, k2_err, wf_err, outs
+
+
+def block_check(label: str, weights, x0, window, tol: float, seed: int = 2):
+    """K7f and K7b over the 30 layers at x0's row count (one clip), with the
+    valid window ``window`` or None, layer by layer on the plain block
+    chain's own inputs. K7f against its plain version, zero outside the
+    window, and equal bit for bit to K1's output (the same code with the
+    mask bytes compiled out). K7b on a cotangent drawn per layer against its
+    plain version fed K1's gate (bit 1 of its mask bytes, whose flips against
+    the plain gate are held to MASK_TOL here): a y within rounding of zero
+    that flips would move its neighbourhood's cotangent by about its own
+    size. Returns (K7f max|d|, K7b max|d|)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import chain, encoder
+
+    wd, bd, wr, br = weights
+    rows, dev, dt = x0.shape[0], x0.device, x0.dtype
+    lo, hi = chain.clamp_window(window, rows)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dils = tuple(2 ** (k % 10) for k in range(LAYERS))
+    cur, f_err, b_err, gate_share = x0, 0.0, 0.0, 0.0
+    for j, d in enumerate(dils):
+        w = (wd[j], bd[j], wr[j], br[j], d, rows)
+        out_p = encoder.block_fwd_plain(cur, *w, window)
+        out_k = encoder.block_fwd(cur, *w, window)
+        out_1, m_1, _ = chain.layer_fwd(cur, *w, valid_window=window)
+        _, m_p, _ = chain.layer_fwd_plain(cur, *w, valid_window=window)
+        share = float((((m_1 >> 1) & 1) != ((m_p >> 1) & 1)).float().mean())
+        abs_err, rel = rel_err(out_k, out_p)
+        if (rel > tol or share > MASK_TOL or not torch.equal(out_k, out_1)
+                or bool(out_k[:lo].any()) or bool(out_k[hi:].any())):
+            raise AssertionError(f"K7f layer {j}, {rows} rows, {label}: rel err {rel:.3e}, "
+                                 f"{share:.2e} of K1's gate bits differ, not K1's output, or a "
+                                 f"masked row is not zero")
+        f_err, gate_share = max(f_err, abs_err), max(gate_share, share)
+        g = (torch.randn((rows, C), generator=gen, device=dev) * 1e-3).to(dt)
+        want = chain.layer_bwd_plain(g, None, m_1, (cur > 0).to(torch.uint8), wd[j], wr[j], d,
+                                     rows, window)
+        abs_err, rel = rel_err(encoder.block_bwd(cur, g, wd[j], bd[j], wr[j], d, rows, window),
+                               want)
+        if rel > tol:
+            raise AssertionError(f"K7b layer {j}, {rows} rows, {label}: rel err {rel:.3e} > {tol}")
+        b_err = max(b_err, abs_err)
+        cur = out_p
+        del out_p, out_k, out_1, m_1, m_p, g, want
+    zeros = "" if window is None else ", masked rows zero"
+    print(f"  K7f at {rows} rows, {label}: max|d| {f_err:.3e} over 30 layers (tol rel "
+          f"{tol:.0e}), K1's output bit for bit{zeros}, K1's gate bits against the plain gate "
+          f"differing <= {gate_share:.2e}; K7b: max|d| {b_err:.3e} (plain version with K1's "
+          f"gate) ok")
+    return f_err, b_err
+
+
+def scan_cases(samples: int, window: int) -> tuple:
+    """(halo-extended rows, radius, the edge windows' valid windows, t_valid,
+    t_total) of the exact scan of a ``samples``-long clip in ``window``-sample
+    windows: the geometry transfer_exact gives the trunk."""
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+    from audio_style_transfer_tpu_torch.parallel import halo
+    from audio_style_transfer_tpu_torch.transfer.losses import LossSpec
+
+    t_valid = (samples // 512) * 512
+    t_total = -(-t_valid // window) * window
+    scan = halo._Scan(WaveNetAEConfig(), LossSpec(), t_total, window, t_valid)
+    return scan.w_ext, scan.radius, [scan.valid_window(i) for i in scan.edge], t_valid, t_total
 
 
 def exact_shapes_phase(dtype_name: str, params, dev) -> dict:
-    """K1, K2, K5 and K6 against their plain versions at the shapes the exact
-    long-form runs give them: the scan's halo-extended window (its two edge
-    windows masked, a middle one not) and its cropped ten-tap gram, and the
-    single window's whole clip. Returns the largest max|d| per kernel."""
+    """The kernels against their plain versions at the shapes the exact
+    long-form runs give them. K1, K2 and K2-wf (chain_check) on the chained
+    scan's halo-extended window (its two edge windows masked, a middle one
+    not) and on the single window's whole clip; K5 and K6 on the scan's
+    cropped ten-tap gram and the single window's; K7f and K7b (block_check)
+    on the per-layer scan's halo-extended window, its two edge windows and a
+    middle one. Returns the largest max|d| per kernel."""
     import torch
 
-    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
     from audio_style_transfer_tpu_torch.ops import chain, gram
-    from audio_style_transfer_tpu_torch.parallel import halo
 
     dt = getattr(torch, dtype_name)
     tol = TOL[dtype_name]
     wd, bd, wr, br = chain.stack_trunk_weights(params, LAYERS)
     weights = (wd.to(dev, dt).contiguous(), bd.to(dev, torch.float32).contiguous(),
                wr.to(dev, dt).contiguous(), br.to(dev, torch.float32).contiguous())
-    radius = halo._window_radius(WaveNetAEConfig(), align=2048)
-    w_ext = SCAN_WINDOW + 2 * radius
-    scan_valid = (EXACT_SAMPLES // 512) * 512
-    last = scan_valid // SCAN_WINDOW  # the window that holds the clip's end
+    w_ext, radius, edges, _, _ = scan_cases(EXACT_SAMPLES, SCAN_WINDOW)
     one_window = (EXACT_SAMPLES // 4096) * 4096
-    cases = (  # rows, valid window, rows cropped each side for the gram
-        (w_ext, (radius, w_ext), radius),  # the scan's first window
-        (w_ext, (0, scan_valid - last * SCAN_WINDOW + radius), None),  # its last
+    cases = (  # rows, valid window, rows cropped each side for the gram (None: no gram)
+        (w_ext, edges[0], radius),  # the scan's first window
+        *((w_ext, vw, None) for vw in edges[1:]),  # its last
         (w_ext, None, None),  # a middle window
         (one_window, None, 0),  # the single window
     )
-    print(f"[exact shapes {dtype_name}] scan windows of {w_ext} rows (radius {radius}), one "
-          f"window of {one_window} rows")
-    errs = {k: 0.0 for k in ("K1", "K2", "K5", "K6")}
+    print(f"[exact shapes {dtype_name}] scan windows of {w_ext} rows (radius {radius}, edge "
+          f"windows {edges}), one window of {one_window} rows")
+    errs = {k: 0.0 for k in ("K1", "K2", "K2wf", "K5", "K6", "K7f", "K7b")}
     gen = torch.Generator(device=dev).manual_seed(1)
     for rows, window, crop in cases:
         x0 = (torch.randn((rows, C), generator=gen, device=dev) * 0.5).to(dt)
         dtaps = {j: (torch.randn((rows, C), generator=gen, device=dev) * 1e-3).to(dt)
                  for j in EMIT}
         label = "no window" if window is None else f"the valid window {window}"
-        k1, k2, outs = chain_check(label, weights, x0, dtaps, window, tol)
+        k1, k2, wf, outs = chain_check(label, weights, x0, dtaps, window, tol)
         errs["K1"], errs["K2"] = max(errs["K1"], k1), max(errs["K2"], k2)
+        errs["K2wf"] = max(errs["K2wf"], wf or 0.0)
         del dtaps
         if crop is None:
             continue
@@ -307,6 +436,14 @@ def exact_shapes_phase(dtype_name: str, params, dev) -> dict:
                                                gram.pair_gram_bwd(taps, h),
                                                gram.pair_gram_bwd_plain(taps, h), tol))
         del taps, outs
+    w_ext, radius, edges, _, _ = scan_cases(PER_LAYER_SAMPLES, PER_LAYER_SCAN)
+    print(f"[exact shapes {dtype_name}] per-layer scan windows of {w_ext} rows (radius {radius}, "
+          f"edge windows {edges})")
+    for window in (*edges, None):
+        x0 = (torch.randn((w_ext, C), generator=gen, device=dev) * 0.5).to(dt)
+        label = "no window" if window is None else f"the valid window {window}"
+        k7f, k7b = block_check(label, weights, x0, window, tol)
+        errs["K7f"], errs["K7b"] = max(errs["K7f"], k7f), max(errs["K7b"], k7b)
     torch.cuda.empty_cache()
     return errs
 
@@ -328,9 +465,12 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     x0 = (torch.randn((T, C), generator=gen, device=dev) * 0.5).to(dt)
     print(f"[kernels {dtype_name}] T={T} C={C} layers={LAYERS} emit={EMIT}")
 
-    # K1 and K7f, layer by layer on the plain chain's own inputs.
-    xs, masks, kmasks, inmask = [x0], [], [], None
+    # K1 and K7f, layer by layer on the plain chain's own inputs. K7f is
+    # K1's code with the mask bytes compiled out (tensor cores in bfloat16,
+    # FMA in float32): its output equals K1's bit for bit.
+    xs, masks, kmasks, fmasks, inmask = [x0], [], [], [], None
     k1_err, k7f_err, mask_share, k1_fma_err, k1_fma_share = 0.0, 0.0, 0.0, 0.0, 0.0
+    k7f_fma_err = 0.0
     for j, d in enumerate(dils):
         out_p, m_p, im_p = chain.layer_fwd_plain(xs[-1], wd[j], bd[j], wr[j], br[j], d, T,
                                                  want_inmask=(j == 0))
@@ -349,11 +489,16 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
             raise AssertionError(f"K1 layer {j} against the FMA kernel: rel err {rel:.3e}, "
                                  f"{fma_share:.2e} of mask bytes differ")
         k1_fma_err, k1_fma_share = max(k1_fma_err, abs_err), max(k1_fma_share, fma_share)
-        abs_err, rel = rel_err(encoder.block_fwd(xs[-1], wd[j], bd[j], wr[j], br[j], d, T),
-                               out_p)
-        if rel > tol:
-            raise AssertionError(f"K7f layer {j}: rel err {rel:.3e} > {tol}")
+        out_7 = encoder.block_fwd(xs[-1], wd[j], bd[j], wr[j], br[j], d, T)
+        abs_err, rel = rel_err(out_7, out_p)
+        if rel > tol or not torch.equal(out_7, out_k):
+            raise AssertionError(f"K7f layer {j}: rel err {rel:.3e} > {tol}, or not K1's output")
         k7f_err = max(k7f_err, abs_err)
+        abs_err, rel = rel_err(out_7, encoder.block_fwd_fma(xs[-1], wd[j], bd[j], wr[j], br[j],
+                                                            d, T))
+        if rel > tol:
+            raise AssertionError(f"K7f layer {j} against the FMA kernel: rel err {rel:.3e}")
+        k7f_fma_err = max(k7f_fma_err, abs_err)
         share = float((m_k != m_p).float().mean())
         if j == 0:
             share = max(share, float((im_k != im_p).float().mean()))
@@ -363,17 +508,20 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
             raise AssertionError(f"K1 layer {j}: {share:.2e} of mask bytes differ")
         xs.append(out_p)
         masks.append(m_p)
-        kmasks.append(m_f)
+        kmasks.append(m_k)
+        fmasks.append(m_f)
     print(f"  K1 taps: max|d| {k1_err:.3e} over 30 layers (tol rel {tol:.0e}) ok; "
           f"mask bytes differing <= {mask_share:.2e} (tol {MASK_TOL:.0e}) ok")
     print(f"  K1 against the FMA kernel: max|d| {k1_fma_err:.3e}, mask bytes differing <= "
           f"{k1_fma_share:.2e} ok")
-    print(f"  K7f out: max|d| {k7f_err:.3e} over 30 layers (tol rel {tol:.0e}) ok")
+    print(f"  K7f out: max|d| {k7f_err:.3e} over 30 layers (tol rel {tol:.0e}), equal to K1's "
+          f"output bit for bit; against the FMA kernel max|d| {k7f_fma_err:.3e} ok")
 
     # K2 and K7b, layer by layer on the plain chain's cotangents (and masks).
     dtaps = {j: (torch.randn((T, C), generator=gen, device=dev) * 1e-3).to(dt) for j in EMIT}
     dx = dtaps[LAYERS - 1]
-    k2_err, k7b_err, k2_fma_err = 0.0, 0.0, 0.0
+    k2_err, k7b_err, k2_fma_err, k7b_fma_err, k7b_fma_own_err = 0.0, 0.0, 0.0, 0.0, 0.0
+    gate_bits_checked = 0
     gs, dxs = {}, {}
     for j in range(LAYERS - 1, -1, -1):
         dxs[j] = dx  # the cotangent of layer j's output, before its tap's
@@ -391,46 +539,65 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
             raise AssertionError(f"K2 layer {j} against the FMA kernel: rel err {rel:.3e}")
         k2_fma_err = max(k2_fma_err, abs_err)
         gs[j] = dx if dtap is None else dx + dtap  # layer j's output cotangent
-        # K7b recomputes its gate y > 0 from x with the FMA K1's
-        # dilated-conv code, so its gate is bit 1 of that kernel's mask
-        # (kmasks), whose flips against the plain gate are bounded above. Its
-        # plain version here takes that gate: a y within rounding of zero
-        # that flips would move the cotangent of its neighbourhood by about
-        # its own size.
-        want = chain.layer_bwd_plain(gs[j], None, kmasks[j], (xs[j] > 0).to(torch.uint8),
-                                     wd[j], wr[j], dils[j], T)
-        abs_err, rel = rel_err(encoder.block_bwd(xs[j], gs[j], wd[j], bd[j], wr[j], dils[j], T),
-                               want)
+        # K7b recomputes its gate y > 0 from x with K1's dilated-conv code
+        # (the tensor-core K1's in bfloat16, the FMA K1's in float32), so its
+        # gate is bit 1 of that kernel's mask bytes (kmasks), whose flips
+        # against the plain gate are bounded by MASK_TOL above. Its plain
+        # version here takes that gate: a y within rounding of zero that
+        # flips would move the cotangent of its neighbourhood by about its
+        # own size. The FMA K2 fed the same gate is the FMA kernel it is held
+        # to; the FMA K7b (bfloat16) to the plain version with its own gate.
+        in_relu = (xs[j] > 0).to(torch.uint8)
+        want = chain.layer_bwd_plain(gs[j], None, kmasks[j], in_relu, wd[j], wr[j], dils[j], T)
+        dx_7 = encoder.block_bwd(xs[j], gs[j], wd[j], bd[j], wr[j], dils[j], T)
+        abs_err, rel = rel_err(dx_7, want)
         if rel > tol:
             raise AssertionError(f"K7b layer {j}: rel err {rel:.3e} > {tol}")
         k7b_err = max(k7b_err, abs_err)
+        abs_err, rel = rel_err(dx_7, chain.layer_bwd_fma(gs[j], None, kmasks[j], in_relu, wd[j],
+                                                         wr[j], dils[j], T))
+        if rel > tol:
+            raise AssertionError(f"K7b layer {j} against the FMA kernels: rel err {rel:.3e}")
+        k7b_fma_err = max(k7b_fma_err, abs_err)
+        if dt == torch.bfloat16:
+            want = chain.layer_bwd_plain(gs[j], None, fmasks[j], in_relu, wd[j], wr[j], dils[j],
+                                         T)
+            abs_err, rel = rel_err(
+                encoder.block_bwd_fma(xs[j], gs[j], wd[j], bd[j], wr[j], dils[j], T), want)
+            if rel > tol:
+                raise AssertionError(f"FMA K7b layer {j}: rel err {rel:.3e} > {tol}")
+            k7b_fma_own_err = max(k7b_fma_own_err, abs_err)
+            # Phase 1 alone: dy is zero exactly where the gate is off, and
+            # nonzero where it is on and g @ Wr^T is not negligible.
+            dy = encoder.block_bwd_mma_phase1(xs[j], gs[j], wd[j], bd[j], wr[j], dils[j], T)
+            gate = ((kmasks[j] >> 1) & 1).bool()
+            dv = gs[j].float() @ wr[j].float().T
+            informative = dv.abs() > 1e-3 * dv.abs().max()
+            if bool(dy[~gate].any()) or not torch.equal((dy != 0)[informative],
+                                                        gate[informative]):
+                raise AssertionError(f"K7b layer {j}: its gate is not the tensor-core K1's bit 1")
+            gate_bits_checked += int((informative | ~gate).sum())
+            del dy, dv, gate, informative
         dx = dx_p
     print(f"  K2 dx: max|d| {k2_err:.3e} over 30 layers (tol rel {tol:.0e}) ok; against the "
           f"FMA kernel max|d| {k2_fma_err:.3e} ok")
     print(f"  K7b dx: max|d| {k7b_err:.3e} over 30 layers (tol rel {tol:.0e}; plain version "
-          f"with the FMA K1's gate) ok")
+          f"with K1's gate) ok; against the FMA K2 fed that gate max|d| {k7b_fma_err:.3e} ok")
+    if dt == torch.bfloat16:
+        print(f"  K7b's gate equals bit 1 of the tensor-core K1's mask bytes, bit for bit "
+              f"({gate_bits_checked} gate bits checked through phase 1's dy) ok; the FMA K7b "
+              f"against its plain version with the FMA K1's gate max|d| {k7b_fma_own_err:.3e} ok")
 
     # K2-wf on every group of the wavefront plan, on the plain chain's
     # cotangents and masks: against its plain version, bit for bit against
     # the single-layer FMA K2 launches it is built on, and against the K2
     # launches it replaces (in bfloat16 the tensor-core kernels).
-    groups = [g for g in chain.plan_bwd_groups(dils, T, x0.element_size())
-              if g.splits is not None]
+    groups = wavefront_groups(dils, T, x0.element_size())
     if not groups:
         raise AssertionError("the wavefront plan holds no group at the full geometry")
 
     def group_args(g):
-        js = range(g.j0, g.j0 + len(g.dils))
-        return (dxs[js[-1]], [dtaps.get(j) if j != LAYERS - 1 else None for j in js],
-                [masks[j] for j in js], masks[g.j0 - 1] if g.j0 else inmask,
-                wd[g.j0:js[-1] + 1], wr[g.j0:js[-1] + 1])
-
-    def k2_chain(g, layer):
-        dxn, gtaps, gmasks, in_m, gwd, gwr = group_args(g)
-        for j in range(len(g.dils) - 1, -1, -1):
-            dxn = layer(dxn, gtaps[j], gmasks[j], gmasks[j - 1] if j else in_m,
-                        gwd[j], gwr[j], g.dils[j], T)
-        return dxn
+        return group_inputs(g, dxs, dtaps, masks, inmask, wd, wr)
 
     wf_err, wf_vs_k2 = 0.0, 0.0
     for g in groups:
@@ -440,9 +607,9 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         if rel > tol:
             raise AssertionError(f"K2-wf group at layer {g.j0}: rel err {rel:.3e} > {tol}")
         wf_err = max(wf_err, abs_err)
-        if not torch.equal(got, k2_chain(g, chain.layer_bwd_fma)):
+        if not torch.equal(got, k2_chain(group_args(g), g, chain.layer_bwd_fma, T)):
             raise AssertionError(f"K2-wf group at layer {g.j0} differs from the FMA K2 launches")
-        abs_err, rel = rel_err(got, k2_chain(g, chain.layer_bwd))
+        abs_err, rel = rel_err(got, k2_chain(group_args(g), g, chain.layer_bwd, T))
         if rel > tol:
             raise AssertionError(f"K2-wf group at layer {g.j0} against K2: rel err {rel:.3e}")
         wf_vs_k2 = max(wf_vs_k2, abs_err)
@@ -451,9 +618,11 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
           f"K2 launches bit for bit; against the K2 launches it replaces max|d| "
           f"{wf_vs_k2:.3e} (tol rel {tol:.0e}) ok")
 
-    # K1 and K2 with a valid window that cuts tiles.
-    k1w_err, k2w_err, _ = chain_check(f"the valid window {WINDOW}", (wd, bd, wr, br), x0, dtaps,
-                                      WINDOW, tol)
+    # K1, K2 and K2-wf with a valid window that cuts tiles; then K7f and K7b.
+    k1w_err, k2w_err, wfw_err, _ = chain_check(f"the valid window {WINDOW}",
+                                               (wd, bd, wr, br), x0, dtaps, WINDOW, tol)
+    k7fw_err, k7bw_err = block_check(f"the valid window {WINDOW}", (wd, bd, wr, br), x0, WINDOW,
+                                     tol)
 
     # K5 and K6 on the ten stack-0 taps and on all 30 taps; then on two
     # clips of a T that ends inside a tile (the taps' first RAGGED_T rows and
@@ -493,42 +662,54 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
                 cur = layer(cur, dtap, masks[j], in_m, wd[j], wr[j], dils[j], T, window)
         return run
 
-    def blocks(block, backward: bool):
+    def blocks(block, backward: bool, window=None):
         def run():
             for j, d in enumerate(dils):
                 if backward:
-                    block(xs[j], gs[j], wd[j], bd[j], wr[j], d, T)
+                    block(xs[j], gs[j], wd[j], bd[j], wr[j], d, T, window)
                 else:
-                    block(xs[j], wd[j], bd[j], wr[j], br[j], d, T)
+                    block(xs[j], wd[j], bd[j], wr[j], br[j], d, T, window)
         return run
 
-    # K1, K2, K5 and K6 are timed as a replayed CUDA graph of their launches
-    # (the kernels' own time) and, beside it, as eager wrapper calls (what a
-    # caller that enqueues them one by one sees: the host's time per call
-    # where that exceeds the kernel's).
+    # K1, K2, K7f, K7b, K5 and K6 are timed as a replayed CUDA graph of their
+    # launches (the kernels' own time) and, beside it, as eager wrapper calls
+    # (what a caller that enqueues them one by one sees: the host's time per
+    # call where that exceeds the kernel's).
     times = {
         "K1": (cuda_ms(fwd(chain.layer_fwd), graph=True) / LAYERS,
                cuda_ms(fwd(chain.layer_fwd_plain)) / LAYERS),
         "K2": (cuda_ms(bwd(chain.layer_bwd), graph=True) / LAYERS,
                cuda_ms(bwd(chain.layer_bwd_plain)) / LAYERS),
-        "K7f": (cuda_ms(blocks(encoder.block_fwd, False)) / LAYERS,
+        "K7f": (cuda_ms(blocks(encoder.block_fwd, False), graph=True) / LAYERS,
                 cuda_ms(blocks(encoder.block_fwd_plain, False)) / LAYERS),
-        "K7b": (cuda_ms(blocks(encoder.block_bwd, True)) / LAYERS,
+        "K7b": (cuda_ms(blocks(encoder.block_bwd, True), graph=True) / LAYERS,
                 cuda_ms(blocks(encoder.block_bwd_plain, True)) / LAYERS),
     }
     fma_ms = {"K1": cuda_ms(fwd(chain.layer_fwd_fma), graph=True) / LAYERS,
-              "K2": cuda_ms(bwd(chain.layer_bwd_fma), graph=True) / LAYERS}
+              "K2": cuda_ms(bwd(chain.layer_bwd_fma), graph=True) / LAYERS,
+              "K7f": cuda_ms(blocks(encoder.block_fwd_fma, False), graph=True) / LAYERS,
+              "K7b": cuda_ms(blocks(encoder.block_bwd_fma, True), graph=True) / LAYERS}
     eager_ms = {"K1": cuda_ms(fwd(chain.layer_fwd)) / LAYERS,
-                "K2": cuda_ms(bwd(chain.layer_bwd)) / LAYERS}
+                "K2": cuda_ms(bwd(chain.layer_bwd)) / LAYERS,
+                "K7f": cuda_ms(blocks(encoder.block_fwd, False)) / LAYERS,
+                "K7b": cuda_ms(blocks(encoder.block_bwd, True)) / LAYERS}
     # The windowed kernels between two timings of the unwindowed ones (the
     # same launches with two more integers; the same bytes and bound).
     windowed_ms = {}
-    for k, run in (("K1", fwd), ("K2", bwd)):
-        layer = chain.layer_fwd if k == "K1" else chain.layer_bwd
-        ms = [cuda_ms(run(layer, w), graph=True) / LAYERS for w in (None, WINDOW, WINDOW, None)]
+    for k, run in (("K1", lambda w: fwd(chain.layer_fwd, w)),
+                   ("K2", lambda w: bwd(chain.layer_bwd, w)),
+                   ("K7f", lambda w: blocks(encoder.block_fwd, False, w)),
+                   ("K7b", lambda w: blocks(encoder.block_bwd, True, w))):
+        ms = [cuda_ms(run(w), graph=True) / LAYERS for w in (None, WINDOW, WINDOW, None)]
         windowed_ms[k] = min(ms[1:3])
         print(f"  {k} with the valid window, time per launch: {ms[1]:.4f}, {ms[2]:.4f} ms between "
               f"{ms[0]:.4f} and {ms[3]:.4f} ms without a window")
+    ng = len(groups)
+    ms = [cuda_ms(lambda: [chain.group_bwd(*group_args(g), g, T, w) for g in groups]) / ng
+          for w in (None, WINDOW, WINDOW, None)]
+    windowed_ms["K2wf"] = min(ms[1:3])
+    print(f"  K2-wf with the valid window, time per group: {ms[1]:.4f}, {ms[2]:.4f} ms between "
+          f"{ms[0]:.4f} and {ms[3]:.4f} ms without a window")
     if dt == torch.bfloat16:
         # The tensor-core K2 phase by phase, on the plain chain's cotangents.
         layer_args = [(dxs[j], dtaps.get(j) if j != LAYERS - 1 else None,
@@ -543,13 +724,24 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
                                   for j, (dxn, dtap, in_m) in enumerate(layer_args)],
                          graph=True) / LAYERS
         print(f"  K2 time per launch by phase: dy {phase1:.4f} ms, dx {phase2:.4f} ms")
-    ng = len(groups)
+        # The tensor-core K7b phase by phase, on the plain chain's inputs.
+        dys = [encoder.block_bwd_mma_phase1(xs[j], gs[j], wd[j], bd[j], wr[j], d, T)
+               for j, d in enumerate(dils)]
+        phase1 = cuda_ms(lambda: [encoder.block_bwd_mma_phase1(xs[j], gs[j], wd[j], bd[j], wr[j],
+                                                               d, T)
+                                  for j, d in enumerate(dils)], graph=True) / LAYERS
+        phase2 = cuda_ms(lambda: [encoder.block_bwd_mma_phase2(xs[j], gs[j], dys[j], wd[j], d, T)
+                                  for j, d in enumerate(dils)], graph=True) / LAYERS
+        print(f"  K7b time per launch by phase: dy {phase1:.4f} ms, dx {phase2:.4f} ms")
+        del dys
     times["K2wf"] = (
         cuda_ms(lambda: [chain.group_bwd(*group_args(g), g, T) for g in groups]) / ng,
         cuda_ms(lambda: [chain.group_bwd_plain(*group_args(g), g.dils, T, g.tile, g.splits)
                          for g in groups]) / ng)
-    k2_ms = cuda_ms(lambda: [k2_chain(g, chain.layer_bwd) for g in groups], graph=True) / ng
-    k2_fma_ms = cuda_ms(lambda: [k2_chain(g, chain.layer_bwd_fma) for g in groups],
+    k2_ms = cuda_ms(lambda: [k2_chain(group_args(g), g, chain.layer_bwd, T) for g in groups],
+                    graph=True) / ng
+    k2_fma_ms = cuda_ms(lambda: [k2_chain(group_args(g), g, chain.layer_bwd_fma, T)
+                                 for g in groups],
                         graph=True) / ng
     print(f"  K2-wf time per group of {len(groups[0].dils)} layers: {times['K2wf'][0]:.4f} ms, "
           f"against {k2_ms:.4f} ms for the {len(groups[0].dils)} K2 launches it replaces "
@@ -576,8 +768,9 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         print(f"  {k} time per launch: kernel {ms:.4f} ms{eager}{fma}, plain {plain_ms:.4f} ms"
               f"{lib}")
     errs.update({"K1": k1_err, "K2": k2_err, "K2wf": wf_err, "K7f": k7f_err, "K7b": k7b_err})
-    windowed = {"K1": {"windowed_max_abs_err": k1w_err, "windowed_ms": windowed_ms["K1"]},
-                "K2": {"windowed_max_abs_err": k2w_err, "windowed_ms": windowed_ms["K2"]}}
+    windowed = {k: {"windowed_max_abs_err": err, "windowed_ms": windowed_ms[k]}
+                for k, err in (("K1", k1w_err), ("K2", k2w_err), ("K7f", k7fw_err),
+                               ("K7b", k7bw_err), ("K2wf", wfw_err))}
 
     # Bounds from these shapes. A product is one [T, C] x [C, C] matrix
     # product; an activation or cotangent array is T * C elements.
@@ -607,7 +800,8 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     for k, b in bounds.items():
         print(f"  {k} bound: {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {k: dict(max_abs_err=errs[k], ms=times[k][0], plain_ms=times[k][1],
-                    library_ms=library.get(k), **bounds[k], **windowed.get(k, {})) for k in errs}
+                    library_ms=library.get(k), fma_ms=fma_ms.get(k), **bounds[k],
+                    **windowed.get(k, {})) for k in errs}
 
 
 def slice_phase(params, dev, style_ids, cont_ids) -> None:
@@ -1008,6 +1202,35 @@ def cli_phase(dev, label: str, path_args: list, expected: set, precision: str = 
     return launches, evals, wall, losses[-1]
 
 
+def exact_first_eval(engine, t_total: int, window: int, t_valid: int) -> tuple:
+    """The exact long-form value-and-gradient function of ``engine`` with
+    its inputs at the optimizer's start: the first t_valid samples of the
+    15 s content clip, zero-padded to t_total and scanned in
+    ``window``-sample windows (one window when window == t_total), with the
+    content target made in that geometry, as transfer_exact makes it.
+    Returns (vg, params, x at 1e-6, phi_c, phi_s)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.parallel import halo
+    from audio_style_transfer_tpu_torch.signal.mu_law import mu_law_numpy
+
+    content = synth_audio(EXACT_SAMPLES / 16000, kind="content")[:t_valid]
+    xq = engine._tensor(mu_law_numpy(np.pad(content, (0, t_total - t_valid))[None]))
+    phi_s = engine._tensor(engine.get_style_phi(synth_audio(3.0, kind="style")))
+    geometry = (engine.cfg, engine.loss_spec, t_total, window, t_valid)
+    with torch.no_grad():
+        phi_c, _ = halo.make_scan_exact_embeds_fn(*geometry)(engine.params, xq)
+    x = torch.full((1, t_total), 1e-6, device=xq.device)
+    return (halo.make_scan_exact_value_and_grad_fn(*geometry), engine.params, x,
+            phi_c.to(torch.float32), phi_s)
+
+
+# Tolerances of one exact evaluation against another that runs other kernels
+# or sums in another order (exact_flavours_phase's docstring): (loss rtol,
+# gradient max|d| over its largest entry).
+EXACT_TOL = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2e-2)}
+
+
 def exact_flavours_phase(params, dev, dtype_name: str) -> None:
     """The exact long-form loss and its waveform gradient at the 1e-6 start
     (the optimizer's first evaluation) on the 15 s clip, full width, stack 0,
@@ -1016,12 +1239,10 @@ def exact_flavours_phase(params, dev, dtype_name: str) -> None:
     row on the valid rows; what differs is the order of the gram's and the
     content term's float32 sums across windows (about 1e-6), and in bfloat16
     a tap cotangent that lands on the other side of a rounding boundary
-    (2^-8 of it). Hence loss rtol 1e-4 / 1e-3 and gradient max|d| within
-    1e-4 / 2e-2 of its largest entry (float32 / bfloat16)."""
+    (2^-8 of it). Hence EXACT_TOL: loss rtol 1e-4 / 1e-3 and gradient max|d|
+    within 1e-4 / 2e-2 of its largest entry (float32 / bfloat16)."""
     import torch
 
-    from audio_style_transfer_tpu_torch.parallel import halo
-    from audio_style_transfer_tpu_torch.signal.mu_law import mu_law_numpy
     from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
 
     engine = StyleTransfer(TransferSpec(stack=0, gamma=1e-3, compute_dtype=dtype_name,
@@ -1029,22 +1250,12 @@ def exact_flavours_phase(params, dev, dtype_name: str) -> None:
                                         device=str(dev)), params)
     t_valid = (EXACT_SAMPLES // 4096) * 4096
     t_total = -(-t_valid // SCAN_WINDOW) * SCAN_WINDOW
-    content = synth_audio(EXACT_SAMPLES / 16000, kind="content")[:t_valid]
-    xq = engine._tensor(mu_law_numpy(content[None]))
-    phi_s = engine._tensor(engine.get_style_phi(synth_audio(3.0, kind="style")))
-    cfg, lspec = engine.cfg, engine.loss_spec
-    with torch.no_grad():
-        phi_c, _ = halo.make_scan_exact_embeds_fn(cfg, lspec, t_valid, t_valid)(engine.params, xq)
-        phi_c = phi_c.to(torch.float32)
-    x = torch.full((1, t_valid), 1e-6, device=dev)
-    pad = t_total - t_valid
-    f1, g1 = halo.make_scan_exact_value_and_grad_fn(cfg, lspec, t_valid, t_valid)(
-        engine.params, x, phi_c, phi_s)
-    f2, g2 = halo.make_scan_exact_value_and_grad_fn(cfg, lspec, t_total, SCAN_WINDOW, t_valid)(
-        engine.params, torch.nn.functional.pad(x, (0, pad)),
-        torch.nn.functional.pad(phi_c, (0, 0, 0, pad)), phi_s)
+    vg, p, x, phi_c, phi_s = exact_first_eval(engine, t_valid, t_valid, t_valid)
+    f1, g1 = vg(p, x, phi_c, phi_s)
+    vg, p, x, phi_c, phi_s = exact_first_eval(engine, t_total, SCAN_WINDOW, t_valid)
+    f2, g2 = vg(p, x, phi_c, phi_s)
     torch.cuda.synchronize()
-    loss_tol, grad_tol = {"float32": (1e-4, 1e-4), "bfloat16": (1e-3, 2e-2)}[dtype_name]
+    loss_tol, grad_tol = EXACT_TOL[dtype_name]
     print(f"[exact flavours {dtype_name}] first evaluation on {t_valid} samples: one window "
           f"{float(f1):.6f}, scan of {t_total // SCAN_WINDOW} windows {float(f2):.6f}")
     check("loss, scan against one window", f2, f1, loss_tol)
@@ -1179,6 +1390,132 @@ def per_layer_phase(params, dev):
     return launches, evals, wall
 
 
+def per_layer_window_phase(params, dev):
+    """The per-layer flavour's exact scan (bf16, stack 0) in
+    PER_LAYER_SCAN-sample windows, whose edge windows run the windowed K7f /
+    K7b: its first evaluation's loss and gradient against the chained
+    flavour's (EXACT_TOL), then one epoch of L-BFGS through transfer_exact;
+    returns (launches, evals, wall seconds) of that epoch."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import _build
+    from audio_style_transfer_tpu_torch.transfer import longform
+    from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
+
+    label = "per-layer exact scan"
+    spec = TransferSpec(stack=0, batch_size=T, epochs=1, maxiter=PER_LAYER_MAXITER,
+                        compute_dtype="bfloat16", fused_encoder=True, chain_encoder=False,
+                        write_artifacts=False, device=str(dev))
+    engine = StyleTransfer(spec, params)
+    _, _, edges, t_valid, t_total = scan_cases(PER_LAYER_SAMPLES, PER_LAYER_SCAN)
+    chained = StyleTransfer(dataclasses.replace(spec, chain_encoder=True), params)
+    out = {}
+    for flavour, eng in (("per-layer", engine), ("chained", chained)):
+        vg, p, x, phi_c, phi_s = exact_first_eval(eng, t_total, PER_LAYER_SCAN, t_valid)
+        _build.reset_launches()
+        f, g = vg(p, x, phi_c, phi_s)
+        torch.cuda.synchronize()
+        out[flavour] = (f, g, {k: v for k, v in _build.LAUNCHES.items() if v})
+    (f0, g0, launches0), (f1, g1, launches1) = out["chained"], out["per-layer"]
+    print(f"[{label}] first evaluation over {t_total // PER_LAYER_SCAN} windows (edge windows "
+          f"{edges}): loss {float(f1):.6f} per-layer, {float(f0):.6f} chained; launches "
+          f"{launches1} per-layer, {launches0} chained")
+    if set(launches1) != {"K7f", "K7b", "K5", "K6"} or "K7b" in launches0:
+        raise AssertionError(f"{label}: the flavours' first evaluations ran {launches1} and "
+                             f"{launches0}")
+    loss_tol, grad_tol = EXACT_TOL["bfloat16"]
+    check("loss, per-layer against chained", f1, f0, loss_tol)
+    check("waveform gradient, per-layer against chained", g1, g0, grad_tol)
+    del chained, out
+    content = synth_audio(PER_LAYER_SAMPLES / 16000, kind="content")
+    print(f"[{label}] {PER_LAYER_SAMPLES} samples, --scan_window {PER_LAYER_SCAN}, stack 0, bf16, "
+          f"fused_encoder=True, chain_encoder=False, 1 epoch, maxiter {spec.maxiter}")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    res = longform.transfer_exact(engine, content, synth_audio(2.0, kind="style"),
+                                  scan_window=PER_LAYER_SCAN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    per = res.per_window
+    losses = [float(v) for v in per["metrics"]]
+    evals = int(np.sum(per["evals"]))
+    check_losses(label, losses, res.audio, samples=t_valid)
+    # Every window's forward runs again in the scan's second pass: K5 twice
+    # per window and evaluation, K6 once.
+    check_launches(label, launches, {"K7f", "K7b", "K5", "K6"},
+                   evals * (per["t_optimized"] // PER_LAYER_SCAN))
+    print(f"[{label}] losses {losses}, {evals} L-BFGS evals over "
+          f"{per['t_optimized'] // PER_LAYER_SCAN} windows in {wall:.2f} s wall "
+          f"({evals / wall:.2f} evals/s, setup included)")
+    return launches, evals, wall
+
+
+def exact_wavefront_phase(params, dev) -> tuple:
+    """The exact scan on the 15 s clip (bf16, stack 0, gamma 1e-3) with the
+    wavefront backward on: its edge windows run K2-wf with a valid window.
+    The first evaluation's loss and gradient against the same evaluation
+    with it off (exact_flavours_phase's bf16 tolerances); then
+    EXACT_WF_MAXITER evaluations of L-BFGS through transfer_exact with it on.
+    Returns (launches, evals, wall seconds) of that run."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import _build, chain
+    from audio_style_transfer_tpu_torch.transfer import longform
+    from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
+
+    label = "exact scan, wavefront on"
+    spec = TransferSpec(stack=0, gamma=1e-3, batch_size=T, compute_dtype="bfloat16",
+                        fused_encoder=True, epochs=1, maxiter=EXACT_WF_MAXITER,
+                        write_artifacts=False, device=str(dev))
+    engine = StyleTransfer(spec, params)
+    _, _, edges, t_valid, t_total = scan_cases(EXACT_SAMPLES, SCAN_WINDOW)
+    n_win = t_total // SCAN_WINDOW
+    content = synth_audio(EXACT_SAMPLES / 16000, kind="content")
+    vg, p, x, phi_c, phi_s = exact_first_eval(engine, t_total, SCAN_WINDOW, t_valid)
+    was = chain._BWD_WAVEFRONT
+    out = {}
+    try:
+        for on in (False, True):
+            chain._BWD_WAVEFRONT = on
+            _build.reset_launches()
+            f, g = vg(p, x, phi_c, phi_s)
+            out[on] = (f, g, dict(_build.LAUNCHES))
+        torch.cuda.synchronize()
+        (f0, g0, _), (f1, g1, launches) = out[False], out[True]
+        want = {"K2wf": 3 * n_win, "K2": 18 * n_win}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"{label}: one evaluation launched {launches}, expected {want}")
+        print(f"[{label}] first evaluation over {n_win} windows (edge windows {edges}): "
+              f"loss {float(f1):.6f} against {float(f0):.6f} with the wavefront off; launches "
+              f"{launches}")
+        loss_tol, grad_tol = EXACT_TOL["bfloat16"]
+        check("loss, wavefront on against off", f1, f0, loss_tol)
+        check("waveform gradient, wavefront on against off", g1, g0, grad_tol)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        res = longform.transfer_exact(engine, content, synth_audio(3.0, kind="style"),
+                                      scan_window=SCAN_WINDOW)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_build.LAUNCHES)
+    finally:
+        chain._BWD_WAVEFRONT = was
+    per = res.per_window
+    losses = [float(v) for v in per["metrics"]]
+    evals = int(np.sum(per["evals"]))
+    check_losses(label, losses, res.audio, samples=t_valid)
+    if launches["K2wf"] != 3 * n_win * evals or launches["K2"] != 18 * n_win * evals:
+        raise AssertionError(f"{label}: launches {launches} for {evals} evals over {n_win} "
+                             f"windows, expected K2wf {3 * n_win} and K2 {18 * n_win} per eval")
+    check_launches(label, launches, {"K1", "K2", "K2wf", "K5", "K6"}, n_win * evals)
+    print(f"[{label}] losses {losses}, {evals} L-BFGS evals in {wall:.2f} s wall, K2wf "
+          f"{launches['K2wf']} = 3 x {n_win} windows x {evals} evals ok")
+    return launches, evals, wall
+
+
 def main() -> int:
     import torch
 
@@ -1229,6 +1566,8 @@ def main() -> int:
                                               precision="float32", band=band)
     runs.update({
         "per-layer engine": per_layer_phase(params, dev),
+        "per-layer exact scan": per_layer_window_phase(params, dev),
+        "exact scan, wavefront on": exact_wavefront_phase(params, dev),
         "longform, wavefront on": longform_phase(dev, wavefront=True, epochs=2),
         "longform, wavefront off": longform_phase(dev, wavefront=False, epochs=1),
         "exact, one window": exact_phase(dev, "exact, one window", None),
@@ -1256,9 +1595,9 @@ def main() -> int:
                "audio_style_transfer_tpu/ops/pallas_gram.py:72", "K5 L=30"),
         "K6": ("pair gram backward, L=30", src + "gram.cu",
                "audio_style_transfer_tpu/ops/pallas_gram.py:109", "K6 L=30"),
-        "K7f": ("encoder block forward", src + "trunk.cu",
+        "K7f": ("encoder block forward", src + "trunk_mma.cu",
                 "audio_style_transfer_tpu/ops/pallas_encoder.py:203", "K7f"),
-        "K7b": ("encoder block backward", src + "trunk.cu",
+        "K7b": ("encoder block backward", src + "trunk_mma.cu",
                 "audio_style_transfer_tpu/ops/pallas_encoder.py:288", "K7b"),
     }
     kernels = []
@@ -1269,10 +1608,12 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if "windowed_ms" in r:  # K1, K2: the same kernel with a valid window
+        if r["fma_ms"] is not None:  # K1, K2, K7f, K7b: the FMA kernel in bf16
+            kernels[-1]["fma_ms"] = r["fma_ms"]
+        if "windowed_ms" in r:  # the same kernel with a valid window
             kernels[-1].update(windowed_ms=r["windowed_ms"],
                                windowed_max_abs_err=r["windowed_max_abs_err"])
-        if k in exact_shapes["bfloat16"]:  # K1, K2, K5 (L=10), K6 (L=10)
+        if k in exact_shapes["bfloat16"]:  # all but the grams at L=30 (L=10 there)
             kernels[-1]["exact_shapes_max_abs_err"] = exact_shapes["bfloat16"][k]
     print(smi)
     print(json.dumps({"kernels": kernels}))

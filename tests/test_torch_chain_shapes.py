@@ -157,6 +157,6 @@ def test_c_entry_point_arguments_match_the_ctypes_signature(name):
 
 def test_the_tensor_core_entries_take_the_fma_entries_arguments_without_is_bf16():
     entries = _c_entries()
-    for fma in ("ast_trunk_fwd", "ast_trunk_bwd"):
+    for fma in ("ast_trunk_fwd", "ast_trunk_bwd", "ast_encoder_fwd", "ast_encoder_bwd"):
         mma = fma + "_mma"
         assert entries[fma] == entries[mma][:-1] + "I" + "P"

@@ -114,6 +114,29 @@ def test_group_plain_equals_the_layer_chain_bit_for_bit(dtype, dils, tile, missi
     assert torch.equal(got, want)
 
 
+# Valid windows in in-clip rows, for a tile of 64 with dils (1, 2, 4, 8)
+# (nk = 15): edges inside tiles; edges inside the halos around the tile
+# boundaries 64 and 128; from 0; clamped past both ends; the full range.
+GROUP_WINDOWS = [(37, 200), (60, 133), (0, 100), (-9, 300), (0, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vw", GROUP_WINDOWS)
+def test_group_plain_under_a_window_equals_the_windowed_layer_chain(dtype, vw):
+    """Two clips of 256 rows: with a window the kernel's schedule (every
+    halo row zeroed by its in-clip position) equals ``layer_bwd_plain`` with
+    the window layer by layer, bit for bit; the full range equals no window."""
+    clip, dils, tile = 256, (1, 2, 4, 8), 64
+    args = _group_inputs(dils, 2 * clip, 8, dtype, missing=(1,))
+    splits = chain.wavefront_splits(dils, tile)
+    got = chain.group_bwd_plain(*args, dils, clip, tile, splits, valid_window=vw)
+    assert torch.equal(got, chain.group_bwd_chain_plain(*args, dils, clip, valid_window=vw))
+    if max(vw[0], 0) == 0 and min(vw[1], clip) == clip:
+        assert torch.equal(got, chain.group_bwd_plain(*args, dils, clip, tile, splits))
+    else:
+        assert not torch.equal(got, chain.group_bwd_plain(*args, dils, clip, tile, splits))
+
+
 def test_group_bwd_on_the_cpu_runs_the_plain_version_and_counts_no_launch():
     dils, clip = (1, 2, 4, 8), 128
     args = _group_inputs(dils, clip, 8, torch.float32)
@@ -178,6 +201,45 @@ def test_trunk_gradient_with_the_switch_on_matches_jax_wavefront(monkeypatch):
     assert calls == [1], "the three layers must run as one wavefront group"
     np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-4)
     assert torch.equal(got, serial)
+
+
+@pytest.mark.usefixtures("interpret_mode", "jax_wavefront")
+@pytest.mark.parametrize("vw", [(37, 200), (60, 133), (0, 256)],
+                         ids=["cuts a tile", "cuts the halos", "full range"])
+def test_windowed_trunk_gradient_with_the_switch_on_matches_jax_wavefront(vw, monkeypatch):
+    """dils (1, 2, 4), T=256, C=8: the windowed trunk's gradient with both
+    packages' wavefront on (JAX: the windowed branch of
+    ``_bwd_group_kernel_wf``, Pallas in interpret mode) at rtol 1e-5 / atol
+    1e-4 as above; bit for bit the port's serial windowed gradient, and with
+    the full range its unwindowed one."""
+    dils, emit = (1, 2, 4), (1, 2)
+    x, wd, bd, wr, br = trunk_inputs(t=256, c=8, n=3, seed=6)
+    cts = [np.random.RandomState(19 + i).randn(256, 8).astype(np.float32) for i in range(2)]
+    jvw = jnp.asarray(vw, jnp.int32)
+
+    def jloss(z):
+        taps = jchain.fused_trunk(z, wd, bd, wr, br, dils, emit, valid_window=jvw)
+        return sum(jnp.sum(tp * c) for tp, c in zip(taps, cts))
+
+    want = jax.grad(jloss)(jnp.asarray(x))
+
+    def torch_grad(window):
+        xt = t(x).requires_grad_(True)
+        taps = chain.fused_trunk(xt, t(wd), t(bd), t(wr), t(br), dils, emit,
+                                 valid_window=window)
+        return torch.autograd.grad(taps, xt, [t(c) for c in cts])[0]
+
+    serial = torch_grad(vw)
+    monkeypatch.setattr(chain, "_BWD_WAVEFRONT", True)
+    calls = []
+    plain = chain.group_bwd_plain
+    monkeypatch.setattr(chain, "group_bwd_plain", lambda *a: calls.append(a[10]) or plain(*a))
+    got = torch_grad(vw)
+    assert calls == [vw], "the three layers must run as one wavefront group with the window"
+    np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-4)
+    assert torch.equal(got, serial)
+    if vw == (0, 256):
+        assert torch.equal(got, torch_grad(None))
 
 
 def test_infeasible_group_routes_to_the_single_layer_path(port_wavefront, monkeypatch):

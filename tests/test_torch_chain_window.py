@@ -183,19 +183,33 @@ def test_window_with_a_batch_raises():
     assert tap.shape == (1, T, 8)
 
 
-def test_wavefront_backward_refuses_a_window(monkeypatch):
-    """K2-wf has no windowed form: with the wavefront on, a windowed backward
-    raises and never ignores the window; without a window it still runs."""
-    monkeypatch.setattr(chain, "_BWD_WAVEFRONT", True)
+@pytest.mark.parametrize("vw", WINDOWS)
+def test_wavefront_backward_with_a_window_matches_jax_reference(vw, monkeypatch):
+    """With the wavefront on, the windowed backward runs the group (1, 2, 4)
+    through K2-wf's plain version with the window (the JAX kernel's multiply
+    of the carry plus tap cotangent by _window_mask) and d=64 through K2's:
+    JAX's reference gradient at the tolerance above, and the serial windowed
+    backward bit for bit."""
     x, wd, bd, wr, br = _inputs()
     w = [t(a) for a in (wd, bd, wr, br)]
-    xt = t(x).requires_grad_(True)
-    (tap,) = chain.fused_trunk(xt, *w, DILS, (3,), valid_window=(32, 224))
-    with pytest.raises(NotImplementedError, match="K2-wf"):
-        tap.sum().backward()
-    (tap,) = chain.fused_trunk(xt, *w, DILS, (3,))
-    tap.sum().backward()
-    assert xt.grad is not None
+    cts = _cotangents(len(EMIT))
+
+    def jloss(z):
+        taps = jchain.reference_trunk(z, wd, bd, wr, br, DILS, EMIT,
+                                      valid_window=jnp.asarray(vw, jnp.int32))
+        return sum(jnp.sum(tp * c) for tp, c in zip(taps, cts))
+
+    want_g = jax.grad(jloss)(jnp.asarray(x))
+    _, serial = _torch_grad(chain.fused_trunk, x, w, EMIT, cts, vw)
+    monkeypatch.setattr(chain, "_BWD_WAVEFRONT", True)
+    calls = []
+    plain = chain.group_bwd_plain
+    monkeypatch.setattr(chain, "group_bwd_plain",
+                        lambda *a: calls.append(a[10]) or plain(*a))
+    _, got_g = _torch_grad(chain.fused_trunk, x, w, EMIT, cts, vw)
+    assert calls == [vw], "the group (1, 2, 4) must run as one wavefront group with the window"
+    np.testing.assert_allclose(n(got_g), n(want_g), rtol=1e-5, atol=1e-4)
+    assert torch.equal(got_g, serial)
 
 
 CFG = dict(ae_num_layers=4, ae_num_stages=4, ae_width=8, ae_bottleneck_width=4,
@@ -220,15 +234,39 @@ def test_encoder_trunk_valid_window_matches_jax_masked_trunk(vw):
                                    err_msg=f"extract {i}")
 
 
+@pytest.mark.parametrize("vw", [(96, 416), (0, 300), (200, 512)])
+def test_per_layer_encoder_trunk_valid_window_matches_jax_masked_trunk(vw):
+    """The per-layer flavour (fused_encoder=True, chain_encoder=False) under a
+    window: the JAX package runs it as masked XLA blocks (``masked(enc +
+    d)``), the port through the windowed K7f's plain version; and it equals
+    the chained flavour's windowed trunk."""
+    pnp = jax_params_np(**CFG)
+    xq = np.random.RandomState(3).randint(-128, 128, (1, 512)).astype(np.float32)
+    jcfg = jwae.WaveNetAEConfig(**CFG, fused_encoder=True, chain_encoder=False)
+    want = jwae.encoder_trunk(jax.tree.map(jnp.asarray, pnp), jnp.asarray(xq), jcfg,
+                              valid_window=vw)
+    cfg = twae.WaveNetAEConfig(**CFG)
+    per_layer = dataclasses.replace(cfg, fused_encoder=True, chain_encoder=False)
+    got = twae.encoder_trunk(torch_params(pnp), t(xq), per_layer, valid_window=vw)
+    chained = twae.encoder_trunk(torch_params(pnp), t(xq), cfg, valid_window=vw)
+    assert len(got) == len(want) == 6
+    for i in range(6):
+        np.testing.assert_allclose(n(got[i]), n(want[i]), rtol=1e-5, atol=1e-5,
+                                   err_msg=f"extract {i}")
+        np.testing.assert_allclose(n(got[i]), n(chained[i]), rtol=1e-6, atol=1e-6,
+                                   err_msg=f"extract {i}")
+
+
 def test_encoder_trunk_window_refusals():
+    """A window is one clip's state: a batch of clips is refused in both
+    flavours."""
     pnp = jax_params_np(**CFG)
     tp = torch_params(pnp)
     cfg = twae.WaveNetAEConfig(**CFG)
-    with pytest.raises(ValueError, match="one clip"):
-        twae.encoder_trunk(tp, torch.zeros((2, 512)), cfg, valid_window=(0, 100))
     per_layer = dataclasses.replace(cfg, fused_encoder=True, chain_encoder=False)
-    with pytest.raises(NotImplementedError, match="per-layer"):
-        twae.encoder_trunk(tp, torch.zeros((1, 512)), per_layer, valid_window=(0, 100))
+    for flavour in (cfg, per_layer):
+        with pytest.raises(ValueError, match="one clip"):
+            twae.encoder_trunk(tp, torch.zeros((2, 512)), flavour, valid_window=(0, 100))
 
 
 @pytest.mark.parametrize("kwargs", [CFG, {}], ids=["toy", "full"])

@@ -7,7 +7,7 @@ Shapes are small but cover what the CPU tests cannot: clip edges between
 flattened batch rows, a dilation as long as the clip, every tap bucket of the
 gram kernels up to the 32 taps a launch takes at T = 1, a ragged T and the
 main path's T, the inputs the wrappers refuse, both dtypes, both trunk
-flavours, and the autograd wiring.
+flavours, valid windows, and the autograd wiring.
 """
 
 import numpy as np
@@ -382,6 +382,163 @@ def test_encoder_block_kernels_match_plain(dev, dtype, d):
     dx_k = encoder.block_bwd(x, g, wd, bd, wr, d, clip)
     torch.cuda.synchronize()
     assert _rel(dx_k, encoder.block_bwd_plain(x, g, wd, bd, wr, d, clip)) <= TOL[dtype]
+
+
+def _block_inputs(dev, dtype, rows, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = encoder.WIDTH
+    rand = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+    return (rand(rows, c).to(dtype), (rand(3, c, c) * 0.05).to(dtype),
+            rand(c) * 0.1, (rand(c, c) * 0.05).to(dtype), rand(c) * 0.1,
+            rand(rows, c).to(dtype))
+
+
+# Two clips of 1000 rows (2000: no multiple of the 128-row tile, a clip edge
+# inside a tile) and three of 96; dilations from 1 to past the clip.
+@pytest.mark.parametrize("clip,clips", [(1000, 2), (96, 3)])
+@pytest.mark.parametrize("d", [1, 8, 64, 128, 512])
+def test_tensor_core_encoder_block_kernels(dev, clip, clips, d):
+    """The bf16 K7f / K7b on the tensor cores: K7f against its plain version,
+    the FMA kernel and the tensor-core K1's output (the same code with the
+    mask bytes compiled out: bit for bit); K7b's recomputed gate against bit
+    1 of the tensor-core K1's mask bytes, bit for bit (phase 1 alone: dy is
+    zero exactly where the gate is off, and nonzero where it is on and g @
+    Wr^T is not negligible); K7b against its plain version fed that gate,
+    against the FMA kernel, and equal to its two phases launched alone."""
+    rows = clip * clips
+    x, wd, bd, wr, br, g = _block_inputs(dev, torch.bfloat16, rows, d)
+    out_k = encoder.block_fwd(x, wd, bd, wr, br, d, clip)
+    out_k1, m_k1, _ = chain.layer_fwd(x, wd, bd, wr, br, d, clip)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, out_k1)
+    assert _rel(out_k, encoder.block_fwd_plain(x, wd, bd, wr, br, d, clip)) <= TOL[x.dtype]
+    assert _rel(out_k, encoder.block_fwd_fma(x, wd, bd, wr, br, d, clip)) <= TOL[x.dtype]
+
+    gate = ((m_k1 >> 1) & 1).bool()
+    dy = encoder.block_bwd_mma_phase1(x, g, wd, bd, wr, d, clip)
+    torch.cuda.synchronize()
+    dv = g.float() @ wr.float().T
+    informative = dv.abs() > 1e-3 * dv.abs().max()
+    assert not dy[~gate].any()
+    assert torch.equal((dy != 0)[informative], gate[informative])
+    assert _rel(dy, (dv * gate).to(x.dtype)) <= TOL[x.dtype]
+
+    dx_k = encoder.block_bwd(x, g, wd, bd, wr, d, clip)
+    dx_2 = encoder.block_bwd_mma_phase2(x, g, dy, wd, d, clip)
+    torch.cuda.synchronize()
+    assert torch.equal(dx_2, dx_k)
+    want = chain.layer_bwd_plain(g, None, m_k1, (x > 0).to(torch.uint8), wd, wr, d, clip)
+    assert _rel(dx_k, want) <= TOL[x.dtype]
+    assert _rel(dx_k, encoder.block_bwd_fma(x, g, wd, bd, wr, d, clip)) <= TOL[x.dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,d", [(16384, 1), (16384, 512), (40960, 4), (40960, 256)])
+def test_windowed_encoder_block_kernels_match_plain(dev, dtype, rows, d):
+    """K7f / K7b with the windows of the windowed K1/K2 test: the output is
+    zero outside the window and equals the unwindowed output inside it; dx
+    against the windowed plain version fed the same-code K1's gate; the full
+    range is the unwindowed kernel bit for bit; in bfloat16 the FMA kernels'
+    window as well."""
+    x, wd, bd, wr, br, g = _block_inputs(dev, dtype, rows, d)
+    base = encoder.block_fwd(x, wd, bd, wr, br, d, rows)
+    base_dx = encoder.block_bwd(x, g, wd, bd, wr, d, rows)
+    layer = chain.layer_fwd if dtype == torch.bfloat16 else chain.layer_fwd_fma
+    _, m_k1, _ = layer(x, wd, bd, wr, br, d, rows)
+    inrelu = (x > 0).to(torch.uint8)
+    for vw in [(4096 + 37, rows - 4096 - 61), (0, 1000), (rows - 200, rows), (300, 300),
+               (-50, rows + 50), (777, 778)]:
+        lo, hi = max(vw[0], 0), min(vw[1], rows)
+        out_k = encoder.block_fwd(x, wd, bd, wr, br, d, rows, vw)
+        dx_k = encoder.block_bwd(x, g, wd, bd, wr, d, rows, vw)
+        torch.cuda.synchronize()
+        assert _rel(out_k, encoder.block_fwd_plain(x, wd, bd, wr, br, d, rows, vw)) <= TOL[dtype]
+        assert not out_k[:lo].any() and not out_k[hi:].any()
+        assert torch.equal(out_k[lo:hi], base[lo:hi])
+        want = chain.layer_bwd_plain(g, None, m_k1, inrelu, wd, wr, d, rows, vw)
+        assert _rel(dx_k, want) <= TOL[dtype]
+        if (lo, hi) == (0, rows):
+            assert torch.equal(out_k, base) and torch.equal(dx_k, base_dx)
+        if dtype == torch.bfloat16:
+            out_f = encoder.block_fwd_fma(x, wd, bd, wr, br, d, rows, vw)
+            dx_f = encoder.block_bwd_fma(x, g, wd, bd, wr, d, rows, vw)
+            dy = encoder.block_bwd_mma_phase1(x, g, wd, bd, wr, d, rows, vw)
+            dx_2 = encoder.block_bwd_mma_phase2(x, g, dy, wd, d, rows, vw)
+            torch.cuda.synchronize()
+            assert not out_f[:lo].any() and not out_f[hi:].any()
+            assert _rel(out_f, out_k) <= TOL[dtype] and _rel(dx_f, dx_k) <= TOL[dtype]
+            assert torch.equal(dx_2, dx_k) and not dy[:lo].any() and not dy[hi:].any()
+
+
+def test_encoder_block_kernels_choose_by_dtype_and_count(dev):
+    """bfloat16 runs the tensor-core kernels (K7f is K1's tensor-core code,
+    K7b its two phases), float32 the FMA kernels (K7f is the FMA K1's code);
+    both count under K7f / K7b, the phases alone count nothing."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, wd, bd, wr, br, g = _block_inputs(dev, dtype, 512, 3)
+        _build.reset_launches()
+        out = encoder.block_fwd(x, wd, bd, wr, br, 2, 256)
+        dx = encoder.block_bwd(x, g, wd, bd, wr, 2, 256)
+        counted = dict(_build.LAUNCHES)
+        if dtype == torch.bfloat16:
+            same_fwd = chain.layer_fwd(x, wd, bd, wr, br, 2, 256)[0]
+            dy = encoder.block_bwd_mma_phase1(x, g, wd, bd, wr, 2, 256)
+            same_bwd = encoder.block_bwd_mma_phase2(x, g, dy, wd, 2, 256)
+        else:
+            same_fwd = chain.layer_fwd_fma(x, wd, bd, wr, br, 2, 256)[0]
+            same_bwd = encoder.block_bwd_fma(x, g, wd, bd, wr, 2, 256)
+        torch.cuda.synchronize()
+        assert torch.equal(out, same_fwd) and torch.equal(dx, same_bwd)
+        assert counted["K7f"] == 1 and counted["K7b"] == 1
+        with pytest.raises(TypeError):
+            encoder.block_fwd(x.double(), wd, bd, wr, br, 2, 256)
+    with pytest.raises(TypeError):
+        encoder.block_bwd_mma_phase1(x.float(), g.float(), wd.float(), bd, wr.float(), 2, 256)
+
+
+# Valid windows of three 256-row clips for the group (1, 2, 4, 8) at tile 64
+# (bf16) or 32 (float32): edges inside tiles, inside the halos around the
+# tile boundaries, clamped, and the full range.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("vw", [(37, 200), (60, 133), (-9, 300), (0, 256)])
+def test_windowed_wavefront_group_kernel(dev, dtype, vw):
+    """K2-wf with a valid window: against its windowed plain version, bit
+    for bit against the windowed FMA K2 launches it is built on, and with
+    the full range bit for bit against no window."""
+    clip, dils = 256, (1, 2, 4, 8)
+    args = _wf_inputs(dev, dtype, dils, 3 * clip, missing=(2,), seed=7)
+    group = chain.plan_bwd_groups(dils, clip, args[0].element_size())[0]
+    _build.reset_launches()
+    got = chain.group_bwd(*args, group, clip, vw)
+    torch.cuda.synchronize()
+    assert _build.LAUNCHES["K2wf"] == 1
+    want = chain.group_bwd_plain(*args, dils, clip, group.tile, group.splits, vw)
+    assert _rel(got, want) <= TOL[dtype]
+    dxn, dtaps, masks, inmask, wd, wr = args
+    dx = dxn
+    for j in range(len(dils) - 1, -1, -1):
+        dx = chain.layer_bwd_fma(dx, dtaps[j], masks[j], masks[j - 1] if j else inmask,
+                                 wd[j], wr[j], dils[j], clip, vw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, dx)
+    if max(vw[0], 0) == 0 and min(vw[1], clip) == clip:
+        assert torch.equal(got, chain.group_bwd(*args, group, clip))
+
+
+def test_new_tensor_core_kernels_spill_nothing(dev):
+    """``tools/kernel_resources.py`` on csrc/trunk_mma.cu: K7f (the forward
+    with kMasks false), K7b's phase 1 and the x-gated phase 2 are compiled,
+    and no kernel of the file spills."""
+    from audio_style_transfer_tpu_torch.tools import kernel_resources
+
+    rows = kernel_resources.compile_resources(["trunk_mma.cu"])["trunk_mma.cu"]
+    names = [r[0] for r in rows]
+    for frag in ("trunk_fwd_mma_kernelILb0E", "trunk_fwd_mma_kernelILb1E",
+                 "encoder_bwd_dy_mma_kernel", "trunk_bwd_dx_mma_kernelILb1E",
+                 "trunk_bwd_dx_mma_kernelILb0E"):
+        assert any(frag in name for name in names), (frag, names)
+    for name, regs, st, ld, _ in rows:
+        assert regs <= 255 and st == 0 and ld == 0, (name, regs, st, ld)
 
 
 @pytest.mark.parametrize("flavour", ["chained", "per-layer"])

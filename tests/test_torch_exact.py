@@ -104,6 +104,26 @@ def test_transfer_exact_scan_equals_single_window():
     np.testing.assert_allclose(scan.per_window["metrics"], one.per_window["metrics"], rtol=1e-3)
 
 
+@pytest.mark.parametrize("length,scan_window", [(W + 300, None), (2 * W + 100, 2048)],
+                         ids=["single window", "scan, edge/middle split"])
+def test_transfer_exact_per_layer_flavour_equals_the_chained_flavour(length, scan_window):
+    """The per-layer trunk (fused_encoder=True, chain_encoder=False: K7f/K7b's
+    plain versions) under ``transfer_exact``: as one unmasked window, and as
+    the scan whose edge windows run the windowed blocks. The same blocks in
+    the same float32 arithmetic as the chained trunk, so the same evaluation
+    counts and losses to float32 summation order (rtol 1e-5)."""
+    pnp = jax_params_np(**GEOM)
+    runs = {}
+    for flavour in ({}, {"fused_encoder": True, "chain_encoder": False}):
+        engine = tengine.StyleTransfer(tengine.TransferSpec(device="cpu", **SPEC, **flavour),
+                                       torch_params(pnp), TCfg(**GEOM))
+        runs[bool(flavour)] = tlong.transfer_exact(
+            engine, _clip(length, 0, 0.05), _clip(2 * W, 1, 0.11), epochs=1,
+            scan_window=scan_window).per_window
+    assert runs[True]["evals"].tolist() == runs[False]["evals"].tolist()
+    np.testing.assert_allclose(runs[True]["metrics"], runs[False]["metrics"], rtol=1e-5)
+
+
 def test_transfer_exact_with_the_ot_target_matches_jax(monkeypatch, capsys):
     """The OT target composes with the exact objective (from the NMF factors
     the JAX package draws, as tests/test_torch_longform.py starts them)."""
