@@ -1,9 +1,12 @@
 // Grouped wavefront trunk backward (K2-wf): the waveform cotangent through
-// k <= 4 consecutive trunk layers in one launch.
+// k <= 4 consecutive trunk layers in one launch, as float32 FMAs.
 //
-// Replaces: audio_style_transfer_tpu/ops/pallas_chain.py::_bwd_group_kernel_wf
-// (the wavefront schedule of the mask-only backward, chosen when
+// Replaces, for float32 tensors:
+// audio_style_transfer_tpu/ops/pallas_chain.py::_bwd_group_kernel_wf (the
+// wavefront schedule of the mask-only backward, chosen when
 // AST_CHAIN_BWD_WAVEFRONT=1 and the group's split geometry is feasible).
+// bfloat16 runs the tensor-core kernel of trunk_wf_mma.cu; this kernel's
+// bf16 build stays for comparisons (ops/chain.py::group_bwd_fma).
 //
 // What it computes: exactly k calls of K2 (trunk.cu), layer j0+k-1 down to j0,
 //   g  = round(dx_{j+1} + dtap_j)

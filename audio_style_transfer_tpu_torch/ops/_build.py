@@ -38,6 +38,8 @@ _SIGNATURES = {
     "ast_product_mma": [_P] * 3 + [_I] * 2 + [_P],
     "ast_trunk_bwd_group": ([_P, ctypes.POINTER(_P), ctypes.POINTER(_P)] + [_P] * 4
                             + [ctypes.POINTER(_I)] * 2 + [_I] * 7 + [_P]),
+    "ast_trunk_bwd_group_mma": ([_P, ctypes.POINTER(_P), ctypes.POINTER(_P)] + [_P] * 4
+                                + [ctypes.POINTER(_I)] + [_I] * 6 + [_P]),
     "ast_encoder_fwd": [_P] * 6 + [_I] * 6 + [_P],
     "ast_encoder_bwd": [_P] * 7 + [_I] * 6 + [_P],
     "ast_encoder_fwd_mma": [_P] * 6 + [_I] * 5 + [_P],

@@ -12,9 +12,12 @@ chosen by the tensor's dtype: bfloat16 runs on the tensor cores
 (csrc/trunk_mma.cu), float32 as float32 FMAs (csrc/trunk.cu). With
 ``_BWD_WAVEFRONT`` on (``AST_CHAIN_BWD_WAVEFRONT=1``; off by default, as in
 the JAX package) runs of up to four layers with small dilations go through
-one launch of the grouped wavefront backward (K2-wf, csrc/trunk_wf.cu),
-which keeps the cotangents between those layers in shared memory; the other
-layers keep K2.
+one launch of the grouped wavefront backward (K2-wf), which keeps the
+cotangents between those layers in shared memory; the other layers keep K2.
+K2-wf, too, has two implementations: bfloat16 on the tensor cores
+(csrc/trunk_wf_mma.cu, equal to the tensor-core K2 launches bit for bit),
+float32 as FMAs (csrc/trunk_wf.cu, equal to the FMA K2 launches), each with
+its own plan of groups and tiles.
 
 Which version runs is decided by the device of the tensors: on the CPU each
 wrapper runs its plain torch version (``layer_fwd_plain``/``layer_bwd_plain``,
@@ -51,14 +54,21 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # Run feasible groups of the trunk backward through K2-wf. Read at call time
 # by ``trunk_backward``, so a test can set the attribute.
 _BWD_WAVEFRONT = os.environ.get("AST_CHAIN_BWD_WAVEFRONT", "0") == "1"
-# What csrc/trunk_wf.cu is compiled for: layers per group, the time tiles a
-# block may own, the dy rows a piece may hold (its need + 15 <= WF_DY_ROWS),
-# the bytes of the two warp groups' staging buffers, and what a block may use.
+# What csrc/trunk_wf.cu (the FMA K2-wf) is compiled for: layers per group,
+# the time tiles a block may own, the dy rows a piece may hold (its need + 15
+# <= WF_DY_ROWS), the bytes of the two warp groups' staging buffers, and what
+# a block may use.
 WF_MAX_LAYERS = 4
 WF_TILES = (64, 32)
 WF_DY_ROWS = 80
 WF_STAGE_BYTES = 2 * 4 * (16 * 65 + 16 * 129 + WIDTH * (WF_DY_ROWS + 1))
 SMEM_PER_BLOCK = 232448
+# What csrc/trunk_wf_mma.cu (the bf16 tensor-core K2-wf) is compiled for: the
+# time tile it is planned at, its warps (each takes one 16-row fragment of a
+# step's output rows), and its four resident bf16 weights.
+WF_MMA_TILES = (128,)
+WF_MMA_WARPS = 10
+WF_MMA_WEIGHT_BYTES = 4 * WIDTH * WIDTH * 2
 
 
 def stack_trunk_weights(params, num_layers: int = 30):
@@ -202,7 +212,7 @@ def _prefix(dils) -> tuple:
     return tuple(n)
 
 
-def wavefront_splits(dils: tuple, tile: int):
+def wavefront_splits(dils: tuple, tile: int, dy_rows: int | None = WF_DY_ROWS):
     """The A/B split of each backward step of a group, in carry coordinates,
     or None when the group cannot run as a wavefront.
 
@@ -214,7 +224,9 @@ def wavefront_splits(dils: tuple, tile: int):
     right, so that A_{s+1}, which reads d_{s+1} rows past its own output,
     reads only rows A_s wrote. A group is infeasible when a half would be
     empty, a piece's dy rows (its own plus d either side) leave the rows
-    layer j+1 produced, or they do not fit the kernel's dy buffer."""
+    layer j+1 produced, or they do not fit the FMA kernel's dy buffer of
+    ``dy_rows`` (None: no such buffer; the tensor-core kernel does not split
+    a step, and the splits only order ``group_bwd_plain``'s pieces)."""
     k = len(dils)
     n = _prefix(dils)
     nk = n[-1]
@@ -230,35 +242,57 @@ def wavefront_splits(dils: tuple, tile: int):
             return None
         if split[s] + d > nk + tile + n[j + 1] or split[s] - d < nk - n[j + 1]:
             return None
-        if max(split[s] - lo, hi - split[s]) + 2 * d + 15 > WF_DY_ROWS:
+        if dy_rows is not None and max(split[s] - lo, hi - split[s]) + 2 * d + 15 > dy_rows:
             return None
     return tuple(split)
 
 
 def wavefront_smem_bytes(dils: tuple, tile: int, itemsize: int) -> int:
-    """Dynamic shared memory of one K2-wf block: the staging buffers and
-    three carry slots of (tile + 2 nk) rows."""
+    """Dynamic shared memory of one block of the FMA K2-wf: the staging
+    buffers and three carry slots of (tile + 2 nk) rows."""
     return WF_STAGE_BYTES + 3 * (tile + 2 * sum(dils)) * WIDTH * itemsize
 
 
+def wavefront_mma_smem_bytes(dils: tuple, tile: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core K2-wf: four
+    resident weights, and the carry and dy buffers of tile + 2 nk rows plus
+    16 (a fragment runs up to 15 rows past a step's range)."""
+    return WF_MMA_WEIGHT_BYTES + 2 * (tile + 2 * sum(dils) + 16) * WIDTH * 2
+
+
+def wavefront_mma_fits(dils: tuple, tile: int) -> bool:
+    """Whether the tensor-core K2-wf takes the group at this tile: 16-row
+    fragments, the first step's output rows (tile + 2 n_{k-1}) one fragment a
+    warp, and the block's shared memory. No dy-row limit: a step is not
+    split."""
+    return (tile % 16 == 0 and tile + 2 * sum(dils[:-1]) <= 16 * WF_MMA_WARPS
+            and wavefront_mma_smem_bytes(dils, tile) <= SMEM_PER_BLOCK)
+
+
 @functools.lru_cache(maxsize=None)
-def plan_bwd_groups(dils: tuple, clip_rows: int, itemsize: int) -> tuple:
-    """Partition of the trunk's layers for the wavefront backward: from each
-    layer on, the longest run of 2..WF_MAX_LAYERS layers that is feasible at
-    the largest tile (``wavefront_splits``, the tile dividing the clip, the
-    block's shared memory) becomes one group; a layer that starts no such
-    run stays a single K2 launch."""
+def plan_bwd_groups(dils: tuple, clip_rows: int, itemsize: int, fma: bool = False) -> tuple:
+    """Partition of the trunk's layers for the wavefront backward, for the
+    K2-wf that ``group_bwd`` launches in this itemsize: the tensor-core kernel
+    for bfloat16 (2), the FMA kernel for float32 (4) and, with ``fma``, for
+    bfloat16 too (``group_bwd_fma``). From each layer on, the longest run of
+    2..WF_MAX_LAYERS layers that is feasible at the largest tile (the tile
+    dividing the clip, the kernel's geometry and shared memory, and
+    ``wavefront_splits``) becomes one group; a layer that starts no such run
+    stays a single K2 launch."""
+    mma = itemsize == 2 and not fma
     groups, j = [], 0
     while j < len(dils):
         found = None
         for k in range(min(WF_MAX_LAYERS, len(dils) - j), 1, -1):
             run = tuple(dils[j:j + k])
-            for tile in WF_TILES:
+            for tile in WF_MMA_TILES if mma else WF_TILES:
                 if clip_rows % tile:
                     continue
-                if wavefront_smem_bytes(run, tile, itemsize) > SMEM_PER_BLOCK:
+                if mma and not wavefront_mma_fits(run, tile):
                     continue
-                splits = wavefront_splits(run, tile)
+                if not mma and wavefront_smem_bytes(run, tile, itemsize) > SMEM_PER_BLOCK:
+                    continue
+                splits = wavefront_splits(run, tile, None if mma else WF_DY_ROWS)
                 if splits is not None:
                     found = BwdGroup(j, run, tile, splits)
                     break
@@ -527,27 +561,20 @@ def product_mma(a, w, transposed: bool):
     return out
 
 
-def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int,
-              valid_window=None):
-    """The cotangent of a wavefront group's input from ``dxn``, the cotangent
-    of its output: K2-wf on CUDA, ``group_bwd_plain`` on the CPU.
-
-    dtaps: per layer of the group the emitted tap's cotangent or None; masks:
-    per layer its mask bytes; inmask: bit 0 is the group input's relu mask;
-    wd [k, 3, C, C], wr [k, C, C] of the group in dxn's dtype; valid_window
-    (lo, hi) in in-clip rows or None, as in ``layer_bwd``."""
+def _group_bwd_cuda(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int,
+                    mma: bool, valid_window=None):
+    """Launch K2-wf on CUDA tensors: the tensor-core kernel (bfloat16 only)
+    when ``mma``, else the FMA kernel in dxn's dtype."""
     dils, k = group.dils, len(group.dils)
-    if group.splits is None or len(dtaps) != k or len(masks) != k:
-        raise ValueError(f"group_bwd needs a planned group of {k} layers with their "
-                         f"tap cotangents and masks, got {group}")
-    if dxn.device.type == "cpu":
-        return group_bwd_plain(dxn, dtaps, masks, inmask, wd, wr, dils, clip_rows,
-                               group.tile, group.splits, valid_window)
     check_layer(dxn, clip_rows)
     c, dev, dt = WIDTH, dxn.device, dxn.dtype
+    if mma:
+        check_bf16(dxn)
     if clip_rows % group.tile:
         raise ValueError(f"clip_rows {clip_rows} must be a multiple of the tile {group.tile}")
-    if wavefront_smem_bytes(dils, group.tile, dxn.element_size()) > SMEM_PER_BLOCK:
+    smem = (wavefront_mma_smem_bytes(dils, group.tile) if mma
+            else wavefront_smem_bytes(dils, group.tile, dxn.element_size()))
+    if smem > SMEM_PER_BLOCK:
         raise ValueError(f"group {group} does not fit a block's shared memory in {dt}")
     check_cuda("dxn", dxn, dxn.shape, dt, dev)
     for g in dtaps:
@@ -558,17 +585,61 @@ def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int
     check_cuda("wd", wd, (k, 3, c, c), dt, dev)
     check_cuda("wr", wr, (k, c, c), dt, dev)
     dx = torch.empty_like(dxn)
-    status = _build.lib().ast_trunk_bwd_group(
-        dxn.data_ptr(),
-        (ctypes.c_void_p * k)(*[None if g is None else g.data_ptr() for g in dtaps]),
-        (ctypes.c_void_p * k)(*[m.data_ptr() for m in masks]),
-        inmask.data_ptr(), wd.data_ptr(), wr.data_ptr(), dx.data_ptr(),
-        (ctypes.c_int * k)(*dils), (ctypes.c_int * k)(*group.splits), k, group.tile,
-        dxn.shape[0], clip_rows, *clamp_window(valid_window, clip_rows),
-        int(dt == torch.bfloat16), _build.stream_ptr(dev))
-    _build.check(status, "ast_trunk_bwd_group")
+    args = (dxn.data_ptr(),
+            (ctypes.c_void_p * k)(*[None if g is None else g.data_ptr() for g in dtaps]),
+            (ctypes.c_void_p * k)(*[m.data_ptr() for m in masks]),
+            inmask.data_ptr(), wd.data_ptr(), wr.data_ptr(), dx.data_ptr(),
+            (ctypes.c_int * k)(*dils))
+    geometry = (k, group.tile, dxn.shape[0], clip_rows, *clamp_window(valid_window, clip_rows))
+    if mma:
+        name = "ast_trunk_bwd_group_mma"
+        status = _build.lib().ast_trunk_bwd_group_mma(*args, *geometry, _build.stream_ptr(dev))
+    else:
+        name = "ast_trunk_bwd_group"
+        status = _build.lib().ast_trunk_bwd_group(
+            *args, (ctypes.c_int * k)(*group.splits), *geometry, int(dt == torch.bfloat16),
+            _build.stream_ptr(dev))
+    _build.check(status, name)
     _build.LAUNCHES["K2wf"] += 1
     return dx
+
+
+def _check_group(group: BwdGroup, dtaps, masks) -> None:
+    k = len(group.dils)
+    if group.splits is None or len(dtaps) != k or len(masks) != k:
+        raise ValueError(f"group_bwd needs a planned group of {k} layers with their "
+                         f"tap cotangents and masks, got {group}")
+
+
+def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int,
+              valid_window=None):
+    """The cotangent of a wavefront group's input from ``dxn``, the cotangent
+    of its output: K2-wf on CUDA (bfloat16: the tensor-core kernel of
+    csrc/trunk_wf_mma.cu; float32: the FMA kernel of csrc/trunk_wf.cu), each
+    on a group of its own plan (``plan_bwd_groups``); ``group_bwd_plain`` on
+    the CPU.
+
+    dtaps: per layer of the group the emitted tap's cotangent or None; masks:
+    per layer its mask bytes; inmask: bit 0 is the group input's relu mask;
+    wd [k, 3, C, C], wr [k, C, C] of the group in dxn's dtype; valid_window
+    (lo, hi) in in-clip rows or None, as in ``layer_bwd``."""
+    _check_group(group, dtaps, masks)
+    if dxn.device.type == "cpu":
+        return group_bwd_plain(dxn, dtaps, masks, inmask, wd, wr, group.dils, clip_rows,
+                               group.tile, group.splits, valid_window)
+    return _group_bwd_cuda(dxn, dtaps, masks, inmask, wd, wr, group, clip_rows,
+                           mma=dxn.dtype == torch.bfloat16, valid_window=valid_window)
+
+
+def group_bwd_fma(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int,
+                  valid_window=None):
+    """K2-wf's FMA kernel (csrc/trunk_wf.cu) in dxn's dtype, bfloat16
+    included, on a group of the FMA plan (``plan_bwd_groups(..., fma=True)``):
+    it equals the FMA K2 launches (``layer_bwd_fma``) bit for bit. For
+    comparisons only; no transfer path calls it."""
+    _check_group(group, dtaps, masks)
+    return _group_bwd_cuda(dxn, dtaps, masks, inmask, wd, wr, group, clip_rows, mma=False,
+                           valid_window=valid_window)
 
 
 def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int, valid_window=None):

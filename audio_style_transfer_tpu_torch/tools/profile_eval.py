@@ -4,8 +4,8 @@ Run from the repository root on a machine with one CUDA device:
 
     python3 -m audio_style_transfer_tpu_torch.tools.profile_eval
 
-For each path (stack 0, the full stack, the full stack with per-layer
-blocks; full width, T=16384, random weights from seed 0, the clips and the
+For each path (stack 0, stack 0 with the wavefront backward on, the full
+stack, the full stack with per-layer blocks; full width, T=16384, random weights from seed 0, the clips and the
 targets of chip_smoke.py) it prints
   - the bare evaluation: CUDA events and the host clock over 30 evaluations;
   - the evaluation inside L-BFGS: one epoch of maxiter 30 from the 1e-6 start
@@ -13,7 +13,10 @@ targets of chip_smoke.py) it prints
     excluded;
   - torch.profiler over 10 bare evaluations: device time per evaluation, in
     all and by kernel, kernel launches per evaluation, and the busy share
-    (device time over the bare and over the in-L-BFGS evaluation time).
+    (device time over the bare and over the in-L-BFGS evaluation time);
+  - on the wavefront path first, the bare evaluation of the same engine with
+    the switch off, on, on, off: the paired comparison (the host clock of a
+    path also depends on the paths before it in the process).
 Every line carries the card's name and power limit.
 """
 
@@ -27,16 +30,21 @@ import torch
 
 import chip_smoke as cs  # clips, make_eval, bare_eval_ms; found from the repository root
 from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, init_params
+from audio_style_transfer_tpu_torch.ops import chain
 from audio_style_transfer_tpu_torch.transfer import lbfgs
 
-PATHS = {**cs.EVAL_PATHS,
+PATHS = {"stack 0": cs.EVAL_PATHS["stack 0"],
+         "stack 0, chained, wavefront on": cs.EVAL_PATHS["stack 0"],
+         "full stack": cs.EVAL_PATHS["full stack"],
          "full stack, per-layer": dict(stack=None, cont_lyr_ids=(25,), chain_encoder=False)}
+# Paths that run with the wavefront backward (K2-wf groups) switched on.
+WAVEFRONT = {"stack 0, chained, wavefront on"}
 # Kernel-name fragments of the hand-written kernels, for the summary line.
 OURS = {"K1/K7f mma": "trunk_fwd_mma", "K2 dy mma": "trunk_bwd_dy_mma",
         "K7b dy mma": "encoder_bwd_dy_mma", "K2/K7b dx mma": "trunk_bwd_dx_mma",
         "K1/K7f fma": "trunk_fwd_kernel", "K2 dy fma": "trunk_bwd_dy_kernel",
         "K7b dy fma": "encoder_bwd_dy_kernel", "K2/K7b dx fma": "trunk_bwd_dx_kernel",
-        "K2-wf": "trunk_bwd_wf", "K5": "gram_fwd", "K5 reduce": "gram_reduce",
+        "K2-wf mma": "trunk_bwd_wf_mma", "K2-wf fma": "trunk_bwd_wf_kernel", "K5": "gram_fwd", "K5 reduce": "gram_reduce",
         "K6": "gram_bwd"}
 PROFILED_EVALS = 10
 
@@ -67,7 +75,16 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     params = init_params(0, WaveNetAEConfig())
     for label, path in PATHS.items():
+        chain._BWD_WAVEFRONT = label in WAVEFRONT
         vg, x = cs.make_eval(params, dev, **path)
+        if label in WAVEFRONT:
+            paired = []
+            for on in (False, True, True, False):
+                chain._BWD_WAVEFRONT = on
+                paired.append(cs.bare_eval_ms(vg, x)[0])
+            chain._BWD_WAVEFRONT = True
+            print(f"[{label}] bare eval, the same engine with the wavefront off, on, on, off: "
+                  + ", ".join(f"{ms:.3f}" for ms in paired) + f" ms ({smi})")
         device_ms, host_ms = cs.bare_eval_ms(vg, x)
         print(f"[{label}] bare eval: device {device_ms:.3f} ms, host {host_ms:.3f} ms ({smi})")
 

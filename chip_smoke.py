@@ -16,9 +16,12 @@ Phases (any failure raises and exits non-zero):
      FMA kernels are also held against them and timed beside them, the
      bfloat16 K2 and K7b are timed per phase, and K7b's recomputed gate is
      held to bit 1 of K1's mask bytes bit for bit), K2-wf on each group of
-     the wavefront plan (bit for bit against the FMA K2 launches it is built on, and
-     against the K2 launches it replaces), K5 and K6 on the stack-0 taps
-     {0..9} (L=10) and on all 30 taps (L=30), and on two clips of a ragged
+     the wavefront plan (the tensor-core kernel in bfloat16, bit for bit
+     against the K2 launches it replaces; its FMA build bit for bit against
+     the FMA K2 launches; timed as a replayed CUDA graph beside its eager
+     call, its FMA build and the K2 launches it replaces in one graph), K5
+     and K6 on the stack-0 taps {0..9} (L=10) and on all 30 taps (L=30),
+     and on two clips of a ragged
      T, K5 twice on the same inputs for equal bits, both timed as a
      replayed CUDA graph with one torch.einsum beside each as a yardstick;
      K1, K2, K7f, K7b and K2-wf once more with a valid window whose edges
@@ -26,7 +29,7 @@ Phases (any failure raises and exits non-zero):
      their windowed plain versions and timed beside the unwindowed kernels;
      then each kernel against its plain version at the shapes the exact
      long-form runs give it: K1, K2 and K2-wf (also bit for bit against the
-     FMA K2 launches) on the chained scan's 40960-row window with its two
+     K2 launches) on the chained scan's 40960-row window with its two
      edge windows and with none and on the single window's 237568 rows, K5
      and K6 on the scan's cropped 32768-row gram and the single window's,
      K7f and K7b on the per-layer scan's 24576-row window with its two edge
@@ -55,8 +58,9 @@ Phases (any failure raises and exits non-zero):
      off, then 3 L-BFGS iterations; K2-wf with and without a valid window)
      {K1, K2, K2wf, K5, K6}, then the chunked long-form CLI (4 windows,
      --longform --ot_components 8 --gamma 1e-3 --stack 0, 2 epochs) with the
-     wavefront backward on {K1, K2, K2wf, K5, K6; K2wf = 3 and K2 = 18 per
-     evaluation} and once more with it off; in every run K6 is launched once
+     wavefront backward on {K1, K2, K2wf, K5, K6; K2wf and K2 per evaluation
+     as the bf16 plan has groups and single layers: 3 and 18} and once more
+     with it off; in every run K6 is launched once
      per evaluation that took a gradient, and K5 at least as often; the
      stack-0 and full-stack CLI runs again in float32 (the full-stack final
      loss held to a band) and the --gatys CLI in both types {K1, K2}, with
@@ -240,11 +244,28 @@ def k2_chain(args, g, layer, rows: int, window=None):
     return dxn
 
 
-def wavefront_groups(dils, rows: int, itemsize: int) -> list:
-    """The groups of the wavefront plan that run as one K2-wf launch."""
+def wavefront_groups(dils, rows: int, itemsize: int, fma: bool = False) -> list:
+    """The groups of the wavefront plan that run as one K2-wf launch (with
+    ``fma``, the FMA kernel's plan, which ``group_bwd_fma`` takes)."""
     from audio_style_transfer_tpu_torch.ops import chain
 
-    return [g for g in chain.plan_bwd_groups(dils, rows, itemsize) if g.splits is not None]
+    return [g for g in chain.plan_bwd_groups(dils, rows, itemsize, fma) if g.splits is not None]
+
+
+def wavefront_launches(rows: int) -> tuple[int, int]:
+    """(K2-wf, K2) launches of one bf16 trunk backward with the wavefront on
+    at these clip rows, from the plan ``trunk_backward`` follows."""
+    from audio_style_transfer_tpu_torch.ops import chain
+
+    plan = chain.plan_bwd_groups(tuple(2 ** (k % 10) for k in range(LAYERS)), rows, 2)
+    groups = sum(g.splits is not None for g in plan)
+    return groups, len(plan) - groups
+
+
+def group_pairs(groups, fma_groups) -> list:
+    """(group, the FMA plan's group of the same layers) per K2-wf group."""
+    by_layers = {(g.j0, g.dils): g for g in fma_groups}
+    return [(g, by_layers[g.j0, g.dils]) for g in groups]
 
 
 def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
@@ -252,9 +273,10 @@ def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
     valid window ``window`` or None, layer by layer on the plain chain's own
     inputs, masks and cotangents; then K2-wf on every group of the wavefront
     plan at these rows, against its plain version and bit for bit against
-    the FMA K2 launches it is built on, with the same window. Returns (K1
-    max|d|, K2 max|d|, K2-wf max|d| or None without a group, the plain
-    chain's first ten outputs)."""
+    the K2 launches it replaces (bf16: the tensor-core kernels), and its FMA
+    build on the FMA plan's group bit for bit against the FMA K2 launches,
+    with the same window. Returns (K1 max|d|, K2 max|d|, K2-wf max|d| or None
+    without a group, the plain chain's first ten outputs)."""
     import torch
 
     from audio_style_transfer_tpu_torch.ops import chain
@@ -301,20 +323,25 @@ def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
         k2_err = max(k2_err, abs_err)
         dx = dx_p
     groups = wavefront_groups(dils, rows, x0.element_size())
+    fma_groups = wavefront_groups(dils, rows, x0.element_size(), fma=True)
     wf_err = None
-    for g in groups:
+    for g, fg in group_pairs(groups, fma_groups):
         args = group_inputs(g, dxs, dtaps, masks, inmask, wd, wr)
         got = chain.group_bwd(*args, g, rows, window)
         abs_err, rel = rel_err(got, chain.group_bwd_plain(*args, g.dils, rows, g.tile, g.splits,
                                                           window))
-        fma = k2_chain(args, g, chain.layer_bwd_fma, rows, window)
-        if rel > tol or not torch.equal(got, fma):
+        k2 = k2_chain(args, g, chain.layer_bwd, rows, window)
+        fma = chain.group_bwd_fma(*args, fg, rows, window)
+        if (rel > tol or not torch.equal(got, k2)
+                or not torch.equal(fma, k2_chain(args, g, chain.layer_bwd_fma, rows, window))):
             raise AssertionError(f"K2-wf group at layer {g.j0}, {rows} rows, {label}: rel err "
-                                 f"{rel:.3e}, or not the FMA K2 launches bit for bit")
+                                 f"{rel:.3e}, or not the K2 launches bit for bit, or its FMA "
+                                 f"build not the FMA K2 launches")
         wf_err = max(wf_err or 0.0, abs_err)
     zeros = "" if window is None else ", masked rows zero with a zero bit 0"
-    wf = (f"; K2-wf: max|d| {wf_err:.3e} over {len(groups)} groups, equal to the FMA K2 "
-          f"launches bit for bit" if groups else "; no wavefront group")
+    wf = (f"; K2-wf: max|d| {wf_err:.3e} over {len(groups)} groups at tile {groups[0].tile}, "
+          f"equal to the K2 launches bit for bit, its FMA build (tile {fma_groups[0].tile}) to "
+          f"the FMA K2 launches" if groups else "; no wavefront group")
     print(f"  K1 at {rows} rows, {label}: max|d| {k1_err:.3e} over 30 layers (tol rel {tol:.0e}), "
           f"mask bytes differing <= {k1_share:.2e}{zeros} ok; K2: max|d| {k2_err:.3e}{wf} ok")
     return k1_err, k2_err, wf_err, outs
@@ -589,34 +616,39 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
               f"against its plain version with the FMA K1's gate max|d| {k7b_fma_own_err:.3e} ok")
 
     # K2-wf on every group of the wavefront plan, on the plain chain's
-    # cotangents and masks: against its plain version, bit for bit against
-    # the single-layer FMA K2 launches it is built on, and against the K2
-    # launches it replaces (in bfloat16 the tensor-core kernels).
+    # cotangents and masks: against its plain version and bit for bit against
+    # the K2 launches it replaces (in bfloat16 the tensor-core kernels); its
+    # FMA build (bfloat16: the FMA plan's group) bit for bit against the FMA
+    # K2 launches, and against the K2-wf.
     groups = wavefront_groups(dils, T, x0.element_size())
+    wf_pairs = group_pairs(groups, wavefront_groups(dils, T, x0.element_size(), fma=True))
     if not groups:
         raise AssertionError("the wavefront plan holds no group at the full geometry")
 
     def group_args(g):
         return group_inputs(g, dxs, dtaps, masks, inmask, wd, wr)
 
-    wf_err, wf_vs_k2 = 0.0, 0.0
-    for g in groups:
+    wf_err, wf_vs_fma = 0.0, 0.0
+    for g, fg in wf_pairs:
         got = chain.group_bwd(*group_args(g), g, T)
         want = chain.group_bwd_plain(*group_args(g), g.dils, T, g.tile, g.splits)
         abs_err, rel = rel_err(got, want)
         if rel > tol:
             raise AssertionError(f"K2-wf group at layer {g.j0}: rel err {rel:.3e} > {tol}")
         wf_err = max(wf_err, abs_err)
-        if not torch.equal(got, k2_chain(group_args(g), g, chain.layer_bwd_fma, T)):
-            raise AssertionError(f"K2-wf group at layer {g.j0} differs from the FMA K2 launches")
-        abs_err, rel = rel_err(got, k2_chain(group_args(g), g, chain.layer_bwd, T))
+        if not torch.equal(got, k2_chain(group_args(g), g, chain.layer_bwd, T)):
+            raise AssertionError(f"K2-wf group at layer {g.j0} differs from the K2 launches")
+        fma = chain.group_bwd_fma(*group_args(g), fg, T)
+        if not torch.equal(fma, k2_chain(group_args(g), g, chain.layer_bwd_fma, T)):
+            raise AssertionError(f"the FMA K2-wf at layer {g.j0} differs from the FMA K2 launches")
+        abs_err, rel = rel_err(fma, got)
         if rel > tol:
-            raise AssertionError(f"K2-wf group at layer {g.j0} against K2: rel err {rel:.3e}")
-        wf_vs_k2 = max(wf_vs_k2, abs_err)
+            raise AssertionError(f"the FMA K2-wf at layer {g.j0} against K2-wf: rel err {rel:.3e}")
+        wf_vs_fma = max(wf_vs_fma, abs_err)
     print(f"  K2-wf dx: max|d| {wf_err:.3e} over {len(groups)} groups of dils "
-          f"{groups[0].dils} at tile {groups[0].tile} (tol rel {tol:.0e}) ok; equal to the FMA "
-          f"K2 launches bit for bit; against the K2 launches it replaces max|d| "
-          f"{wf_vs_k2:.3e} (tol rel {tol:.0e}) ok")
+          f"{groups[0].dils} at tile {groups[0].tile} (tol rel {tol:.0e}) ok; equal to the K2 "
+          f"launches it replaces bit for bit; its FMA build (tile {wf_pairs[0][1].tile}) equal to "
+          f"the FMA K2 launches bit for bit, against the K2-wf max|d| {wf_vs_fma:.3e} ok")
 
     # K1, K2 and K2-wf with a valid window that cuts tiles; then K7f and K7b.
     k1w_err, k2w_err, wfw_err, _ = chain_check(f"the valid window {WINDOW}",
@@ -705,7 +737,8 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         print(f"  {k} with the valid window, time per launch: {ms[1]:.4f}, {ms[2]:.4f} ms between "
               f"{ms[0]:.4f} and {ms[3]:.4f} ms without a window")
     ng = len(groups)
-    ms = [cuda_ms(lambda: [chain.group_bwd(*group_args(g), g, T, w) for g in groups]) / ng
+    ms = [cuda_ms(lambda: [chain.group_bwd(*group_args(g), g, T, w) for g in groups],
+                  graph=True) / ng
           for w in (None, WINDOW, WINDOW, None)]
     windowed_ms["K2wf"] = min(ms[1:3])
     print(f"  K2-wf with the valid window, time per group: {ms[1]:.4f}, {ms[2]:.4f} ms between "
@@ -734,19 +767,31 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
                                   for j, d in enumerate(dils)], graph=True) / LAYERS
         print(f"  K7b time per launch by phase: dy {phase1:.4f} ms, dx {phase2:.4f} ms")
         del dys
+    # K2-wf as a replayed CUDA graph beside the eager call, its FMA build,
+    # and the K2 launches it replaces in one graph; then K2-wf again, so that
+    # a drift of the card's clock shows.
+    def groups_run(fn, fma=False):
+        return lambda: [fn(*group_args(g), fg if fma else g, T) for g, fg in wf_pairs]
+
+    wf_ms = [cuda_ms(groups_run(chain.group_bwd), graph=True) / ng]
     times["K2wf"] = (
-        cuda_ms(lambda: [chain.group_bwd(*group_args(g), g, T) for g in groups]) / ng,
+        wf_ms[0],
         cuda_ms(lambda: [chain.group_bwd_plain(*group_args(g), g.dils, T, g.tile, g.splits)
                          for g in groups]) / ng)
+    eager_ms["K2wf"] = cuda_ms(groups_run(chain.group_bwd)) / ng
+    fma_ms["K2wf"] = cuda_ms(groups_run(chain.group_bwd_fma, fma=True), graph=True) / ng
     k2_ms = cuda_ms(lambda: [k2_chain(group_args(g), g, chain.layer_bwd, T) for g in groups],
                     graph=True) / ng
     k2_fma_ms = cuda_ms(lambda: [k2_chain(group_args(g), g, chain.layer_bwd_fma, T)
                                  for g in groups],
                         graph=True) / ng
-    print(f"  K2-wf time per group of {len(groups[0].dils)} layers: {times['K2wf'][0]:.4f} ms, "
-          f"against {k2_ms:.4f} ms for the {len(groups[0].dils)} K2 launches it replaces "
-          f"(layer_bwd) and {k2_fma_ms:.4f} ms for the {len(groups[0].dils)} FMA K2 launches "
-          f"(layer_bwd_fma)")
+    wf_ms.append(cuda_ms(groups_run(chain.group_bwd), graph=True) / ng)
+    kg = len(groups[0].dils)
+    print(f"  K2-wf time per group of {kg} layers: {wf_ms[0]:.4f} ms, again {wf_ms[1]:.4f} ms "
+          f"(graph; {eager_ms['K2wf']:.4f} ms per eager call), against {k2_ms:.4f} ms for the "
+          f"{kg} K2 launches it replaces (layer_bwd, one graph): "
+          f"{'faster' if min(wf_ms) < k2_ms else 'slower'} by {abs(k2_ms - min(wf_ms)):.4f} ms; "
+          f"its FMA build {fma_ms['K2wf']:.4f} ms, the {kg} FMA K2 launches {k2_fma_ms:.4f} ms")
     # One torch.einsum beside each gram kernel: a yardstick, used nowhere in
     # the port.
     library = {}
@@ -771,12 +816,13 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     windowed = {k: {"windowed_max_abs_err": err, "windowed_ms": windowed_ms[k]}
                 for k, err in (("K1", k1w_err), ("K2", k2w_err), ("K7f", k7fw_err),
                                ("K7b", k7bw_err), ("K2wf", wfw_err))}
+    # K2-wf's yardsticks: the K2 launches it replaces, in one graph.
+    windowed["K2wf"].update(k2_launches_ms=k2_ms, fma_k2_launches_ms=k2_fma_ms)
 
     # Bounds from these shapes. A product is one [T, C] x [C, C] matrix
     # product; an activation or cotangent array is T * C elements.
     item = x0.element_size()
     act, product, weights = T * C * item, 2.0 * T * C * C, 4 * C * C * item
-    kg = len(groups[0].dils)
     tg = float(np.mean([sum(g_ is not None for g_ in group_args(g)[1]) for g in groups]))
     bounds = {
         # x in, out and mask bytes out; dilated conv (3 products) + residual.
@@ -1102,11 +1148,11 @@ def longform_phase(dev, wavefront: bool, epochs: int):
         print(f"[{label}] window {i}: {done} epochs, evals {per['evals'][i, :done].tolist()}, "
               f"losses {losses}, regularizer {[float(v) for v in rows[:, 3]]}")
     evals = int(np.sum(per["evals"]))
-    # Per loss+gradient evaluation the backward runs the plan's 3 groups and
-    # 18 single layers (30 single layers with the wavefront off); K1 also
-    # runs in the gradient-free passes (targets, OT taps, closing forwards).
-    want = ({"K2wf": 3 * evals, "K2": 18 * evals} if wavefront
-            else {"K2wf": 0, "K2": 30 * evals})
+    # Per loss+gradient evaluation the backward runs the plan's groups and
+    # single layers (30 single layers with the wavefront off); K1 also runs
+    # in the gradient-free passes (targets, OT taps, closing forwards).
+    n_wf, n_k2 = wavefront_launches(T) if wavefront else (0, LAYERS)
+    want = {"K2wf": n_wf * evals, "K2": n_k2 * evals}
     got = {k: launches[k] for k in want}
     if got != want or launches["K1"] % LAYERS or launches["K1"] < LAYERS * evals:
         raise AssertionError(f"{label}: launches {launches} for {evals} evals, expected {want} "
@@ -1456,9 +1502,11 @@ def exact_wavefront_phase(params, dev) -> tuple:
     """The exact scan on the 15 s clip (bf16, stack 0, gamma 1e-3) with the
     wavefront backward on: its edge windows run K2-wf with a valid window.
     The first evaluation's loss and gradient against the same evaluation
-    with it off (exact_flavours_phase's bf16 tolerances); then
-    EXACT_WF_MAXITER evaluations of L-BFGS through transfer_exact with it on.
-    Returns (launches, evals, wall seconds) of that run."""
+    with it off: bit for bit (K2-wf equals the K2 launches it replaces, the
+    rest of the evaluation is the same code); its ms per evaluation with the
+    wavefront off, on, on, off; then EXACT_WF_MAXITER evaluations of L-BFGS
+    through transfer_exact with it on. Returns (launches, evals, wall
+    seconds) of that run."""
     import torch
 
     from audio_style_transfer_tpu_torch.ops import _build, chain
@@ -1470,8 +1518,9 @@ def exact_wavefront_phase(params, dev) -> tuple:
                         fused_encoder=True, epochs=1, maxiter=EXACT_WF_MAXITER,
                         write_artifacts=False, device=str(dev))
     engine = StyleTransfer(spec, params)
-    _, _, edges, t_valid, t_total = scan_cases(EXACT_SAMPLES, SCAN_WINDOW)
+    w_ext, _, edges, t_valid, t_total = scan_cases(EXACT_SAMPLES, SCAN_WINDOW)
     n_win = t_total // SCAN_WINDOW
+    n_wf, n_k2 = wavefront_launches(w_ext)
     content = synth_audio(EXACT_SAMPLES / 16000, kind="content")
     vg, p, x, phi_c, phi_s = exact_first_eval(engine, t_total, SCAN_WINDOW, t_valid)
     was = chain._BWD_WAVEFRONT
@@ -1484,7 +1533,7 @@ def exact_wavefront_phase(params, dev) -> tuple:
             out[on] = (f, g, dict(_build.LAUNCHES))
         torch.cuda.synchronize()
         (f0, g0, _), (f1, g1, launches) = out[False], out[True]
-        want = {"K2wf": 3 * n_win, "K2": 18 * n_win}
+        want = {"K2wf": n_wf * n_win, "K2": n_k2 * n_win}
         if {k: launches[k] for k in want} != want:
             raise AssertionError(f"{label}: one evaluation launched {launches}, expected {want}")
         print(f"[{label}] first evaluation over {n_win} windows (edge windows {edges}): "
@@ -1493,6 +1542,18 @@ def exact_wavefront_phase(params, dev) -> tuple:
         loss_tol, grad_tol = EXACT_TOL["bfloat16"]
         check("loss, wavefront on against off", f1, f0, loss_tol)
         check("waveform gradient, wavefront on against off", g1, g0, grad_tol)
+        if not (torch.equal(f1, f0) and torch.equal(g1, g0)):
+            raise AssertionError(f"{label}: the first evaluation differs from the wavefront off")
+        print(f"[{label}] first evaluation equal to the wavefront off bit for bit ok")
+        ms = {}
+        for on in (False, True, True, False):
+            chain._BWD_WAVEFRONT = on
+            ms.setdefault(on, []).append(
+                cuda_ms(lambda: vg(p, x, phi_c, phi_s), reps=3, warmup=1))
+        print(f"[{label}] ms per evaluation over {n_win} windows (CUDA events around one "
+              f"evaluation, median of 3): wavefront off {ms[False][0]:.3f}, on {ms[True][0]:.3f}, "
+              f"on {ms[True][1]:.3f}, off {ms[False][1]:.3f}")
+        chain._BWD_WAVEFRONT = True
         torch.cuda.synchronize()
         _build.reset_launches()
         t0 = time.perf_counter()
@@ -1507,12 +1568,13 @@ def exact_wavefront_phase(params, dev) -> tuple:
     losses = [float(v) for v in per["metrics"]]
     evals = int(np.sum(per["evals"]))
     check_losses(label, losses, res.audio, samples=t_valid)
-    if launches["K2wf"] != 3 * n_win * evals or launches["K2"] != 18 * n_win * evals:
+    if launches["K2wf"] != n_wf * n_win * evals or launches["K2"] != n_k2 * n_win * evals:
         raise AssertionError(f"{label}: launches {launches} for {evals} evals over {n_win} "
-                             f"windows, expected K2wf {3 * n_win} and K2 {18 * n_win} per eval")
+                             f"windows, expected K2wf {n_wf * n_win} and K2 {n_k2 * n_win} per "
+                             f"eval (the plan at {w_ext} rows)")
     check_launches(label, launches, {"K1", "K2", "K2wf", "K5", "K6"}, n_win * evals)
     print(f"[{label}] losses {losses}, {evals} L-BFGS evals in {wall:.2f} s wall, K2wf "
-          f"{launches['K2wf']} = 3 x {n_win} windows x {evals} evals ok")
+          f"{launches['K2wf']} = {n_wf} x {n_win} windows x {evals} evals ok")
     return launches, evals, wall
 
 
@@ -1589,7 +1651,7 @@ def main() -> int:
                "audio_style_transfer_tpu/ops/pallas_chain.py:521", "K1"),
         "K2": ("trunk backward layer", src + "trunk_mma.cu",
                "audio_style_transfer_tpu/ops/pallas_chain.py:672", "K2"),
-        "K2wf": ("trunk backward wavefront group of 4 layers", src + "trunk_wf.cu",
+        "K2wf": ("trunk backward wavefront group of 4 layers", src + "trunk_wf_mma.cu",
                  "audio_style_transfer_tpu/ops/pallas_chain.py:851", "K2wf"),
         "K5": ("pair gram forward, L=30", src + "gram.cu",
                "audio_style_transfer_tpu/ops/pallas_gram.py:72", "K5 L=30"),
@@ -1608,8 +1670,11 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if r["fma_ms"] is not None:  # K1, K2, K7f, K7b: the FMA kernel in bf16
+        if r["fma_ms"] is not None:  # K1, K2, K2-wf, K7f, K7b: the FMA kernel in bf16
             kernels[-1]["fma_ms"] = r["fma_ms"]
+        if "k2_launches_ms" in r:  # K2-wf: the K2 launches it replaces
+            kernels[-1].update(k2_launches_ms=r["k2_launches_ms"],
+                               fma_k2_launches_ms=r["fma_k2_launches_ms"])
         if "windowed_ms" in r:  # the same kernel with a valid window
             kernels[-1].update(windowed_ms=r["windowed_ms"],
                                windowed_max_abs_err=r["windowed_max_abs_err"])

@@ -10,6 +10,8 @@ main path's T, the inputs the wrappers refuse, both dtypes, both trunk
 flavours, valid windows, and the autograd wiring.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -496,31 +498,43 @@ def test_encoder_block_kernels_choose_by_dtype_and_count(dev):
         encoder.block_bwd_mma_phase1(x.float(), g.float(), wd.float(), bd, wr.float(), 2, 256)
 
 
-# Valid windows of three 256-row clips for the group (1, 2, 4, 8) at tile 64
-# (bf16) or 32 (float32): edges inside tiles, inside the halos around the
-# tile boundaries, clamped, and the full range.
+def _k2_chain(layer, args, dils, clip, vw=None):
+    """The single-layer K2 launches (``layer``) a group replaces."""
+    dxn, dtaps, masks, inmask, wd, wr = args
+    dx = dxn
+    for j in range(len(dils) - 1, -1, -1):
+        dx = layer(dx, dtaps[j], masks[j], masks[j - 1] if j else inmask, wd[j], wr[j], dils[j],
+                   clip, vw)
+    return dx
+
+
+# Valid windows of three 256-row clips for the group (1, 2, 4, 8) at tile 128
+# (bf16, tensor cores), 64 (bf16, FMA) or 32 (float32): edges inside tiles,
+# inside the halos around the tile boundaries 64 and 128, clamped, and the
+# full range.
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("vw", [(37, 200), (60, 133), (-9, 300), (0, 256)])
+@pytest.mark.parametrize("vw", [(37, 200), (60, 133), (-9, 300), (0, 256), (120, 137)])
 def test_windowed_wavefront_group_kernel(dev, dtype, vw):
     """K2-wf with a valid window: against its windowed plain version, bit
-    for bit against the windowed FMA K2 launches it is built on, and with
-    the full range bit for bit against no window."""
+    for bit against the windowed K2 launches it is built on (bf16: the
+    tensor-core K2-wf against the tensor-core K2, and the FMA K2-wf against
+    the FMA K2; float32: the FMA kernels), and with the full range bit for
+    bit against no window."""
     clip, dils = 256, (1, 2, 4, 8)
     args = _wf_inputs(dev, dtype, dils, 3 * clip, missing=(2,), seed=7)
     group = chain.plan_bwd_groups(dils, clip, args[0].element_size())[0]
+    assert group.tile == (128 if dtype == torch.bfloat16 else 32)
     _build.reset_launches()
     got = chain.group_bwd(*args, group, clip, vw)
     torch.cuda.synchronize()
     assert _build.LAUNCHES["K2wf"] == 1
     want = chain.group_bwd_plain(*args, dils, clip, group.tile, group.splits, vw)
     assert _rel(got, want) <= TOL[dtype]
-    dxn, dtaps, masks, inmask, wd, wr = args
-    dx = dxn
-    for j in range(len(dils) - 1, -1, -1):
-        dx = chain.layer_bwd_fma(dx, dtaps[j], masks[j], masks[j - 1] if j else inmask,
-                                 wd[j], wr[j], dils[j], clip, vw)
-    torch.cuda.synchronize()
-    assert torch.equal(got, dx)
+    assert torch.equal(got, _k2_chain(chain.layer_bwd, args, dils, clip, vw))
+    if dtype == torch.bfloat16:
+        fma_group = chain.plan_bwd_groups(dils, clip, 2, fma=True)[0]
+        assert torch.equal(chain.group_bwd_fma(*args, fma_group, clip, vw),
+                           _k2_chain(chain.layer_bwd_fma, args, dils, clip, vw))
     if max(vw[0], 0) == 0 and min(vw[1], clip) == clip:
         assert torch.equal(got, chain.group_bwd(*args, group, clip))
 
@@ -539,6 +553,18 @@ def test_new_tensor_core_kernels_spill_nothing(dev):
         assert any(frag in name for name in names), (frag, names)
     for name, regs, st, ld, _ in rows:
         assert regs <= 255 and st == 0 and ld == 0, (name, regs, st, ld)
+
+
+def test_tensor_core_wavefront_kernel_spills_nothing(dev):
+    """``tools/kernel_resources.py`` on csrc/trunk_wf_mma.cu: the tensor-core
+    K2-wf fits its 320 threads' registers (at most 204 each) and spills
+    nothing."""
+    from audio_style_transfer_tpu_torch.tools import kernel_resources
+
+    rows = kernel_resources.compile_resources(["trunk_wf_mma.cu"])["trunk_wf_mma.cu"]
+    assert [r[0] for r in rows if "trunk_bwd_wf_mma_kernel" in r[0]], rows
+    for name, regs, st, ld, _ in rows:
+        assert regs <= 204 and st == 0 and ld == 0, (name, regs, st, ld)
 
 
 @pytest.mark.parametrize("flavour", ["chained", "per-layer"])
@@ -595,10 +621,11 @@ def _wf_inputs(dev, dtype, dils, rows, missing=(), seed=0):
                                           ((1, 2, 4), (1,)), ((2, 4), ()), ((8, 4, 2, 1), ())])
 def test_wavefront_group_kernel_matches_plain_and_the_k2_chain(dev, dtype, dils, missing):
     """K2-wf on three flattened clips of 256 rows (halos cross clip edges):
-    against its plain version at the trunk tolerances, bit for bit against
-    the single-layer FMA K2 launches built on the same code (same products,
-    same order per row), and against the K2 launches ``layer_bwd`` makes:
-    bit for bit in float32, at the tolerance in bfloat16 (tensor cores)."""
+    against its plain version at the trunk tolerances, and bit for bit
+    against the K2 launches ``layer_bwd`` makes (bf16: the tensor-core K2-wf
+    against the tensor-core K2, same fragment code in the same order per
+    row; float32: the FMA kernels). In bf16 the FMA K2-wf (``group_bwd_fma``,
+    on the FMA plan's group) also equals the FMA K2 launches bit for bit."""
     clip = 256
     args = _wf_inputs(dev, dtype, dils, 3 * clip, missing)
     group = chain.plan_bwd_groups(dils, clip, args[0].element_size())[0]
@@ -609,20 +636,30 @@ def test_wavefront_group_kernel_matches_plain_and_the_k2_chain(dev, dtype, dils,
     assert _build.LAUNCHES["K2wf"] == 1 and _build.LAUNCHES["K2"] == 0
     want = chain.group_bwd_plain(*args, dils, clip, group.tile, group.splits)
     assert got.dtype == dtype and _rel(got, want) <= TOL[dtype]
-    dxn, dtaps, masks, inmask, wd, wr = args
-    chains = {}
-    for layer in (chain.layer_bwd_fma, chain.layer_bwd):
-        dx = dxn
-        for j in range(len(dils) - 1, -1, -1):
-            dx = layer(dx, dtaps[j], masks[j], masks[j - 1] if j else inmask,
-                       wd[j], wr[j], dils[j], clip)
-        chains[layer] = dx
-    torch.cuda.synchronize()
-    assert torch.equal(got, chains[chain.layer_bwd_fma])
+    assert torch.equal(got, _k2_chain(chain.layer_bwd, args, dils, clip))
+    fma_group = chain.plan_bwd_groups(dils, clip, args[0].element_size(), fma=True)[0]
+    fma = chain.group_bwd_fma(*args, fma_group, clip)
+    assert torch.equal(fma, _k2_chain(chain.layer_bwd_fma, args, dils, clip))
     if dtype == torch.float32:
-        assert torch.equal(got, chains[chain.layer_bwd])
-    else:
-        assert _rel(got, chains[chain.layer_bwd]) <= TOL[dtype]
+        assert fma_group == group and torch.equal(fma, got)
+
+
+# The exact long-form runs' shapes: the scan's halo-extended window of 40960
+# rows with its two edge windows and none, and the 15 s single window.
+@pytest.mark.parametrize("rows,vw", [(40960, (4096, 40960)), (40960, (0, 14336)), (40960, None),
+                                     (237568, None)])
+def test_tensor_core_wavefront_group_at_the_exact_runs_shapes(dev, rows, vw):
+    """bf16, one clip: the tensor-core K2-wf on the plan's group (1, 2, 4, 8)
+    equals the tensor-core K2 launches bit for bit and its plain version at
+    the tolerance."""
+    dils = (1, 2, 4, 8)
+    args = _wf_inputs(dev, torch.bfloat16, dils, rows, missing=(1,), seed=11)
+    group = chain.plan_bwd_groups(dils, rows, 2)[0]
+    assert group.tile == 128
+    got = chain.group_bwd(*args, group, rows, vw)
+    assert torch.equal(got, _k2_chain(chain.layer_bwd, args, dils, rows, vw))
+    want = chain.group_bwd_plain(*args, dils, rows, group.tile, group.splits, vw)
+    assert _rel(got, want) <= TOL[torch.bfloat16]
 
 
 def test_wavefront_group_kernel_refuses_what_it_does_not_take(dev):
@@ -642,13 +679,43 @@ def test_wavefront_group_kernel_refuses_what_it_does_not_take(dev):
         chain.group_bwd(args[0].double(), *args[1:], good, clip)
 
 
+def test_tensor_core_wavefront_group_kernel_refuses_what_it_does_not_take(dev):
+    clip = 240
+    dils = (1, 2, 4, 8)
+    args = _wf_inputs(dev, torch.bfloat16, dils, clip)
+    # Not a whole number of 16-row fragments: the C entry point refuses it.
+    bad = chain.BwdGroup(0, dils, 120, chain.wavefront_splits(dils, 120, None))
+    with pytest.raises(RuntimeError, match="ast_trunk_bwd_group_mma"):
+        chain.group_bwd(*args, bad, clip)
+    # The first step's phase 2 needs 11 fragments, one a warp of 10.
+    wide = (8, 9, 1)
+    args3 = _wf_inputs(dev, torch.bfloat16, wide, 256)
+    group = chain.BwdGroup(0, wide, 128, chain.wavefront_splits(wide, 128, None))
+    with pytest.raises(RuntimeError, match="ast_trunk_bwd_group_mma"):
+        chain.group_bwd(*args3, group, 256)
+    # Four weights and two buffers of 128 + 96 + 16 rows: past a block's shared memory.
+    big = (16, 32)
+    args2 = _wf_inputs(dev, torch.bfloat16, big, 256)
+    group = chain.BwdGroup(0, big, 128, chain.wavefront_splits(big, 128, None))
+    with pytest.raises(ValueError, match="shared memory"):
+        chain.group_bwd(*args2, group, 256)
+    # The tensor-core group is not the FMA kernel's: its dy rows exceed that buffer.
+    mma = chain.plan_bwd_groups(dils, 256, 2)[0]
+    args4 = _wf_inputs(dev, torch.bfloat16, dils, 256)
+    with pytest.raises(RuntimeError, match="ast_trunk_bwd_group"):
+        chain.group_bwd_fma(*args4, mma, 256)
+    # A tile that does not divide the clip.
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        chain.group_bwd(*args, mma, clip)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_trunk_backward_with_the_wavefront_switch_on_card(dev, dtype, monkeypatch):
     """dils (1, 2, 4, 8, 64): with the switch on the backward is one K2-wf
-    launch and one K2 launch. It equals the five K2 launches bit for bit where
-    K2 is the FMA kernel K2-wf is built on (float32; bfloat16 with
-    ``layer_bwd_fma`` in ``layer_bwd``'s place), and at the tolerance against
-    the tensor-core K2 in bfloat16."""
+    launch and one K2 launch, and equals the five K2 launches bit for bit:
+    in both types with the kernels ``layer_bwd`` / ``group_bwd`` choose, and
+    with the FMA kernels in their place (``layer_bwd_fma``, ``group_bwd_fma``
+    on the FMA plan)."""
     rng = np.random.RandomState(5)
     c, dils, emit = chain.WIDTH, (1, 2, 4, 8, 64), (1, 3, 4)
     arrs = [rng.randn(2, 256, c), rng.randn(5, 3, c, c) * 0.05, rng.randn(5, c) * 0.1,
@@ -656,9 +723,12 @@ def test_trunk_backward_with_the_wavefront_switch_on_card(dev, dtype, monkeypatc
     cts = [torch.tensor(rng.randn(2, 256, c), dtype=torch.float32, device=dev).to(dtype)
            for _ in emit]
     grads = {}
+    plan = chain.plan_bwd_groups
     for fma in (False, True):
         if fma:
             monkeypatch.setattr(chain, "layer_bwd", chain.layer_bwd_fma)
+            monkeypatch.setattr(chain, "group_bwd", chain.group_bwd_fma)
+            monkeypatch.setattr(chain, "plan_bwd_groups", functools.partial(plan, fma=True))
         for on in (False, True):
             monkeypatch.setattr(chain, "_BWD_WAVEFRONT", on)
             ts = [torch.tensor(a, dtype=torch.float32, device=dev).to(dtype) for a in arrs]
@@ -670,10 +740,11 @@ def test_trunk_backward_with_the_wavefront_switch_on_card(dev, dtype, monkeypatc
             want = {"K1": 5, "K2": 1, "K2wf": 1} if on else {"K1": 5, "K2": 5, "K2wf": 0}
             assert {k: _build.LAUNCHES[k] for k in want} == want
     assert torch.equal(grads[True, True], grads[True, False])
+    assert torch.equal(grads[False, True], grads[False, False])
     if dtype == torch.float32:
-        assert torch.equal(grads[False, True], grads[False, False])
+        assert torch.equal(grads[False, True], grads[True, True])
     else:
-        assert _rel(grads[False, True], grads[False, False]) <= TOL[dtype]
+        assert _rel(grads[False, True], grads[True, True]) <= TOL[dtype]
 
 
 def test_launch_counters_count_kernel_calls(dev):
