@@ -8,10 +8,12 @@ JAX package so each module's counterpart is easy to find:
   ops/       conv1d, the trunk kernels (chain.py) and the gram kernel
              (gram.py), hand-written CUDA C++ under csrc/, built at first
              use (_build.py)
-  models/    WaveNet AE encoder taps
+  models/    WaveNet AE encoder taps and the teacher-forced decoder
   ckpt/      weights carried across from the JAX package (.npz)
   transfer/  grams, losses, eager L-BFGS, the style-transfer engine
-  cli/       the transfer CLI
+  generate/  encoding and autoregressive synthesis (one CUDA-graphed
+             decoder step per sample on the card)
+  cli/       the transfer, generate and save_embeddings CLIs
 
 Layouts at the public functions match the JAX package: activations
 [B, T, C], conv weights [F, Cin, Cout]. This package imports torch and never

@@ -1,5 +1,6 @@
-"""NSynth WaveNet autoencoder, encoder taps (counterpart of
-audio_style_transfer_tpu/models/wavenet_ae.py; the decoder is not ported yet).
+"""NSynth WaveNet autoencoder: encoder taps and the teacher-forced decoder
+(counterpart of audio_style_transfer_tpu/models/wavenet_ae.py; ``nll_loss``
+and ``forward`` are not ported yet).
 
 Parameters are a plain dict ``{layer: {"w": [F, Cin, Cout], "b": [Cout]}}``
 with the TF scope names of the JAX package, so weights cross over unchanged
@@ -8,7 +9,11 @@ with the TF scope names of the JAX package, so weights cross over unchanged
   [30]     ``enc_``, an alias of extracts[29],
   [31]     the bottleneck conv output before hop pooling.
 
-The trunk runs in one of two flavours, hand-written kernels on CUDA tensors
+``decode_logits`` is plain torch (the JAX package leaves the decoder to XLA):
+the causal dilated convs of ``ops.conv.conv1d``, one product per tap. It is
+the oracle of the incremental decoder in generate/fastgen.py.
+
+The encoder trunk runs in one of two flavours, hand-written kernels on CUDA tensors
 and their plain torch versions on CPU tensors either way:
   - the chained trunk, ``ops.chain.fused_trunk`` (K1/K2): every config but
     the next one;
@@ -30,7 +35,7 @@ from audio_style_transfer_tpu_torch.ops.chain import (
     stack_trunk_weights,
     window_rows,
 )
-from audio_style_transfer_tpu_torch.ops.conv import conv1d, pool1d
+from audio_style_transfer_tpu_torch.ops.conv import condition, conv1d, pool1d, shift_right
 from audio_style_transfer_tpu_torch.ops.encoder import fused_encoder_block
 
 Params = dict[str, dict[str, torch.Tensor]]
@@ -57,6 +62,10 @@ class WaveNetAEConfig:
     # fused_encoder and not chain_encoder, else the chained trunk.
     fused_encoder: bool = False
     chain_encoder: bool = False
+
+    def dilation(self, layer: int) -> int:
+        """Decoder dilation pattern (reference model.py:149)."""
+        return 2 ** (layer % self.num_stages)
 
     def ae_dilation(self, layer: int) -> int:
         """Encoder dilation pattern (reference model.py:98)."""
@@ -185,3 +194,36 @@ def encoder_extracts(params: Params, x_quantized: torch.Tensor,
     extracts = encoder_trunk(params, x_quantized, cfg, needed_taps=needed_taps)
     encoding = pool1d(extracts[-1], cfg.ae_hop_length, mode="avg")
     return extracts, encoding
+
+
+def decode_logits(params: Params, x_quantized: torch.Tensor, encoding: torch.Tensor,
+                  cfg: WaveNetAEConfig | None = None) -> torch.Tensor:
+    """Teacher-forced WaveNet decoder (reference model.py:136-187): logits
+    [batch, time, 256] of x_quantized [batch, time] (mu-law quantized space)
+    conditioned on encoding [batch, time / hop, bottleneck]. Weights of
+    another dtype than ``cfg.compute_dtype`` (bfloat16 ones) are cast to it,
+    as the JAX ``_apply`` does."""
+    cfg = cfg or WaveNetAEConfig()
+    dtype = cfg.compute_dtype
+    x_scaled = (x_quantized.to(torch.float32) / 128.0).to(dtype)[..., None]
+    if x_scaled.shape[1] % encoding.shape[1]:
+        raise ValueError(f"decode_logits: time {x_scaled.shape[1]} is no multiple of "
+                         f"{encoding.shape[1]} encoding frames")
+    encoding = encoding.to(dtype)
+
+    def apply(name, x, dilation=1):
+        return _apply(params, name, x, dilation=dilation, causal=True, dtype=dtype)
+
+    l = apply("startconv", shift_right(x_scaled))
+    s = apply("skip_start", l)
+    for i in range(1, cfg.num_layers + 1):
+        d = apply(f"dilatedconv_{i}", l, dilation=cfg.dilation(i - 1))
+        d = condition(d, apply(f"cond_map_{i}", encoding))
+        m = d.shape[2] // 2
+        d = torch.sigmoid(d[:, :, :m]) * torch.tanh(d[:, :, m:])
+        l = l + apply(f"res_{i}", d)
+        s = s + apply(f"skip_{i}", d)
+    s = torch.relu(s)
+    s = condition(apply("out1", s), apply("cond_map_out1", encoding))
+    s = torch.relu(s)
+    return apply("logits", s).to(torch.float32)

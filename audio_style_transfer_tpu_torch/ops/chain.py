@@ -642,10 +642,16 @@ def group_bwd_fma(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows:
                            valid_window=valid_window)
 
 
-def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int, valid_window=None):
+def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int, valid_window=None, keep=None):
     """All layers forward on [rows, C]: (outs per layer, masks per layer,
     input relu mask). Weights are cast to the activation dtype, biases to
-    float32, as the kernels take them."""
+    float32, as the kernels take them.
+
+    ``keep``: None keeps everything a backward needs. A set of layers makes
+    it a gradient-free pass: only those layers' outputs are kept (the others
+    are None), every other output and every mask is dropped as soon as the
+    next layer has consumed it, and no masks come back. The launches and the
+    kept outputs are the same either way."""
     dt = x2d.dtype
     wd, wr = wd.to(dt).contiguous(), wr.to(dt).contiguous()
     bd, br = bd.to(_F32).contiguous(), br.to(_F32).contiguous()
@@ -653,7 +659,11 @@ def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int, valid_window=None):
     cur = x2d
     for j, d in enumerate(dils):
         cur, m, im = layer_fwd(cur, wd[j], bd[j], wr[j], br[j], d, clip_rows,
-                               want_inmask=(j == 0), valid_window=valid_window)
+                               want_inmask=(j == 0 and keep is None),
+                               valid_window=valid_window)
+        if keep is not None:
+            outs.append(cur if j in keep else None)
+            continue
         if j == 0:
             inmask = im
         outs.append(cur)
@@ -741,7 +751,12 @@ def fused_trunk(x, wd, bd, wr, br, dils, emit, valid_window=None):
 
     ``valid_window``: (lo, hi) Python ints; every layer's output is re-zeroed
     outside [lo, hi) (the halo windows of the exact long-form scan). The
-    window is one clip's state: batch 1 only, as in the JAX package."""
+    window is one clip's state: batch 1 only, as in the JAX package.
+
+    When grad mode is off or no input needs a gradient, the pass keeps only
+    the emitted taps (``trunk_forward(keep=)``), as the JAX
+    ``fastgen._encoding_only`` keeps one tap: the same K1 launches, the same
+    taps bit for bit, without 30 layers' outputs and mask bytes."""
     dils = tuple(int(d) for d in dils)
     emit = tuple(sorted(set(int(e) for e in emit) | {len(dils) - 1}))
     if valid_window is not None:
@@ -750,6 +765,12 @@ def fused_trunk(x, wd, bd, wr, br, dils, emit, valid_window=None):
                 f"fused_trunk: a valid window is one clip's state, got batch {x.shape[0]}")
         valid_window = (int(valid_window[0]), int(valid_window[1]))
     if x.dim() == 2:
-        return tuple(tp[0] for tp in TrunkFunction.apply(x[None], wd, bd, wr, br, dils, emit,
-                                                         valid_window))
-    return TrunkFunction.apply(x, wd, bd, wr, br, dils, emit, valid_window)
+        return tuple(tp[0] for tp in fused_trunk(x[None], wd, bd, wr, br, dils, emit,
+                                                 valid_window))
+    if torch.is_grad_enabled() and any(a.requires_grad for a in (x, wd, bd, wr, br)):
+        return TrunkFunction.apply(x, wd, bd, wr, br, dils, emit, valid_window)
+    # Nothing needs a gradient: keep the emitted taps and nothing else.
+    b, t, c = x.shape
+    outs, _, _ = trunk_forward(x.reshape(b * t, c).contiguous(), wd, bd, wr, br, dils, t,
+                               valid_window, keep=set(emit))
+    return tuple(outs[j].view(b, t, c) for j in emit)

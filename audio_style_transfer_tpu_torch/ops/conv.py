@@ -69,3 +69,19 @@ def pool1d(x: torch.Tensor, window_length: int, mode: str = "avg",
     if mode == "max":
         return xr.amax(dim=2)
     raise ValueError(f"unknown pooling mode {mode!r}")
+
+
+def shift_right(x: torch.Tensor) -> torch.Tensor:
+    """Shift time right by one, zero-filling t=0 (reference masked.py:24-37)."""
+    return F.pad(x, (0, 0, 1, 0))[:, : x.shape[1], :]
+
+
+def condition(x: torch.Tensor, encoding: torch.Tensor) -> torch.Tensor:
+    """Broadcast-add a hop-rate encoding [B, F, C] onto a sample-rate signal
+    [B, T, C], T a multiple of F (reference model.py:34-55)."""
+    mb, length, channels = x.shape
+    enc_mb, enc_length, enc_channels = encoding.shape
+    if enc_mb != mb or enc_channels != channels or length % enc_length:
+        raise ValueError(f"condition: cannot add {tuple(encoding.shape)} onto {tuple(x.shape)}")
+    x = x.reshape(mb, enc_length, length // enc_length, channels)
+    return (x + encoding[:, :, None, :]).reshape(mb, length, channels)

@@ -1,8 +1,10 @@
 """Mu-law codecs (counterpart of audio_style_transfer_tpu/signal/mu_law.py).
 
 ``mu_law_numpy``/``inv_mu_law_numpy`` are the host-side floor-quantizing
-encoder and decoder (reference utils.py:79-90); ``mu_law``/``inv_mu_law``
-work on tensors, the latter gradient-safe at 0 (reference utils.py:92-104).
+encoder and decoder (reference utils.py:79-90); ``mu_law_quantize`` is the
+same floor-quantizing encoder on tensors; ``mu_law``/``inv_mu_law`` work on
+tensors, the former continuous (no floor), the latter gradient-safe at 0
+(reference utils.py:92-104).
 """
 
 from __future__ import annotations
@@ -26,6 +28,12 @@ def inv_mu_law_numpy(x, mu: float = _MU):
     out = (x + 0.5) * 2.0 / (mu + 1.0)
     out = np.sign(out) / mu * ((1.0 + mu) ** np.abs(out) - 1.0)
     return np.where(x == 0, x, out)
+
+
+def mu_law_quantize(x: torch.Tensor, mu: float = _MU) -> torch.Tensor:
+    """Floor-quantizing mu-law encode on tensors. Same math as mu_law_numpy."""
+    out = torch.sign(x) * torch.log1p(mu * torch.abs(x)) / np.log1p(mu)
+    return torch.floor(out * 128.0)
 
 
 def mu_law(x: torch.Tensor, mu: float = _MU) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Waveform file IO without librosa (the port's own copy of
 audio_style_transfer_tpu/utils/audio_io.py: ``read_wav``, ``write_wav``,
-``resample``, ``load_audio``).
+``resample``, ``load_audio``, ``load_audio_mono``, ``trim_for_encoding``).
 
 The reference leans on librosa/audioread for decoding + resampling
 (reference utils.py:260-264, nsynth/utils.py:54-67).  This image has no
@@ -91,3 +91,22 @@ def load_audio(fn: str, sr: int | None = None, audio_channel: int | None = None)
     if audio_channel is not None:
         return audio[audio_channel], sr
     return audio, sr
+
+
+def load_audio_mono(path: str, sample_length: int = 64000, sr: int = 16000):
+    """nsynth-style loader (reference nsynth/utils.py:54-67): mono + truncate."""
+    audio, _ = load_audio(path, sr=sr)
+    if audio.ndim > 1:
+        audio = audio.mean(axis=0)
+    return audio[:sample_length]
+
+
+def trim_for_encoding(wav_data: np.ndarray, sample_length: int, hop_length: int = 512):
+    """Trim audio to a multiple of hop_length (reference nsynth/utils.py:139-169)."""
+    if wav_data.ndim == 1:
+        sample_length = min(sample_length, wav_data.size)
+        sample_length = (sample_length // hop_length) * hop_length
+        return wav_data[:sample_length], sample_length
+    sample_length = min(sample_length, wav_data.shape[-1])
+    sample_length = (sample_length // hop_length) * hop_length
+    return wav_data[:, :sample_length], sample_length

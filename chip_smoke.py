@@ -68,6 +68,20 @@ Phases (any failure raises and exits non-zero):
      long-form CLI (--exact, bf16, --stack 0 --gamma 1e-3) on a 15 s clip as
      one window and as a scan of 32768-sample windows, launches per
      evaluation checked, with evals/s, ms per evaluation and peak memory;
+     then generation at full width (init_params(0), f32 unless said):
+     `[generate encode]` ``encode`` on 16 clips of 64 000 samples {K1: 30,
+     the rest 0}, its peak memory beside what keeping every layer's output
+     and mask bytes would hold, the first two clips against the CPU;
+     `[generate decoder]` the graphed ``incremental_logits`` against
+     ``decode_logits`` on the card (B=2, 4 frames), its first 64 steps
+     against the eager step bit for bit and against the CPU, the sampler
+     graphed against eager bit for bit; `[generate synth]` ``synthesize``
+     over 8 frames at B in {1, 8, 32} x {f32, bf16, int8}: us per sample
+     per stream, samples/s, the weight-streaming floor and the ratio to it,
+     peak memory, the cond bytes; the eager loop's ms per step;
+     `[generate step]` the graphed step's device operations and time by
+     kernel (torch.profiler); `[generate cli]` save_embeddings and generate
+     (from the .npy files, and from the wavs with --int8) as subprocesses;
   6. print the per-kernel JSON line (time, plain time, bound, library time,
      FMA time, windowed time, the error at the exact runs' shapes), then the
      result line.
@@ -1578,6 +1592,301 @@ def exact_wavefront_phase(params, dev) -> tuple:
     return launches, evals, wall
 
 
+# Generation: save_embeddings' default batch (16 clips of 64 000 samples) for
+# the encoder; the decoder at full width (30 layers of 512, skip 256).
+GEN_CLIPS, GEN_SAMPLES = 16, 64000
+GEN_FRAMES = 8  # frames of each timed synthesis (4096 samples)
+GEN_CHECK_FRAMES = 4  # frames of the graphed decoder against decode_logits
+GEN_CLI_SAMPLES = 8192  # samples of each wav of the CLI runs
+GEN_BATCHES = (1, 8, 32)
+GEN_FORMATS = ("float32", "bfloat16", "int8")
+GEN_STEPS = 64  # steps of the graphed-against-eager and card-against-CPU checks
+GEN_EAGER_STEPS = 32  # steps of the eager loop's timing
+# Logits, max|d| <= rel * max|ref| + abs: f32 sums of 30 residual layers in
+# another order (the same bound for bf16 weights: f32 products of
+# bf16-rounded weights); int8 rounds x to bf16 before each product.
+GEN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 1e-5), "int8": (1e-3, 1e-4)}
+# The encodings of the f32 encoder on the card against the plain K1 path on
+# the CPU: 30 layers of f32 sums in another order.
+ENCODE_TOL = 1e-4
+
+
+def on_device(params, dev) -> dict:
+    return {k: {n: v.to(dev) for n, v in e.items()} for k, e in params.items()}
+
+
+def gen_clips(n: int, samples: int) -> np.ndarray:
+    """n distinct clips: the two synthetic kinds, each rolled its own way."""
+    return np.stack([np.roll(synth_audio(samples / 16000, kind=("content", "style")[i % 2]),
+                             997 * i)[:samples] for i in range(n)])
+
+
+def check_logits(name: str, got, ref, fmt: str) -> float:
+    rel, abs_ = GEN_TOL[fmt]
+    err = float((got.float().cpu() - ref.float().cpu()).abs().max())
+    limit = rel * float(ref.abs().max()) + abs_
+    ok = err <= limit
+    print(f"  {name}: max|d| {err:.3e} (limit {limit:.3e} = {rel:.0e} * max|ref| + {abs_:.0e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: logits disagree")
+    return err
+
+
+def generate_encode_phase(params, dev) -> tuple[dict, np.ndarray]:
+    """``encode`` on 16 clips of 64 000 samples, f32: K1 30 times and nothing
+    else, its peak memory beside what keeping every layer's output and mask
+    bytes would hold, and the first two clips against the plain K1 path on
+    the CPU. Returns (launches, encodings)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.generate import fastgen
+    from audio_style_transfer_tpu_torch.ops import _build
+
+    label = "generate encode"
+    wav = gen_clips(GEN_CLIPS, GEN_SAMPLES)
+    p_dev = on_device(params, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    enc = fastgen.encode(wav, p_dev, sample_length=GEN_SAMPLES)
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    rows = GEN_CLIPS * GEN_SAMPLES
+    held = LAYERS * rows * C * 4 + LAYERS * rows * C  # f32 outputs + mask bytes
+    print(f"[{label}] {GEN_CLIPS} clips x {GEN_SAMPLES} samples, f32: {enc.shape} in "
+          f"{wall:.3f} s; peak device memory {peak / 1e9:.3f} GB ({(peak - base) / 1e9:.3f} GB "
+          f"above the {base / 1e9:.3f} GB held before the call); keeping every layer's output "
+          f"and mask bytes would hold {held / 1e9:.3f} GB more")
+    want = {k: LAYERS if k == "K1" else 0 for k in KERNELS}
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches}, expected {want}")
+    print(f"[{label}] launches {launches}: K1 {LAYERS}, the rest 0 ok")
+    if peak - base >= held:
+        raise AssertionError(f"[{label}] the gradient-free pass held {peak - base} bytes")
+    if not np.all(np.isfinite(enc)) or enc.shape != (GEN_CLIPS, GEN_SAMPLES // 512, 16):
+        raise AssertionError(f"[{label}] encodings not finite or of shape {enc.shape}")
+    enc_cpu = fastgen.encode(wav[:2], params, sample_length=GEN_SAMPLES)
+    check("encodings of clips 0-1, card (K1) vs CPU (plain)", torch.tensor(enc[:2]),
+          torch.tensor(enc_cpu), ENCODE_TOL)
+    return launches, enc
+
+
+def generate_decoder_phase(params, dev, enc16: np.ndarray) -> None:
+    """The graphed step against its references, f32, B=2: the graphed
+    ``incremental_logits`` against ``decode_logits`` on the card over 4
+    frames; the first steps graphed against eager on the card bit for bit,
+    and against the CPU's plain loop; the sampler graphed against eager bit
+    for bit on one frame."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.generate import fastgen
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import decode_logits
+    from audio_style_transfer_tpu_torch.signal.mu_law import mu_law_numpy
+
+    label = "generate decoder"
+    p_dev = on_device(params, dev)
+    frames = GEN_CHECK_FRAMES
+    xq = mu_law_numpy(gen_clips(2, frames * 512)).astype(np.float32)
+    enc = enc16[:2, :frames]
+    t0 = time.perf_counter()
+    got = fastgen.incremental_logits(p_dev, xq, enc)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ref = decode_logits(p_dev, torch.tensor(xq, device=dev), torch.tensor(enc, device=dev))
+    print(f"[{label}] f32, B=2, {frames} frames ({frames * 512} steps, graphed, {wall:.3f} s "
+          f"with set-up): incremental_logits against decode_logits on the card")
+    check_logits("graphed incremental vs teacher-forced", got, ref, "float32")
+    n = GEN_STEPS
+    graphed = fastgen.incremental_logits(p_dev, xq[:, :n], enc[:, :1])
+    eager = fastgen.incremental_logits(p_dev, xq[:, :n], enc[:, :1], eager=True)
+    torch.cuda.synchronize()
+    if not torch.equal(graphed, eager):
+        raise AssertionError(f"[{label}] graphed step differs from the eager step")
+    print(f"  first {n} steps, graphed vs eager on the card: equal bit for bit ok "
+          f"(and the {frames}-frame run's first {n}: "
+          f"{'equal' if torch.equal(got[:, :n], graphed) else 'differ'})")
+    cpu = fastgen.incremental_logits(params, xq[:, :n], enc[:, :1])
+    check_logits(f"first {n} steps, card vs CPU", graphed, cpu, "float32")
+    audio = [fastgen.sample_loop(p_dev, enc[:, :1], torch.Generator(device=dev).manual_seed(0),
+                                 eager=e) for e in (False, True)]
+    if not torch.equal(audio[0], audio[1]):
+        raise AssertionError(f"[{label}] graphed sampler differs from the eager one")
+    print(f"  sampler, one frame ({512} steps), graphed vs eager: equal bit for bit ok")
+
+
+def generate_synth_phase(params, dev, enc16: np.ndarray, smi: str) -> list:
+    """``synthesize`` over 8 frames at B in {1, 8, 32} x {f32, bf16, int8}:
+    us per sample per stream (the set-up included, and steady: the 8-frame
+    run less a 1-frame run), aggregate samples/s, the weight-streaming floor
+    of a step, the ratio to it, peak memory and the cond bytes; then the
+    eager loop's us per step at B=1 f32. Returns the rows."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.generate import fastgen
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+
+    label = "generate synth"
+    cfg = WaveNetAEConfig()
+    p_dev = on_device(params, dev)
+    steps = GEN_FRAMES * 512
+    kwargs = {"float32": {}, "bfloat16": {"dtype": torch.bfloat16}, "int8": {"quantize": "int8"}}
+    stored = {"float32": p_dev, "bfloat16": {k: {n: v.to(torch.bfloat16) for n, v in e.items()}
+                                             for k, e in p_dev.items()},
+              "int8": fastgen.quantize_params_int8(p_dev)}
+    rows = []
+    for fmt in GEN_FORMATS:
+        floor_us = fastgen.decoder_weight_bytes(stored[fmt], cfg) / PEAK_BYTES_S * 1e6
+        for b in GEN_BATCHES:
+            enc = np.stack([enc16[i % GEN_CLIPS, GEN_FRAMES * (i // GEN_CLIPS):][:GEN_FRAMES]
+                            for i in range(b)])
+            walls = {}
+            for frames in (1, GEN_FRAMES):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+                t0 = time.perf_counter()
+                audio = fastgen.synthesize(enc[:, :frames], params=p_dev, seed=0, **kwargs[fmt])
+                walls[frames] = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated(dev)
+            us = walls[GEN_FRAMES] / steps * 1e6
+            steady = (walls[GEN_FRAMES] - walls[1]) / (steps - 512) * 1e6
+            row = {"format": fmt, "batch": b, "us_per_sample": us, "steady_us": steady,
+                   "samples_per_s": b * steps / walls[GEN_FRAMES], "floor_us": floor_us,
+                   "ratio": steady / floor_us, "peak_gb": peak / 1e9,
+                   "cond_bytes": fastgen.cond_bytes(cfg, b, GEN_FRAMES)}
+            rows.append(row)
+            print(f"[{label}] {fmt} B={b}: {us:.1f} us per sample per stream with set-up, "
+                  f"{steady:.1f} steady; {row['samples_per_s']:.0f} samples/s; floor "
+                  f"{floor_us:.1f} us per step (weights over {PEAK_BYTES_S / 1e12:.2f} TB/s, "
+                  f"shared by the batch), steady / floor {row['ratio']:.1f}; peak "
+                  f"{row['peak_gb']:.3f} GB; cond {row['cond_bytes']} B ({smi})")
+            ok = (audio.shape == (b, steps) and np.all(np.isfinite(audio))
+                  and np.abs(audio).max() <= 1.0 and np.abs(audio).max() > 0)
+            if not ok:
+                raise AssertionError(f"[{label}] {fmt} B={b}: audio of shape {audio.shape}, "
+                                     f"max |x| {np.abs(audio).max()}")
+    xq = np.zeros((1, GEN_EAGER_STEPS), np.float32)
+    for eager in (True, False):
+        fastgen.incremental_logits(p_dev, xq, enc16[:1, :1], eager=eager)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fastgen.incremental_logits(p_dev, xq, enc16[:1, :1], eager=eager)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) / GEN_EAGER_STEPS * 1e3
+        print(f"[{label}] {'eager' if eager else 'graphed'} loop, f32 B=1: {ms:.3f} ms per step "
+              f"over {GEN_EAGER_STEPS} steps (set-up included)")
+    return rows
+
+
+def generate_device_ops(params, dev, step_us: float) -> None:
+    """What the graphed step's device time goes to, f32, B=1: torch.profiler
+    over a graphed teacher-forced run of 32 and one of 96 steps; the
+    difference, per step and by kernel, is the replays' alone (the warm-up
+    step, the capture and the set-up cancel). ``step_us`` is the step's wall
+    time from the synth phase, for the busy share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_style_transfer_tpu_torch.generate import fastgen
+
+    def device_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    p_dev = on_device(params, dev)
+    enc = np.zeros((1, 1, 16), np.float32)
+    per = {}
+    for steps in (32, 96):
+        xq = np.zeros((1, steps), np.float32)
+        fastgen.incremental_logits(p_dev, xq, enc)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fastgen.incremental_logits(p_dev, xq, enc)
+            torch.cuda.synchronize()
+        per[steps] = {e.key: (e.count, device_us(e)) for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA}
+    keys = set(per[32]) | set(per[96])
+    diff = {k: tuple((per[96].get(k, (0, 0.0))[i] - per[32].get(k, (0, 0.0))[i]) / 64
+                     for i in (0, 1)) for k in keys}
+    count = sum(c for c, _ in diff.values())
+    us = sum(t for _, t in diff.values())
+    if count <= 0:
+        print("[generate step] device operations per step: not measured (the profiler saw none)")
+        return
+    top = sorted(diff.items(), key=lambda kv: -kv[1][1])[:6]
+    print(f"[generate step] graphed, f32 B=1 (96-step run less 32-step run, per step): "
+          f"{count:.1f} device operations, {us:.1f} us of device time, busy share "
+          f"{us / step_us:.3f} of the {step_us:.1f} us step; largest: "
+          + "; ".join(f"{k[:48]} x{c:.1f} {t:.1f} us" for k, (c, t) in top))
+
+
+def generate_cli_phase(params, dev) -> None:
+    """Both CLIs as subprocesses on the card: ``init_params(0)`` as the .npz
+    checkpoint, two synthetic 8192-sample wavs; save_embeddings, then
+    generate from the .npy files, and beside them generate from the wav
+    directory with --int8."""
+    from audio_style_transfer_tpu_torch.utils.audio_io import read_wav
+
+    label = "generate cli"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "w.npz")
+        np.savez(ckpt, **{f"{k}/{n}": v.cpu().numpy() for k, e in params.items()
+                          for n, v in e.items()})
+        wavs = os.path.join(tmp, "wavs")
+        os.makedirs(wavs)
+        for name, kind in (("a", "content"), ("b", "style")):
+            write_wav(os.path.join(wavs, f"{name}.wav"),
+                      synth_audio(GEN_CLI_SAMPLES / 16000, kind=kind))
+        def argv(cli, args):
+            return [sys.executable, "-m", f"audio_style_transfer_tpu_torch.cli.{cli}", *args,
+                    "--checkpoint_path", ckpt, "--device", str(dev)]
+
+        def report(cli, args, rc, out, err, t0):
+            shown = " ".join(os.path.relpath(a, tmp) if a.startswith(tmp) else a for a in args)
+            print(f"[{label}] {cli} {shown}: rc {rc} in {time.perf_counter() - t0:.1f} s")
+            if rc != 0:
+                raise AssertionError(f"[{label}] {cli} failed:\n{out}\n{err[-3000:]}")
+
+        # generate from the wavs needs nothing of the other two: it runs beside them.
+        side_args = ["--source_path", wavs, "--save_path", os.path.join(tmp, "gen_wav"),
+                     "--batch_size", "2", "--int8"]
+        t_side = time.perf_counter()
+        side = subprocess.Popen(argv("generate", side_args), cwd=here, env=env, text=True,
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+        try:
+            for cli, args in (
+                ("save_embeddings", ["--source_path", wavs, "--save_path",
+                                     os.path.join(tmp, "emb")]),
+                ("generate", ["--source_path", os.path.join(tmp, "emb"), "--save_path",
+                              os.path.join(tmp, "gen_npy"), "--batch_size", "2"]),
+            ):
+                t0 = time.perf_counter()
+                r = subprocess.run(argv(cli, args), cwd=here, env=env, capture_output=True,
+                                   text=True, timeout=600)
+                report(cli, args, r.returncode, r.stdout, r.stderr, t0)
+            out, err = side.communicate(timeout=600)
+            report("generate", side_args, side.returncode, out, err, t_side)
+        finally:
+            if side.poll() is None:
+                side.kill()
+                side.communicate()
+        for name in ("a", "b"):
+            enc = np.load(os.path.join(tmp, "emb", f"{name}_embeddings.npy"))
+            if enc.shape != (GEN_CLI_SAMPLES // 512, 16) or not np.all(np.isfinite(enc)):
+                raise AssertionError(f"[{label}] embedding {name}: {enc.shape}")
+            for out in (f"gen_npy/gen_{name}_embeddings.wav", f"gen_wav/gen_{name}.wav"):
+                audio, sr = read_wav(os.path.join(tmp, out))
+                if audio.shape != (1, GEN_CLI_SAMPLES) or not np.all(np.isfinite(audio)) \
+                        or sr != 16000:
+                    raise AssertionError(f"[{label}] {out}: {audio.shape} at {sr}")
+        print(f"[{label}] embeddings [{GEN_CLI_SAMPLES // 512}, 16] and {GEN_CLI_SAMPLES}-sample "
+              "wavs from both generate runs exist and are finite ok")
+
+
 def main() -> int:
     import torch
 
@@ -1635,6 +1944,11 @@ def main() -> int:
         "exact, one window": exact_phase(dev, "exact, one window", None),
         "exact, scan": exact_phase(dev, "exact, scan", SCAN_WINDOW),
     })
+    gen_launches, enc16 = generate_encode_phase(params, dev)
+    generate_decoder_phase(params, dev, enc16)
+    synth_rows = generate_synth_phase(params, dev, enc16, smi)
+    generate_device_ops(params, dev, synth_rows[0]["steady_us"])
+    generate_cli_phase(params, dev)
     for label, (_, evals, wall, *_) in runs.items():
         print(f"[{label}] {evals} evals, {evals / wall:.2f} evals/s setup included ({smi})")
     # bf16 against f32 from the same 1e-6 start. Printed, not yet a check: the
@@ -1643,7 +1957,7 @@ def main() -> int:
     for label in cli_paths:
         b16, f32 = runs[label][3], runs[f"{label}, float32"][3]
         print(f"[{label}] final loss bf16 {b16:.4f} / f32 {f32:.4f} = {b16 / f32:.4f}")
-    launches = {k: sum(r[0][k] for r in runs.values()) for k in KERNELS}
+    launches = {k: sum(r[0][k] for r in runs.values()) + gen_launches[k] for k in KERNELS}
 
     src = "audio_style_transfer_tpu_torch/csrc/"
     meta = {  # kernel: (name, source, replaces, the timing key)

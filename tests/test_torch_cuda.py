@@ -763,3 +763,92 @@ def test_launch_counters_count_kernel_calls(dev):
     encoder.block_fwd(x.cpu(), wd.cpu(), b.cpu(), w.cpu(), b.cpu(), 1, 64)
     assert {k: _build.LAUNCHES[k] for k in ("K5", "K6", "K7f", "K7b")} == {
         "K5": 1, "K6": 1, "K7f": 1, "K7b": 1}
+
+
+# Generation (generate/fastgen.py): the decoder step captured into a CUDA
+# graph and replayed per sample. Full width (512, skip 256) with one stage of
+# dilations (1..512, 10 layers) so that the CPU plain loops stay short.
+GEN_CFG = dict(num_layers=10)
+# Logits: f32 and bf16 weights 1e-4 * max + 1e-5 (f32 sums in other orders).
+# int8 1e-2 * max + 1e-4: int8 rounds each product's input x to bf16, and a
+# rounding that flips on an upstream ulp moves x by 2^-8 of itself and later
+# inputs across other rounding boundaries; at this geometry two f32 sum
+# orders on the CPU alone put the int8 logits 3.5e-3 * max apart
+# (tools/probe_int8_order.py), the f32 ones 5.7e-7 * max.
+GEN_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-4, 1e-5), "int8": (1e-2, 1e-4)}
+
+
+def _gen_setup(dev, fmt="float32", batch=2, frames=2, seed=0):
+    from audio_style_transfer_tpu_torch.generate import fastgen
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, init_params
+
+    cfg = WaveNetAEConfig(**GEN_CFG)
+    params = init_params(seed, cfg)
+    if fmt == "bfloat16":
+        params = {k: {m: v.to(torch.bfloat16) for m, v in e.items()} for k, e in params.items()}
+    elif fmt == "int8":
+        params = fastgen.quantize_params_int8(params)
+    gen = np.random.RandomState(seed)
+    xq = np.floor(gen.uniform(-128, 128, (batch, frames * cfg.ae_hop_length))).astype(np.float32)
+    enc = (gen.randn(batch, frames, cfg.ae_bottleneck_width) * 0.5).astype(np.float32)
+    on_card = {k: {m: v.to(dev) for m, v in e.items()} for k, e in params.items()}
+    return fastgen, cfg, params, on_card, xq, enc
+
+
+def _within(got, ref, fmt):
+    rel, abs_ = GEN_TOL[fmt]
+    return float((got.cpu() - ref.cpu()).abs().max()) <= rel * float(ref.abs().max()) + abs_
+
+
+def test_graphed_step_equals_the_eager_step_bit_for_bit(dev):
+    fastgen, cfg, _, p, xq, enc = _gen_setup(dev)
+    graphed = fastgen.incremental_logits(p, xq[:, :200], enc[:, :1], cfg)
+    eager = fastgen.incremental_logits(p, xq[:, :200], enc[:, :1], cfg, eager=True)
+    torch.cuda.synchronize()
+    assert torch.equal(graphed, eager)
+    audio = [fastgen.sample_loop(p, enc[:, :1], torch.Generator(device=dev).manual_seed(5), cfg,
+                                 eager=eager) for eager in (False, True)]
+    assert torch.equal(audio[0], audio[1])
+
+
+def test_graphed_incremental_logits_match_decode_logits(dev):
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import decode_logits
+
+    fastgen, cfg, _, p, xq, enc = _gen_setup(dev)
+    got = fastgen.incremental_logits(p, xq, enc, cfg)
+    ref = decode_logits(p, torch.tensor(xq, device=dev), torch.tensor(enc, device=dev), cfg)
+    torch.cuda.synchronize()
+    assert got.device.type == "cuda" and _within(got, ref, "float32")
+
+
+@pytest.mark.parametrize("fmt", ["float32", "bfloat16", "int8"])
+def test_graphed_formats_match_their_cpu_plain_loops(dev, fmt):
+    fastgen, cfg, cpu, p, xq, enc = _gen_setup(dev, fmt)
+    got = fastgen.incremental_logits(p, xq, enc, cfg)
+    ref = fastgen.incremental_logits(cpu, xq, enc, cfg)
+    torch.cuda.synchronize()
+    assert _within(got, ref, fmt)
+
+
+def test_a_cuda_tensor_reaches_the_eager_loop_only_when_asked(dev, monkeypatch):
+    """Graphed, the step function runs twice (the warm-up and the capture)
+    however many samples; eager, once per sample."""
+    fastgen, cfg, _, p, xq, enc = _gen_setup(dev, frames=1)
+    calls = []
+    step = fastgen._decoder_step
+    monkeypatch.setattr(fastgen, "_decoder_step", lambda *a: calls.append(1) or step(*a))
+    fastgen.synthesize(enc, params=p, cfg=cfg)
+    assert len(calls) == 2
+    calls.clear()
+    fastgen.sample_loop(p, enc, torch.Generator(device=dev), cfg, eager=True)
+    assert len(calls) == cfg.ae_hop_length
+
+
+def test_int8_weights_stay_int8_on_the_device(dev):
+    fastgen, cfg, _, p, _, _ = _gen_setup(dev, "int8")
+    w = fastgen._DecoderWeights(p, cfg)
+    for lin in (*w.dil, *w.res_skip, w.skip_start, w.out1, w.logits):
+        assert lin.w.dtype == torch.int8 and lin.w.device.type == "cuda"
+        assert lin.scale.dtype == torch.float32
+    bf = fastgen._DecoderWeights(_gen_setup(dev, "bfloat16")[3], cfg)
+    assert all(lin.w.dtype == torch.bfloat16 for lin in (*bf.dil, *bf.res_skip))

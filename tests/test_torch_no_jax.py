@@ -40,6 +40,10 @@ MODULES = [
     "audio_style_transfer_tpu_torch.parallel",
     "audio_style_transfer_tpu_torch.parallel.halo",
     "audio_style_transfer_tpu_torch.cli.transfer",
+    "audio_style_transfer_tpu_torch.generate",
+    "audio_style_transfer_tpu_torch.generate.fastgen",
+    "audio_style_transfer_tpu_torch.cli.generate",
+    "audio_style_transfer_tpu_torch.cli.save_embeddings",
     "chip_smoke",
 ]
 
@@ -52,9 +56,10 @@ def _run(code, cwd=REPO, args=()):
 
 
 def test_port_imports_no_jax_and_builds_nothing(tmp_path):
-    """Every module of the port, then a one-epoch CPU run of its CLI and one
-    of its ``--exact`` mode, in one subprocess: no JAX, no module of the JAX
-    package, no kernel library."""
+    """Every module of the port, then a one-epoch CPU run of its CLI, one
+    of its ``--exact`` mode and a run of the generate CLI on one frame, in
+    one subprocess: no JAX, no module of the JAX package, no kernel
+    library."""
     code = (
         "import importlib, sys, wave\n"
         "import numpy as np, torch\n"
@@ -79,6 +84,13 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
         "main(['tone', 'square', '--dir', tmp, '--outdir', tmp + '/out', '--logdir',\n"
         "      tmp + '/log', '--device', 'cpu', '--random_init', '--no_artifacts', '--stack',\n"
         "      '0', '--batch_size', '4096', '--epochs', '1', '--maxiter', '1', '--exact'])\n"
+        "from audio_style_transfer_tpu_torch.models.wavenet_ae import init_params\n"
+        "np.savez(tmp + '/w.npz', **{f'{k}/{m}': v.numpy() for k, e in init_params(0).items()\n"
+        "                            for m, v in e.items()})\n"
+        "from audio_style_transfer_tpu_torch.cli import generate\n"
+        "generate.main(['--source_path', tmp + '/tone.wav', '--save_path', tmp + '/gen',\n"
+        "               '--checkpoint_path', tmp + '/w.npz', '--device', 'cpu',\n"
+        "               '--sample_length', '512'])\n"
         "bad = [m for m in foreign() if m != 'matplotlib']\n"
         "print('imported:', bad)\n"
         "sys.exit(1 if bad or _build._lib is not None else 0)\n"
@@ -87,6 +99,7 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr[-2000:]
     assert "optimized 1 epochs" in r.stdout
     assert "optimized 0.5s of audio" in r.stdout
+    assert "generated 1 file(s)" in r.stdout
 
 
 def test_port_sources_name_no_module_of_the_jax_package():
