@@ -3,7 +3,8 @@ audio_style_transfer_tpu/ckpt/convert.py).
 
 The JAX ``save_params`` writes a flat ``.npz`` with keys ``<layer>/w``
 ([F, Cin, Cout]) and ``<layer>/b``; this module reads it with numpy alone
-and returns torch tensors. Converting the pretrained TF1 bundle stays with
+and returns torch tensors, and writes the same layout (``save_params``), so
+weights trained in the port load into the JAX package and the port's CLIs. Converting the pretrained TF1 bundle stays with
 the JAX package's converter, which writes that ``.npz``.
 """
 
@@ -23,6 +24,15 @@ def params_from_numpy(params_np, device: torch.device | str = "cpu",
                 for k, v in entry.items()}
         for layer, entry in params_np.items()
     }
+
+
+def save_params(path: str, params: dict) -> None:
+    """Write params as the flat ``.npz`` of the JAX ``save_params`` (keys
+    ``<layer>/w``, ``<layer>/b``; float32 arrays as they are held)."""
+    flat = {f"{layer}/{k}": v.detach().cpu().numpy()
+            for layer, entry in params.items() for k, v in entry.items()}
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    np.savez(path, **flat)
 
 
 def load_params(path: str, device: torch.device | str = "cpu") -> dict:

@@ -1,6 +1,6 @@
-"""NSynth WaveNet autoencoder: encoder taps and the teacher-forced decoder
-(counterpart of audio_style_transfer_tpu/models/wavenet_ae.py; ``nll_loss``
-and ``forward`` are not ported yet).
+"""NSynth WaveNet autoencoder: encoder taps, the teacher-forced decoder, the
+mu-law NLL and the full forward pass (counterpart of
+audio_style_transfer_tpu/models/wavenet_ae.py).
 
 Parameters are a plain dict ``{layer: {"w": [F, Cin, Cout], "b": [Cout]}}``
 with the TF scope names of the JAX package, so weights cross over unchanged
@@ -10,8 +10,13 @@ with the TF scope names of the JAX package, so weights cross over unchanged
   [31]     the bottleneck conv output before hop pooling.
 
 ``decode_logits`` is plain torch (the JAX package leaves the decoder to XLA):
-the causal dilated convs of ``ops.conv.conv1d``, one product per tap. It is
-the oracle of the incremental decoder in generate/fastgen.py.
+the causal dilated convs of ``ops.conv.conv1d``. It is the oracle of the
+incremental decoder in generate/fastgen.py and the decoder of training. With
+``cfg.remat`` each decoder block runs under ``torch.utils.checkpoint``, so a
+backward keeps only each block's inputs ``(l, s)`` and recomputes the gated
+[B, T, 2 * width] internals (JAX: ``jax.checkpoint``). The encoder needs no
+remat in the chained flavour: the trunk keeps one mask byte per element and
+layer for its backward, never an activation (``ops.chain.TrunkFunction``).
 
 The encoder trunk runs in one of two flavours, hand-written kernels on CUDA tensors
 and their plain torch versions on CPU tensors either way:
@@ -29,6 +34,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from audio_style_transfer_tpu_torch.ops.chain import (
     fused_trunk,
@@ -37,6 +43,7 @@ from audio_style_transfer_tpu_torch.ops.chain import (
 )
 from audio_style_transfer_tpu_torch.ops.conv import condition, conv1d, pool1d, shift_right
 from audio_style_transfer_tpu_torch.ops.encoder import fused_encoder_block
+from audio_style_transfer_tpu_torch.signal.mu_law import mu_law
 
 Params = dict[str, dict[str, torch.Tensor]]
 
@@ -62,6 +69,21 @@ class WaveNetAEConfig:
     # fused_encoder and not chain_encoder, else the chained trunk.
     fused_encoder: bool = False
     chain_encoder: bool = False
+    # Recompute each decoder block on the backward pass (see the module
+    # docstring). Off by default: transfer and generation build no decoder
+    # backward; the trainer turns it on (TrainConfig.remat).
+    remat: bool = False
+
+    # Piecewise-constant learning rate by step (reference model.py:13-21).
+    learning_rate_schedule = {
+        0: 2e-4,
+        90000: 4e-4 / 3,
+        120000: 6e-5,
+        150000: 4e-5,
+        180000: 2e-5,
+        210000: 6e-6,
+        240000: 2e-6,
+    }
 
     def dilation(self, layer: int) -> int:
         """Decoder dilation pattern (reference model.py:149)."""
@@ -94,13 +116,14 @@ def _conv_shapes(cfg: WaveNetAEConfig) -> dict[str, tuple[int, int, int]]:
     return shapes
 
 
-def init_params(seed: int = 0, cfg: WaveNetAEConfig | None = None,
+def init_params(seed: int | torch.Generator = 0, cfg: WaveNetAEConfig | None = None,
                 device: torch.device | str = "cpu") -> Params:
     """TF uniform_unit_scaling(1.0) weights, U(+-sqrt(3 / (F * Cin))), and
-    zero biases, drawn from a ``torch.Generator`` seeded with ``seed`` (the
-    JAX keys are not reproduced bit for bit)."""
+    zero biases, drawn on the CPU from ``seed``: a ``torch.Generator`` (its
+    state advances), or an int that seeds a new one. The JAX keys are not
+    reproduced bit for bit."""
     cfg = cfg or WaveNetAEConfig()
-    gen = torch.Generator().manual_seed(int(seed))
+    gen = seed if isinstance(seed, torch.Generator) else torch.Generator().manual_seed(int(seed))
     params: Params = {}
     for name, (f, cin, cout) in sorted(_conv_shapes(cfg).items()):
         limit = float(np.sqrt(3.0 / (f * cin)))
@@ -196,13 +219,30 @@ def encoder_extracts(params: Params, x_quantized: torch.Tensor,
     return extracts, encoding
 
 
+def _decoder_block(cfg: WaveNetAEConfig, i: int, l, s, p_dil, p_cond, p_res, p_skip,
+                   encoding):
+    """Decoder block i (1-based, reference model.py:148-177): (l, s) -> (l, s)."""
+    dtype = cfg.compute_dtype
+
+    def apply(p, x, dilation=1):
+        return conv1d(x, p["w"].to(dtype), p["b"].to(dtype), dilation=dilation, causal=True)
+
+    d = apply(p_dil, l, dilation=cfg.dilation(i - 1))
+    d = condition(d, apply(p_cond, encoding))
+    m = d.shape[2] // 2
+    d = torch.sigmoid(d[:, :, :m]) * torch.tanh(d[:, :, m:])
+    return l + apply(p_res, d), s + apply(p_skip, d)
+
+
 def decode_logits(params: Params, x_quantized: torch.Tensor, encoding: torch.Tensor,
                   cfg: WaveNetAEConfig | None = None) -> torch.Tensor:
     """Teacher-forced WaveNet decoder (reference model.py:136-187): logits
     [batch, time, 256] of x_quantized [batch, time] (mu-law quantized space)
     conditioned on encoding [batch, time / hop, bottleneck]. Weights of
     another dtype than ``cfg.compute_dtype`` (bfloat16 ones) are cast to it,
-    as the JAX ``_apply`` does."""
+    as the JAX ``_apply`` does. With ``cfg.remat`` and grad mode on, each
+    block runs under ``torch.utils.checkpoint``: the same values, less memory
+    kept for the backward."""
     cfg = cfg or WaveNetAEConfig()
     dtype = cfg.compute_dtype
     x_scaled = (x_quantized.to(torch.float32) / 128.0).to(dtype)[..., None]
@@ -216,14 +256,63 @@ def decode_logits(params: Params, x_quantized: torch.Tensor, encoding: torch.Ten
 
     l = apply("startconv", shift_right(x_scaled))
     s = apply("skip_start", l)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(1, cfg.num_layers + 1):
-        d = apply(f"dilatedconv_{i}", l, dilation=cfg.dilation(i - 1))
-        d = condition(d, apply(f"cond_map_{i}", encoding))
-        m = d.shape[2] // 2
-        d = torch.sigmoid(d[:, :, :m]) * torch.tanh(d[:, :, m:])
-        l = l + apply(f"res_{i}", d)
-        s = s + apply(f"skip_{i}", d)
+        args = (cfg, i, l, s, params[f"dilatedconv_{i}"], params[f"cond_map_{i}"],
+                params[f"res_{i}"], params[f"skip_{i}"], encoding)
+        if remat:
+            l, s = torch.utils.checkpoint.checkpoint(_decoder_block, *args, use_reentrant=False)
+        else:
+            l, s = _decoder_block(*args)
     s = torch.relu(s)
     s = condition(apply("out1", s), apply("cond_map_out1", encoding))
     s = torch.relu(s)
     return apply("logits", s).to(torch.float32)
+
+
+def nll_loss(logits: torch.Tensor, x_quantized: torch.Tensor) -> torch.Tensor:
+    """Mu-law softmax NLL (reference model.py:186-194): the mean over rows of
+    -log softmax(logits)[label], label = int(x_quantized) + 128, truncated
+    toward zero as JAX's ``astype`` truncates.
+
+    Out-of-range labels behave as JAX's ``take_along_axis`` makes them: a
+    label in [-Q, 0) counts from the end (Q = logits.shape[-1]); a label
+    >= Q or < -Q gives its row NaN, so the mean is NaN, and contributes no
+    gradient. ``x_quantized = mu_law(+1.0) = 128`` is such a label (256):
+    the reference's behaviour, kept (ROADMAP.md, faults, item 5). Nothing
+    is asserted on the device, so a CUDA context survives it."""
+    q = logits.shape[-1]
+    labels = x_quantized.to(torch.int32).reshape(-1).to(torch.int64) + 128
+    logp = torch.log_softmax(logits.reshape(-1, q), dim=-1)
+    idx = torch.where(labels < 0, labels + q, labels)
+    inside = (idx >= 0) & (idx < q)
+    picked = logp.gather(1, idx.clamp(0, q - 1)[:, None])[:, 0]
+    picked = torch.where(inside, picked, torch.full_like(picked, float("nan")))
+    return -picked.mean()
+
+
+def forward(params: Params, inputs: dict, cfg: WaveNetAEConfig | None = None,
+            is_training: bool = True) -> dict:
+    """Full AE forward pass mirroring reference ``cfg.build`` (model.py:57-205),
+    with the keys of the JAX ``forward``.
+
+    ``inputs`` holds either 'quantized_wav' (already mu-law'd values, the
+    transfer fork's input) or 'wav' (raw audio, encoded with the continuous
+    mu-law, reference nsynth/wavenet/model.py:213). The dict keeps every tap
+    and the softmax over every row alive as long as it lives; training takes
+    the loss alone (train/trainer.py::train_loss)."""
+    del is_training
+    cfg = cfg or WaveNetAEConfig()
+    x_quantized = inputs["quantized_wav"] if "quantized_wav" in inputs else mu_law(inputs["wav"])
+    extracts, encoding = encoder_extracts(params, x_quantized, cfg)
+    logits = decode_logits(params, x_quantized, encoding, cfg)
+    loss = nll_loss(logits, x_quantized)
+    return {
+        "predictions": torch.softmax(logits.reshape(-1, cfg.quant_channels), dim=-1),
+        "loss": loss,
+        "eval": {"nll": loss},
+        "quantized_input": x_quantized,
+        "encoding": encoding,
+        "before_enc": extracts[-2],
+        "extracts": extracts,
+    }

@@ -735,7 +735,9 @@ class TrunkFunction(torch.autograd.Function):
             dx = trunk_backward(flat, masks, inmask, wd, wr, dils, t,
                                 valid_window).view(b, t, c)
         if any(ctx.needs_input_grad[1:5]):
-            with torch.enable_grad():
+            # A named range for torch.profiler: the recompute's share of a
+            # training step (chip_smoke.py [train ...] split).
+            with torch.enable_grad(), torch.profiler.record_function("trunk weight recompute"):
                 ws = [w.detach().requires_grad_(True) for w in (wd, bd, wr, br)]
                 taps = reference_trunk(x.detach(), *ws, dils, emit, valid_window)
                 pairs = [(tp, g) for tp, g in zip(taps, dtaps) if g is not None]

@@ -4,31 +4,106 @@ Plain torch: the JAX package leaves these ops to XLA. Layout [B, T, C],
 weights [F, Cin, Cout]. Padding matches the reference (tests/test_conv.py):
 non-causal is a symmetric pad of ((F-1)//2 * d), causal a left pad of
 (F-1)*d. Products accumulate in float32 and the result is cast back to the
-input's dtype, as the JAX path does.
+input's dtype once, as the JAX path does: on the CPU and in float32 through
+float32 products, one per tap; on bfloat16 CUDA tensors as one bfloat16
+product on the tensor cores (the taps merged along the reduction axis), in
+the forward and in both gradients, see ``conv1d``.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 import torch.nn.functional as F
 
 
-def _shifted(x: torch.Tensor, filter_length: int, dilation: int, causal: bool):
-    """The F time-shifted views of x [B, T, C]: view k holds x[t + o_k]
-    (zero off the edge), o_k = -pad_left + k * dilation."""
+def _offsets(filter_length: int, dilation: int, causal: bool) -> list[int]:
+    """o_k = -pad_left + k * dilation: tap k reads x[t + o_k]."""
     span = (filter_length - 1) * dilation
     pad_left = span if causal else span // 2
+    return [k * dilation - pad_left for k in range(filter_length)]
+
+
+def _shifted_by(x: torch.Tensor, offsets) -> list[torch.Tensor]:
+    """Views of x [B, T, C], one per offset o: x[t + o], zero off the edge."""
+    lo, hi = max(0, -min(offsets)), max(0, max(offsets))
     t = x.shape[1]
-    xp = F.pad(x, (0, 0, pad_left, span - pad_left))
-    return [xp[:, k * dilation : k * dilation + t] for k in range(filter_length)]
+    xp = F.pad(x, (0, 0, lo, hi))
+    return [xp[:, lo + o : lo + o + t] for o in offsets]
+
+
+def _shifted(x: torch.Tensor, filter_length: int, dilation: int, causal: bool):
+    """The F time-shifted views of x [B, T, C]: view k holds x[t + o_k]
+    (zero off the edge)."""
+    return _shifted_by(x, _offsets(filter_length, dilation, causal))
+
+
+@contextlib.contextmanager
+def _float32_reduction():
+    """cuBLAS may reduce a split-K bfloat16 product in bfloat16 while
+    ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``
+    is on (PyTorch's default): off inside, restored after."""
+    m = torch.backends.cuda.matmul
+    before = m.allow_bf16_reduced_precision_reduction
+    m.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        m.allow_bf16_reduced_precision_reduction = before
+
+
+def _side_by_side(x: torch.Tensor, offsets) -> torch.Tensor:
+    """[B, T, F*C]: the shifted views of x concatenated along channels."""
+    return x if offsets == [0] else torch.cat(_shifted_by(x, offsets), dim=-1)
+
+
+class _MergedTapsConv(torch.autograd.Function):
+    """y = sum_k x[t + o_k] @ w[k] as one product of the shifted inputs side
+    by side, [B*T, F*Cin] @ [F*Cin, Cout]. Each gradient is one product too:
+    dw = xs^T @ g, and dx[t] = sum_k g[t - o_k] @ w[k]^T as
+    [B*T, F*Cout] @ [F*Cout, Cin]. Every product sums in float32 and rounds
+    once to the operands' type (reduced-precision split-K off)."""
+
+    @staticmethod
+    def forward(ctx, x, w, offsets):
+        xs = _side_by_side(x, offsets)
+        ctx.save_for_backward(xs, w)  # as autograd would keep it for xs @ w
+        ctx.offsets = offsets
+        with _float32_reduction():
+            return xs @ w.reshape(-1, w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        xs, w = ctx.saved_tensors
+        f, cin, cout = w.shape
+        dx = dw = None
+        with _float32_reduction():
+            if ctx.needs_input_grad[0]:
+                w_t = w.transpose(1, 2).reshape(f * cout, cin)
+                dx = _side_by_side(g, [-o for o in ctx.offsets]) @ w_t
+            if ctx.needs_input_grad[1]:
+                dw = (xs.reshape(-1, f * cin).T @ g.reshape(-1, cout)).view(f, cin, cout)
+        return dx, dw, None
 
 
 def conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor | None = None, *,
            dilation: int = 1, causal: bool = True) -> torch.Tensor:
-    """Dilated 1-D convolution: x [B, T, Cin], w [F, Cin, Cout] -> [B, T, Cout]."""
+    """Dilated 1-D convolution: x [B, T, Cin], w [F, Cin, Cout] -> [B, T, Cout].
+
+    bfloat16 on a CUDA tensor (x and w): one product [B*T, F*Cin] @
+    [F*Cin, Cout] of the F shifted inputs side by side, bfloat16 in, float32
+    sums, rounded to bfloat16 once, as XLA's conv rounds once; each gradient
+    is one such product too (``_MergedTapsConv``). The products run with
+    ``allow_bf16_reduced_precision_reduction`` off and leave the flag as
+    they found it. Elsewhere: float32 products, one per tap, summed in
+    float32 and cast once."""
     filter_length = w.shape[0]
     if w.shape[1] == 1 and filter_length > 1:
         return _conv1d_one_in_channel(x, w, b, dilation, causal)
+    if x.is_cuda and x.dtype == w.dtype == torch.bfloat16:
+        y = _MergedTapsConv.apply(x, w, _offsets(filter_length, dilation, causal))
+        return y if b is None else y + b.to(x.dtype)
     f32 = torch.float32
     if filter_length == 1:
         y = x.to(f32) @ w[0].to(f32)

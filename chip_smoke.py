@@ -82,8 +82,25 @@ Phases (any failure raises and exits non-zero):
      `[generate step]` the graphed step's device operations and time by
      kernel (torch.profiler); `[generate cli]` save_embeddings and generate
      (from the .npy files, and from the wavs with --int8) as subprocesses;
+     then training at full width (train/trainer.py): `[train parity]` one
+     f32 step on 2 x 2048 samples card against CPU (loss, every gradient,
+     the updated weights); then in float32 and in bfloat16 `[train trunk
+     ...]` the trunk at the step's 32 x 6144 rows: K1 and K2 layer by layer
+     against their plain versions, tap 29 and the gradients through K1/K2
+     and the recompute against plain autograd, each path's time and peak
+     memory, and `[train step float32|bfloat16]` TrainConfig()'s
+     step (32 x 6144, remat on): 10 steps on one batch, the loss falling,
+     exactly {K1: 30, K2: 30} launches per step, ms per step against the
+     bound of its operations, samples/s, peak memory, and one step's split
+     under torch.profiler (device time by kind, the trunk's weight
+     recompute, Adam and the EMA; the busy share); `[train fit]` ``fit``
+     over a synthetic TFRecord of 64000-sample examples through the native
+     reader (a full group of steps and a partial one), save -> restore bit
+     for bit, an EMA ``evaluate`` {K1: 30, K2: 0}; `[train cli]`
+     cli/train.py as a subprocess for 3 iterations, its launches counted;
   6. print the per-kernel JSON line (time, plain time, bound, library time,
-     FMA time, windowed time, the error at the exact runs' shapes), then the
+     FMA time, windowed time, the error at the exact runs' shapes and, for
+     K1 and K2, at the training step's in both types), then the
      result line.
 
 It imports nothing of JAX. Numbers it prints are for the card it ran on.
@@ -91,6 +108,7 @@ It imports nothing of JAX. Numbers it prints are for the card it ran on.
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import dataclasses
 import io
@@ -282,21 +300,23 @@ def group_pairs(groups, fma_groups) -> list:
     return [(g, by_layers[g.j0, g.dils]) for g in groups]
 
 
-def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
-    """K1 and K2 over the 30 layers at x0's row count (one clip), with the
-    valid window ``window`` or None, layer by layer on the plain chain's own
-    inputs, masks and cotangents; then K2-wf on every group of the wavefront
-    plan at these rows, against its plain version and bit for bit against
-    the K2 launches it replaces (bf16: the tensor-core kernels), and its FMA
-    build on the FMA plan's group bit for bit against the FMA K2 launches,
-    with the same window. Returns (K1 max|d|, K2 max|d|, K2-wf max|d| or None
-    without a group, the plain chain's first ten outputs)."""
+def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float,
+                clip_rows: int | None = None, wavefront: bool = True):
+    """K1 and K2 over the 30 layers on x0 [clips * clip_rows, C] (one clip
+    of x0's rows when ``clip_rows`` is None), with the valid window
+    ``window`` or None, layer by layer on the plain chain's own inputs, masks
+    and cotangents; then, with ``wavefront``, K2-wf on every group of the
+    wavefront plan at these rows, against its plain version and bit for bit
+    against the K2 launches it replaces (bf16: the tensor-core kernels), and
+    its FMA build on the FMA plan's group bit for bit against the FMA K2
+    launches, with the same window. Returns (K1 max|d|, K2 max|d|, K2-wf
+    max|d| or None without a group, the plain chain's first ten outputs)."""
     import torch
 
     from audio_style_transfer_tpu_torch.ops import chain
 
     wd, bd, wr, br = weights
-    rows = x0.shape[0]
+    rows = clip_rows or x0.shape[0]
     dils = tuple(2 ** (k % 10) for k in range(LAYERS))
     cur, masks, inmask, outs = x0, [], None, []
     k1_err, k1_share = 0.0, 0.0
@@ -336,8 +356,8 @@ def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
             raise AssertionError(f"K2 layer {j}, {rows} rows, {label}: rel err {rel:.3e} > {tol}")
         k2_err = max(k2_err, abs_err)
         dx = dx_p
-    groups = wavefront_groups(dils, rows, x0.element_size())
-    fma_groups = wavefront_groups(dils, rows, x0.element_size(), fma=True)
+    groups = wavefront_groups(dils, rows, x0.element_size()) if wavefront else []
+    fma_groups = wavefront_groups(dils, rows, x0.element_size(), fma=True) if wavefront else []
     wf_err = None
     for g, fg in group_pairs(groups, fma_groups):
         args = group_inputs(g, dxs, dtaps, masks, inmask, wd, wr)
@@ -355,8 +375,10 @@ def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float):
     zeros = "" if window is None else ", masked rows zero with a zero bit 0"
     wf = (f"; K2-wf: max|d| {wf_err:.3e} over {len(groups)} groups at tile {groups[0].tile}, "
           f"equal to the K2 launches bit for bit, its FMA build (tile {fma_groups[0].tile}) to "
-          f"the FMA K2 launches" if groups else "; no wavefront group")
-    print(f"  K1 at {rows} rows, {label}: max|d| {k1_err:.3e} over 30 layers (tol rel {tol:.0e}), "
+          f"the FMA K2 launches" if groups else
+          "; no wavefront group" if wavefront else "")
+    where = f"{rows} rows" if rows == x0.shape[0] else f"{x0.shape[0] // rows} x {rows} rows"
+    print(f"  K1 at {where}, {label}: max|d| {k1_err:.3e} over 30 layers (tol rel {tol:.0e}), "
           f"mask bytes differing <= {k1_share:.2e}{zeros} ok; K2: max|d| {k2_err:.3e}{wf} ok")
     return k1_err, k2_err, wf_err, outs
 
@@ -1887,6 +1909,455 @@ def generate_cli_phase(params, dev) -> None:
               "wavs from both generate runs exist and are finite ok")
 
 
+# ---------------------------------------------------------------------- #
+# Training (M7): train/trainer.py at full width.
+# ---------------------------------------------------------------------- #
+
+TRAIN_PARITY_SHAPE = (2, 2048)  # card against CPU: a length the CPU steps in seconds
+TRAIN_SHAPE = (32, 6144)  # TrainConfig()'s defaults: the reference step
+TRAIN_STEPS = 10  # steps on one batch; all but the first (warm-up) timed
+TRAIN_FIT = dict(total_batch_size=8, sample_length=6144, steps_per_call=4)
+TRAIN_FIT_STEPS = 6  # one full group of 4, then a partial group of 2
+TRAIN_FIT_EXAMPLES = 16  # 64000-sample examples in the synthetic TFRecord
+TRAIN_CLI_ITERS = 3
+TRAIN_CLI_BATCH = 8  # x 6144 samples, the CLI's default length
+# f32 card against CPU after one step (TF32 off): the loss rel 1e-5; each
+# gradient rel L2 5e-3 (PRs 1-3 saw a waveform-gradient rel L2 of 1.1e-3
+# from relu gates near zero flipping); Adam's first step moves a weight by
+# lr * g / (|g| + eps), about lr whatever |g|, so the updated weights may
+# differ (by up to 2 lr) only where a gradient near zero differs in sign or
+# size: more than 1e-6 on at most 1e-3 of them.
+TRAIN_LOSS_TOL = 1e-5
+TRAIN_GRAD_TOL = 5e-3
+TRAIN_FLIP_SHARE = 1e-3
+TRUNK_REPS = 3  # timed forward + backward passes of each trunk path
+
+
+def train_flops(rows: int, cfg) -> float:
+    """Operations of one training step (2 per multiply-add), from the
+    shapes: the decoder's forward, its remat re-forward of the 30 blocks and
+    its backward (2x forward); the encoder's K1 forward, K2's cotangent
+    (the same products as the forward), the trunk's weight recompute forward
+    and its backward (2x)."""
+    w, s, q, bw = cfg.width, cfg.skip_width, cfg.quant_channels, cfg.ae_bottleneck_width
+    block = (cfg.filter_length * w * 2 * w + w * w + w * s) * 2 * cfg.num_layers
+    dec = block + (cfg.filter_length * w + w * s + s * s + s * q) * 2
+    trunk = (cfg.ae_filter_length * cfg.ae_width + cfg.ae_width) * cfg.ae_width * 2 \
+        * cfg.ae_num_layers
+    enc_rest = (cfg.ae_filter_length * cfg.ae_width + cfg.ae_width * bw) * 2
+    per_row = 3 * dec + block + 5 * trunk + 3 * enc_rest
+    return float(per_row) * rows
+
+
+def train_batch(shape, seed: int) -> np.ndarray:
+    """Audio-like batch in (-1, 1): each row a few tones at random pitches
+    with noise (no sample at +1.0: its label 256 makes the loss NaN, as in
+    the reference)."""
+    rng = np.random.RandomState(seed)
+    b, t = shape
+    time_s = np.arange(t) / 16000.0
+    rows = []
+    for _ in range(b):
+        f = 110.0 * 2 ** rng.uniform(0, 4, 3)
+        x = sum(rng.uniform(0.1, 0.3) * np.sin(2 * np.pi * fk * time_s + rng.uniform(0, 6))
+                for fk in f)
+        rows.append(x + 0.02 * rng.randn(t))
+    return np.clip(np.stack(rows), -0.99, 0.99).astype(np.float32)
+
+
+def _train_leaves(tree):
+    return [tree[layer][k] for layer in sorted(tree) for k in sorted(tree[layer])]
+
+
+def train_parity_phase(dev) -> None:
+    """(a) One f32 step at full width on 2 x 2048 samples, card against CPU
+    from the same weights and batch: the loss, every gradient, the updated
+    weights."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer, learning_rate
+
+    label = "train parity"
+    b, t = TRAIN_PARITY_SHAPE
+    wav = train_batch(TRAIN_PARITY_SHAPE, 1)
+    cfg = TrainConfig(total_batch_size=b, sample_length=t, save_every_steps=0)
+    out = {}
+    for where in ("cpu", str(dev)):
+        tr = Trainer(cfg, device=where)
+        st = tr.init_state()
+        before = [p.detach().cpu().clone() for p in _train_leaves(st["params"])]
+        t0 = time.perf_counter()
+        st, loss = tr.step(st, wav)
+        loss = float(loss)
+        wall = time.perf_counter() - t0
+        grads = [p.grad.detach().cpu() for p in _train_leaves(st["params"])]
+        after = [p.detach().cpu() for p in _train_leaves(st["params"])]
+        out[where] = (loss, grads, after, before, wall)
+    (lc, gc, pc, p0, wc), (lg, gg, pg, _, wg) = out["cpu"], out[str(dev)]
+    print(f"[{label}] f32, full width, {b} x {t} samples, one step: loss card {lg:.8f} "
+          f"cpu {lc:.8f}; step {wg:.2f} s on the card (first, with set-up), {wc:.2f} s on "
+          "the CPU")
+    rel = abs(lg - lc) / abs(lc)
+    if not rel <= TRAIN_LOSS_TOL:
+        raise AssertionError(f"[{label}] loss rel {rel:.3e} > {TRAIN_LOSS_TOL:.0e}")
+    worst = max((float((a - c).norm() / c.norm().clamp_min(1e-30)), i)
+                for i, (a, c) in enumerate(zip(gg, gc)) if float(c.norm()) > 0)
+    zero = [i for i, c in enumerate(gc) if float(c.norm()) == 0]
+    if not all(float(gg[i].abs().max()) == 0 for i in zero):
+        raise AssertionError(f"[{label}] gradients zero on the CPU but not on the card")
+    if not worst[0] <= TRAIN_GRAD_TOL:
+        raise AssertionError(f"[{label}] gradient {worst[1]} rel L2 {worst[0]:.3e}")
+    max_d = max(float((a - c).abs().max()) for a, c in zip(pg, pc))
+    moved = sum(int(((a - c).abs() > 1e-6).sum()) for a, c in zip(pg, pc))
+    total = sum(c.numel() for c in pc)
+    if not moved <= TRAIN_FLIP_SHARE * total:
+        raise AssertionError(f"[{label}] updated weights max|d| {max_d:.3e}, {moved} of "
+                             f"{total} differ by more than 1e-6")
+    if all(torch.equal(a, c) for a, c in zip(pg, p0)):
+        raise AssertionError(f"[{label}] the step moved no weight")
+    print(f"  loss rel {rel:.3e} (tol {TRAIN_LOSS_TOL:.0e}) ok; {len(gg)} gradients, worst rel L2 "
+          f"{worst[0]:.3e} (tol {TRAIN_GRAD_TOL:.0e}) ok, {len(zero)} zero on both; updated "
+          f"weights max|d| {max_d:.3e} (lr {learning_rate(0):.0e}), {moved} of {total} differ "
+          f"by more than 1e-6 (<= {TRAIN_FLIP_SHARE:.0e} of them) ok")
+
+
+def _split_step(tr, st, wav) -> dict:
+    """torch.profiler over one step: the step's wall time; the device's busy
+    time (the union of its kernels' intervals, so overlaps count once); the
+    kernels' time by kind (products: cuBLAS; hand-written: K1/K2's; other:
+    elementwise, reductions, copies) and the largest kernels; the device time
+    inside the two named ranges (the trunk's weight recompute, its products
+    included; Adam and the EMA)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tr.step(st, wav)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError("torch.profiler recorded no device event in a training step")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    kinds = {"products": 0.0, "hand-written": 0.0, "other": 0.0}
+    by_name = {}
+    for e in kernels:
+        us = e.time_range.end - e.time_range.start
+        name = e.name.lower()
+        if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")):
+            kinds["products"] += us
+        elif any(w in name for w in ("trunk_", "encoder_", "gram_")):
+            kinds["hand-written"] += us
+        else:
+            kinds["other"] += us
+        by_name[e.name] = by_name.get(e.name, 0.0) + us
+
+    def inclusive_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    ranges = {e.key: inclusive_us(e) / 1e3 for e in prof.key_averages()
+              if e.key in ("trunk weight recompute", "adam and ema")}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(wall_ms=wall, launches=len(kernels), busy_ms=busy / 1e3,
+                kinds_ms={k: v / 1e3 for k, v in kinds.items()}, ranges_ms=ranges,
+                top=[(n[:60], us / 1e3) for n, us in top])
+
+
+def train_trunk_phase(dev, dtype_name: str) -> dict:
+    """The trunk at the training step's geometry and type: 32 clips of 6144
+    rows, init_params(0)'s trunk cast to the step's type, a cotangent on
+    tap 29 alone, as in the step.
+    (1) K1 and K2 layer by layer on the plain chain's own inputs, masks and
+        cotangents, every 6144 rows a clip boundary (``chain_check``): TOL,
+        MASK_TOL.
+    (2) TrunkFunction (K1, K2 for dx, the weight gradients by recompute
+        through reference_trunk) against autograd through reference_trunk
+        alone: the weight gradients are the same recompute's, so equal. f32:
+        tap 29 at TOL (max-relative), dx at TRAIN_GRAD_TOL (rel L2). bf16:
+        both against the f32 autograd of the same values; the kernels' tap
+        and dx no further from it than twice the plain bf16 autograd's (which
+        rounds y to bf16 where K1 keeps it in f32) plus 1e-3, as the card test
+        holds dx.
+    (3) Each path's peak memory above its inputs, and its time (forward and
+        backward, CUDA events, median of TRUNK_REPS after a warm-up).
+    Returns the layer-by-layer K1 and K2 max|d|."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import init_params
+    from audio_style_transfer_tpu_torch.ops import chain
+
+    label = f"train trunk {dtype_name}"
+    dt = getattr(torch, dtype_name)
+    tol = TOL[dtype_name]
+    b, t = TRAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = (torch.randn((b, t, C), generator=gen, device=dev) * 0.3).to(dt)
+    ws = [w.to(dev, dt) for w in chain.stack_trunk_weights(init_params(0), LAYERS)]
+    cot = torch.randn((b, t, C), generator=gen, device=dev).to(dt)
+    dils = tuple(2 ** (j % 10) for j in range(LAYERS))
+
+    print(f"[{label}] {b} x {t} rows, 30 layers, cotangent on tap 29:")
+    wd, bd, wr, br = ws
+    k1_err, k2_err, _, _ = chain_check("the training geometry", (wd, bd.float(), wr, br.float()),
+                                       x.reshape(b * t, C), {LAYERS - 1: cot.reshape(b * t, C)},
+                                       None, tol, clip_rows=t, wavefront=False)
+
+    runs = (("kernels", chain.fused_trunk, dt), ("plain", chain.reference_trunk, dt))
+    if dt != torch.float32:
+        runs += (("f32", chain.reference_trunk, torch.float32),)
+    taps, grads, peaks, ms = {}, {}, {}, {}
+    for name, fn, run_dt in runs:
+        xi = x.to(run_dt).requires_grad_(True)
+        wi = [w.to(run_dt).requires_grad_(True) for w in ws]
+        gi = cot.to(run_dt)
+
+        def fwd_bwd():
+            (tap,) = fn(xi, *wi, dils, (LAYERS - 1,))
+            return tap, torch.autograd.grad(tap, [xi, *wi], gi)
+
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        tap, g = fwd_bwd()
+        torch.cuda.synchronize()
+        peaks[name] = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+        taps[name], grads[name] = tap.detach(), g
+        del tap, g
+        if name != "f32":
+            ms[name] = cuda_ms(fwd_bwd, reps=TRUNK_REPS, warmup=1)
+        del xi, wi
+    same = all(torch.equal(a, c) for a, c in zip(grads["kernels"][1:], grads["plain"][1:]))
+    if not same:
+        raise AssertionError(f"[{label}] the weight gradients are not the recompute's")
+    _, tap_rel = rel_err(taps["kernels"], taps["plain"])
+    dx_rel = float((grads["kernels"][0].float() - grads["plain"][0].float()).norm()
+                   / grads["plain"][0].float().norm())
+    if dt == torch.float32:
+        ok = tap_rel <= tol and dx_rel <= TRAIN_GRAD_TOL
+        how = (f"tap 29 max|d| rel {tap_rel:.2e} (tol {tol:.0e}), dx rel L2 {dx_rel:.2e} (tol "
+               f"{TRAIN_GRAD_TOL:.0e})")
+    else:
+        ref_tap, ref_dx = taps["f32"], grads["f32"][0]
+        tk, tp = (rel_err(taps[n], ref_tap)[1] for n in ("kernels", "plain"))
+        dk, dp = (float((grads[n][0].float() - ref_dx).norm() / ref_dx.norm())
+                  for n in ("kernels", "plain"))
+        ok = tk <= 2 * tp + 1e-3 and dk <= 2 * dp + 1e-3
+        how = (f"against the f32 autograd: tap 29 max|d| rel kernels {tk:.2e}, plain bf16 "
+               f"{tp:.2e}; dx rel L2 kernels {dk:.2e}, plain bf16 {dp:.2e} (kernels <= 2 x plain "
+               f"+ 1e-3); kernels against plain bf16: tap {tap_rel:.2e}, dx {dx_rel:.2e}")
+    print(f"[{label}] TrunkFunction against plain autograd: weight gradients equal (the same "
+          f"recompute); {how} {'ok' if ok else 'FAIL'}")
+    print(f"[{label}] forward + backward: kernels + recompute {ms['kernels']:.1f} ms, plain "
+          f"autograd {ms['plain']:.1f} ms (median of {TRUNK_REPS}); peak above the inputs: "
+          f"kernels + recompute {peaks['kernels']:.2f} GB, plain autograd {peaks['plain']:.2f} GB")
+    if not ok:
+        raise AssertionError(f"[{label}] the trunk through K1/K2 disagrees with plain autograd")
+    return dict(k1=k1_err, k2=k2_err)
+
+
+def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
+    """(b) TrainConfig()'s step, 32 x 6144 samples, remat on, in float32 (the
+    JAX default) or bfloat16 (compute_dtype: the tensor-core K1/K2, the
+    decoder's bf16 products): one warm-up step, then steps timed by the host
+    clock around each with a synchronize; exactly {K1: 30, K2: 30} launches
+    per step; the loss falling over TRAIN_STEPS steps on one batch; peak
+    memory; the split of one more step by torch.profiler."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+    from audio_style_transfer_tpu_torch.ops import _build
+    from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer
+
+    label = f"train step {dtype_name}"
+    dtype = getattr(torch, dtype_name)
+    b, t = TRAIN_SHAPE
+    model_cfg = WaveNetAEConfig(compute_dtype=dtype)
+    tr = Trainer(TrainConfig(save_every_steps=0), model_cfg, device=dev)
+    st = tr.init_state()
+    wav = torch.from_numpy(train_batch(TRAIN_SHAPE, 2)).to(dev)
+    losses, ms, peaks = [], [], []
+    want = {k: 0 for k in KERNELS}
+    want.update(K1=LAYERS, K2=LAYERS)
+    totals = {k: 0 for k in KERNELS}
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        st, loss = tr.step(st, wav)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        peaks.append(torch.cuda.max_memory_allocated(dev) / 1e9)
+        if dict(_build.LAUNCHES) != want:
+            raise AssertionError(f"[{label}] step {i} launched {dict(_build.LAUNCHES)}, want "
+                                 "K1 30, K2 30 and nothing else")
+        for k, v in _build.LAUNCHES.items():
+            totals[k] += v
+        losses.append(float(loss))
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[{label}] losses {losses}: not finite or not falling")
+    timed = ms[1:]
+    step_ms = float(np.median(timed))
+    flops = train_flops(b * t, model_cfg)
+    bnd = bound(0.0, flops, dtype_name)
+    split = _split_step(tr, st, wav)
+    busy = split["busy_ms"] / split["wall_ms"]
+    print(f"[{label}] {b} x {t} samples, remat on, full width: {TRAIN_STEPS} steps on one "
+          f"batch, losses {[round(v, 4) for v in losses]} (falling ok); launches per step "
+          f"{{K1: {LAYERS}, K2: {LAYERS}}}, the rest 0, every step ok")
+    print(f"[{label}] step ms {[round(v, 1) for v in timed]} (median {step_ms:.1f}; the first, "
+          f"with warm-up, {ms[0]:.1f}); {b * t / step_ms * 1e3:.0f} samples/s; bound "
+          f"{bnd['bound_ms']:.1f} ms ({flops / 1e12:.2f} TFLOP over the {dtype_name} peak), "
+          f"step / bound {step_ms / bnd['bound_ms']:.2f}; peak memory {max(peaks):.2f} GB "
+          f"({smi})")
+    kinds = ", ".join(f"{k} {v:.1f}" for k, v in split["kinds_ms"].items())
+    ranges = ", ".join(f"{k} {v:.1f}" for k, v in split["ranges_ms"].items())
+    top = "; ".join(f"{n} {v:.1f}" for n, v in split["top"])
+    print(f"[{label}] one step under torch.profiler: {split['wall_ms']:.1f} ms wall, "
+          f"{split['launches']} device operations, device busy {split['busy_ms']:.1f} ms (busy "
+          f"share {busy:.3f}); device ms by kind: {kinds}; in the ranges: {ranges}; largest "
+          f"kernels (ms): {top}")
+    return dict(launches=totals, step_ms=step_ms, bound_ms=bnd["bound_ms"],
+                peak_gb=max(peaks), busy=busy)
+
+
+def train_fit_phase(dev) -> dict:
+    """(c) ``fit`` over a synthetic TFRecord of 64000-sample examples through
+    the native reader: a full group of ``steps_per_call`` batches and a
+    trailing partial group; then save -> restore bit for bit, and an EMA
+    ``evaluate`` that launches K1 30 times and K2 never."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.data import NSynthDataset, build_example, write_tfrecord
+    from audio_style_transfer_tpu_torch.ops import _build
+    from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer
+
+    label = "train fit"
+    totals = {k: 0 for k in KERNELS}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "nsynth.tfrecord")
+        clips = train_batch((TRAIN_FIT_EXAMPLES, 64000), 3)
+        write_tfrecord(path, [build_example({
+            "note_str": f"synth-{i}".encode(), "pitch": np.array([40 + i], np.int64),
+            "velocity": np.array([100], np.int64), "audio": clips[i],
+            "qualities": np.zeros(10, np.int64), "instrument_source": np.array([0], np.int64),
+            "instrument_family": np.array([i % 3], np.int64)}) for i in range(len(clips))])
+        cfg = TrainConfig(**TRAIN_FIT, logdir=os.path.join(tmp, "log"), save_every_steps=0,
+                          log_every_steps=TRAIN_FIT["steps_per_call"])
+        tr = Trainer(cfg, device=dev)
+        ds = NSynthDataset(path, is_training=True)
+        batches = ds.get_wavenet_batch(cfg.total_batch_size, length=cfg.sample_length)
+        logged = []
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        st = tr.fit(tr.init_state(), batches, num_steps=TRAIN_FIT_STEPS, log=logged.append)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        fit_launches = dict(_build.LAUNCHES)
+        for k, v in fit_launches.items():
+            totals[k] += v
+        if ds.reader_used != "native":
+            raise AssertionError(f"[{label}] the {ds.reader_used} reader ran, not the native one")
+        if st["step"] != TRAIN_FIT_STEPS or fit_launches["K1"] != LAYERS * TRAIN_FIT_STEPS \
+                or fit_launches["K2"] != LAYERS * TRAIN_FIT_STEPS:
+            raise AssertionError(f"[{label}] step {st['step']}, launches {fit_launches}")
+        print(f"[{label}] {TRAIN_FIT_STEPS} steps of {cfg.total_batch_size} x "
+              f"{cfg.sample_length} (groups of {cfg.steps_per_call}, then a partial group of "
+              f"{TRAIN_FIT_STEPS % cfg.steps_per_call}) from {TRAIN_FIT_EXAMPLES} 64000-sample "
+              f"examples through the {ds.reader_used} reader in {wall:.2f} s; log {logged}; "
+              f"launches {fit_launches} ok")
+        saved = tr.save(st)
+        back = tr.restore()
+        same = back["step"] == st["step"] and all(
+            torch.equal(a, c) for a, c in zip(_train_leaves(st["params"]) + _train_leaves(st["ema"]),
+                                              _train_leaves(back["params"]) + _train_leaves(back["ema"])))
+        for p, q in zip(_train_leaves(st["params"]), _train_leaves(back["params"])):
+            for key in ("exp_avg", "exp_avg_sq", "step"):
+                same = same and torch.equal(st["opt_state"].state[p][key],
+                                            back["opt_state"].state[q][key])
+        if not same:
+            raise AssertionError(f"[{label}] restore differs from the saved state")
+        print(f"[{label}] save {os.path.basename(saved)} -> restore: params, EMA, Adam moments "
+              "and step equal bit for bit ok")
+        wav = train_batch((8, cfg.sample_length), 4)
+        _build.reset_launches()
+        nll = tr.evaluate(st, wav)
+        ev = dict(_build.LAUNCHES)
+        for k, v in ev.items():
+            totals[k] += v
+        if ev["K1"] != LAYERS or any(v for k, v in ev.items() if k != "K1") \
+                or not math.isfinite(nll):
+            raise AssertionError(f"[{label}] evaluate: nll {nll}, launches {ev}")
+        print(f"[{label}] EMA evaluate on 8 x {cfg.sample_length}: nll {nll:.4f}, launches "
+              f"K1 {LAYERS}, K2 0 ok")
+    return totals
+
+
+def train_cli_phase(dev) -> dict:
+    """(d) cli/train.py as a subprocess for a few iterations on a synthetic
+    TFRecord; its K1/K2 launches, which it prints, go into the kernels line."""
+    label = "train cli"
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    from audio_style_transfer_tpu_torch.data import build_example, write_tfrecord
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.tfrecord")
+        clips = train_batch((4, 64000), 5)
+        write_tfrecord(path, [build_example({"pitch": np.array([50 + i], np.int64),
+                                             "audio": c}) for i, c in enumerate(clips)])
+        args = [sys.executable, "-m", "audio_style_transfer_tpu_torch.cli.train",
+                "--train_path", path, "--logdir", os.path.join(tmp, "log"),
+                "--total_batch_size", str(TRAIN_CLI_BATCH), "--num_iters", str(TRAIN_CLI_ITERS),
+                "--device", str(dev)]
+        t0 = time.perf_counter()
+        r = subprocess.run(args, cwd=here, env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"[{label}] failed:\n{r.stdout}\n{r.stderr[-3000:]}")
+        m = re.search(r"saved (\S+) at step (\d+) \((\w+) reader\); kernel launches (\{.*\})",
+                      r.stdout)
+        if not m or int(m.group(2)) != TRAIN_CLI_ITERS or m.group(3) != "native":
+            raise AssertionError(f"[{label}] unexpected output:\n{r.stdout}")
+        launches = {k: 0 for k in KERNELS}
+        launches.update(ast.literal_eval(m.group(4)))  # the dict the CLI printed
+        if launches["K1"] != LAYERS * TRAIN_CLI_ITERS or launches["K2"] != LAYERS * TRAIN_CLI_ITERS:
+            raise AssertionError(f"[{label}] launches {launches}")
+        print(f"[{label}] {TRAIN_CLI_ITERS} iterations of {TRAIN_CLI_BATCH} x 6144 in {wall:.1f} s (process "
+              f"start included): {os.path.basename(m.group(1))}, {m.group(3)} reader, launches "
+              f"{{K1: {launches['K1']}, K2: {launches['K2']}}} ok")
+    return launches
+
+
+def train_phases(dev, smi: str) -> tuple[dict, dict]:
+    """Every training phase: the K1/K2 launches of the main paths they ran,
+    and K1/K2's layer-by-layer max|d| at the training geometry per type."""
+    train_parity_phase(dev)
+    totals = {k: 0 for k in KERNELS}
+    rows, trunk = {}, {}
+    for dtype_name in ("float32", "bfloat16"):
+        trunk[dtype_name] = train_trunk_phase(dev, dtype_name)
+        rows[dtype_name] = train_step_phase(dev, dtype_name, smi)
+    for part in (*(r["launches"] for r in rows.values()), train_fit_phase(dev),
+                 train_cli_phase(dev)):
+        for k, v in part.items():
+            totals[k] += v
+    for dtype_name, r in rows.items():
+        print(f"[train step {dtype_name}] median step {r['step_ms']:.1f} ms, bound "
+              f"{r['bound_ms']:.1f} ms, ratio {r['step_ms'] / r['bound_ms']:.2f}, peak "
+              f"{r['peak_gb']:.2f} GB, busy {r['busy']:.3f} ({smi})")
+    return totals, trunk
+
+
 def main() -> int:
     import torch
 
@@ -1949,6 +2420,7 @@ def main() -> int:
     synth_rows = generate_synth_phase(params, dev, enc16, smi)
     generate_device_ops(params, dev, synth_rows[0]["steady_us"])
     generate_cli_phase(params, dev)
+    train_launches, train_trunk = train_phases(dev, smi)
     for label, (_, evals, wall, *_) in runs.items():
         print(f"[{label}] {evals} evals, {evals / wall:.2f} evals/s setup included ({smi})")
     # bf16 against f32 from the same 1e-6 start. Printed, not yet a check: the
@@ -1957,7 +2429,8 @@ def main() -> int:
     for label in cli_paths:
         b16, f32 = runs[label][3], runs[f"{label}, float32"][3]
         print(f"[{label}] final loss bf16 {b16:.4f} / f32 {f32:.4f} = {b16 / f32:.4f}")
-    launches = {k: sum(r[0][k] for r in runs.values()) + gen_launches[k] for k in KERNELS}
+    launches = {k: sum(r[0][k] for r in runs.values()) + gen_launches[k] + train_launches[k]
+                for k in KERNELS}
 
     src = "audio_style_transfer_tpu_torch/csrc/"
     meta = {  # kernel: (name, source, replaces, the timing key)
@@ -1994,6 +2467,9 @@ def main() -> int:
                                windowed_max_abs_err=r["windowed_max_abs_err"])
         if k in exact_shapes["bfloat16"]:  # all but the grams at L=30 (L=10 there)
             kernels[-1]["exact_shapes_max_abs_err"] = exact_shapes["bfloat16"][k]
+        if k in ("K1", "K2"):  # layer by layer at the training step's 32 x 6144 rows
+            kernels[-1].update(train_shape_max_abs_err=train_trunk["bfloat16"][k.lower()],
+                               train_shape_f32_max_abs_err=train_trunk["float32"][k.lower()])
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

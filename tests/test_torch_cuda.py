@@ -852,3 +852,171 @@ def test_int8_weights_stay_int8_on_the_device(dev):
         assert lin.scale.dtype == torch.float32
     bf = fastgen._DecoderWeights(_gen_setup(dev, "bfloat16")[3], cfg)
     assert all(lin.w.dtype == torch.bfloat16 for lin in (*bf.dil, *bf.res_skip))
+
+
+# --- training (train/trainer.py): the step on the card --------------------
+
+# ae_width 128 (the trunk kernels' width), a narrow decoder.
+TRAIN_CFG = dict(num_layers=4, num_stages=2, width=64, skip_width=32, ae_num_layers=6,
+                 ae_num_stages=3, ae_hop_length=64, ae_bottleneck_width=8)
+
+
+def _rel_l2(a, b):
+    a, b = a.detach().float().cpu(), b.detach().float().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+def test_one_train_step_on_card_matches_cpu(dev):
+    """float32: K1/K2 and cuBLAS on the card against the plain versions on
+    the CPU from the same weights and batch. Loss rel 1e-5; each gradient
+    rel L2 5e-3 (relu gates near zero flip). Adam's first step is
+    lr * g / (|g| + eps): a weight moves by about lr whatever its gradient's
+    size, so the updated weights may differ by more than 1e-6 only where a
+    gradient near zero differs in sign or size: on at most 1e-3 of them, as
+    chip_smoke.py holds the full-width step."""
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+    from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer
+    from audio_style_transfer_tpu_torch.train.trainer import _leaves
+
+    wav = np.random.RandomState(0).uniform(-0.8, 0.8, (2, 1024)).astype(np.float32)
+    out = {}
+    for where in ("cpu", dev):
+        tr = Trainer(TrainConfig(save_every_steps=0), WaveNetAEConfig(**TRAIN_CFG), device=where)
+        st, loss = tr.step(tr.init_state(), wav)
+        out[str(where)] = (float(loss), [p.grad for p in _leaves(st["params"])],
+                           [p.detach() for p in _leaves(st["params"])])
+    (lc, gc, pc), (lg, gg, pg) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for a, b in zip(gg, gc):
+        if float(b.norm()) == 0:
+            assert float(a.abs().max()) == 0
+        else:
+            assert _rel_l2(a, b) <= 5e-3
+    moved = sum(int(((a.cpu() - b).abs() > 1e-6).sum()) for a, b in zip(pg, pc))
+    total = sum(b.numel() for b in pc)
+    print(f"{moved} of {total} updated weights differ by more than 1e-6")
+    assert moved <= 1e-3 * total
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_trunk_weight_gradients_through_k1_k2_match_plain_autograd(dev, dtype):
+    """TrunkFunction (K1 forward, K2 for dx, the weight gradients by
+    recompute) against autograd through ``reference_trunk`` alone, at 30
+    layers on 2 clips of 6144 rows; taps 9 and 29 carry cotangents. The
+    weight gradients come from the same recompute: equal. dx: float32 within
+    rel L2 5e-3 (relu gates near zero flip; PRs 1-3 saw 1.1e-3). bfloat16:
+    both are held to the float32 autograd on the same bf16 values; K2's dx
+    (masks from K1, float32 gate pre-activations) may be no further from it
+    than twice the plain bf16 autograd's (bf16 roundings of y at other
+    points) plus 1e-3."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    c = chain.WIDTH
+    dils = tuple(2 ** (j % 10) for j in range(30))
+    x = (torch.randn((2, 6144, c), generator=gen, device=dev) * 0.5).to(dtype)
+    ws = [(torch.randn((30, 3, c, c), generator=gen, device=dev) * 0.05).to(dtype),
+          (torch.randn((30, c), generator=gen, device=dev) * 0.05).to(dtype),
+          (torch.randn((30, c, c), generator=gen, device=dev) * 0.05).to(dtype),
+          (torch.randn((30, c), generator=gen, device=dev) * 0.05).to(dtype)]
+    cot = [torch.randn((2, 6144, c), generator=gen, device=dev).to(dtype) for _ in range(2)]
+    grads = {}
+    runs = (("kernels", chain.fused_trunk, dtype), ("plain", chain.reference_trunk, dtype),
+            ("f32", chain.reference_trunk, torch.float32))
+    for name, fn, dt in runs:
+        xi = x.to(dt).requires_grad_(True)
+        wi = [w.to(dt).requires_grad_(True) for w in ws]
+        torch.cuda.reset_peak_memory_stats(dev)
+        taps = fn(xi, *wi, dils, (9, 29))
+        grads[name] = torch.autograd.grad(taps, [xi, *wi], [g.to(dt) for g in cot])
+        torch.cuda.synchronize()
+        print(f"{name} {dt}: peak {torch.cuda.max_memory_allocated(dev) / 1e9:.3f} GB")
+    for a, b in zip(grads["kernels"][1:], grads["plain"][1:]):
+        assert torch.equal(a, b)
+    if dtype == torch.float32:
+        assert _rel_l2(grads["kernels"][0], grads["plain"][0]) <= 5e-3
+    else:
+        ek = _rel_l2(grads["kernels"][0], grads["f32"][0])
+        ep = _rel_l2(grads["plain"][0], grads["f32"][0])
+        print(f"bf16 dx against the f32 autograd: kernels {ek:.3e}, plain {ep:.3e}")
+        assert ek <= 2 * ep + 1e-3
+
+
+def _bf16_order(a):
+    """bfloat16 values as integers in their order: adjacent values differ by 1."""
+    bits = a.contiguous().view(torch.int16).int()
+    mag = bits & 0x7FFF
+    return torch.where(bits < 0, -mag, mag)
+
+
+def _rounded_once(got, exact, scale, k: int):
+    """Against ``exact`` (float64) rounded once to bfloat16: (the share of
+    elements whose bits differ, the number of those more than one bfloat16
+    step away and also further from ``exact`` than float32 sums of k terms
+    can be: k 2^-24 times ``scale``, the sum of the terms' magnitudes; within
+    that bound a value that nearly cancels has no defined rounding)."""
+    steps = (_bf16_order(got) - _bf16_order(exact.to(torch.bfloat16))).abs()
+    far = (steps > 1) & ((got.double() - exact).abs() > k * 2.0 ** -24 * scale)
+    return float((steps != 0).float().mean()), int(far.sum())
+
+
+def _one_rounding_share(k: int) -> float:
+    """Share of elements allowed to differ from the float64 result rounded
+    once, for products that sum k terms in float32: the float32 sum carries
+    a relative error of order sqrt(k) 2^-24 (a random walk of roundings),
+    so an exact value that close to a bfloat16 rounding boundary (spacing
+    2^-8) may round the other way: a share of order sqrt(k) 2^-16; allowed
+    8 times that. Rounding each tap's product apart differs on 0.32-0.45
+    (measured, NVIDIA H100 80GB HBM3)."""
+    return k ** 0.5 * 2.0 ** -13
+
+
+def test_bf16_conv_is_one_tensor_core_product_rounded_once(dev):
+    """ops.conv.conv1d on bfloat16 CUDA tensors (the taps merged into one
+    bf16 product, float32 sums) against the float64 conv of the same values
+    rounded once to bfloat16: the output, dx and dw equal it bit for bit on
+    all but ``_one_rounding_share`` of the elements and within one bfloat16
+    step on those; the bias is then one bf16 add. A conv that rounds each
+    tap's product and sums them in bf16 is planted and fails. The global
+    reduced-precision flag is left as it was, on or off."""
+    from audio_style_transfer_tpu_torch.ops import conv
+
+    bf16 = torch.bfloat16
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    gen = torch.Generator(device=dev).manual_seed(4)
+    rows = 2 * 2048
+    try:
+        for setting, (f, d, cin, cout) in zip(
+                (True, False, True), ((3, 4, 512, 1024), (1, 1, 512, 256), (3, 512, 128, 128))):
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = setting
+            x = torch.randn((2, 2048, cin), generator=gen, device=dev).to(bf16)
+            w = (torch.randn((f, cin, cout), generator=gen, device=dev) * cin ** -0.5).to(bf16)
+            b = (torch.randn((cout,), generator=gen, device=dev) * 0.1).to(bf16)
+            xr, wr = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            got = conv.conv1d(xr, wr, None, dilation=d, causal=True)
+            g = torch.randn(got.shape, generator=gen, device=dev).to(bf16)
+            dx, dw = torch.autograd.grad(got, [xr, wr], g)
+            assert torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction == setting
+            assert got.dtype == dx.dtype == dw.dtype == bf16
+            assert torch.equal(conv.conv1d(x, w, b, dilation=d, causal=True), got.detach() + b)
+            exact, scale = [], []
+            for a, v in ((x, w), (x.abs(), w.abs())):  # the conv, the terms' magnitudes
+                xf, wf = a.double().requires_grad_(True), v.double().requires_grad_(True)
+                y = sum(xk @ wf[k] for k, xk in enumerate(conv._shifted(xf, f, d, True)))
+                dxf, dwf = torch.autograd.grad(y, [xf, wf],
+                                               g.double() if v is w else g.double().abs())
+                (exact if v is w else scale).append([y.detach(), dxf, dwf])
+            for i, (name, a, k) in enumerate((("y", got, f * cin), ("dx", dx, f * cout),
+                                              ("dw", dw, rows))):
+                share, far = _rounded_once(a.detach(), exact[0][i], scale[0][i], k)
+                print(f"F={f} Cin={cin} Cout={cout} {name}: {share:.2e} differ (allowed "
+                      f"{_one_rounding_share(k):.1e}), {far} beyond one step")
+                assert share <= _one_rounding_share(k) and far == 0, name
+            if f > 1:
+                planted = None
+                for k, xk in enumerate(conv._shifted(x, f, d, True)):
+                    term = xk @ w[k]
+                    planted = term if planted is None else planted + term
+                share, _ = _rounded_once(planted, exact[0][0], scale[0][0], f * cin)
+                print(f"F={f}: per-tap rounding differs on {share:.2e}")
+                assert share > _one_rounding_share(f * cin)
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag

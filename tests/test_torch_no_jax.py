@@ -44,6 +44,14 @@ MODULES = [
     "audio_style_transfer_tpu_torch.generate.fastgen",
     "audio_style_transfer_tpu_torch.cli.generate",
     "audio_style_transfer_tpu_torch.cli.save_embeddings",
+    "audio_style_transfer_tpu_torch.data",
+    "audio_style_transfer_tpu_torch.data.tfrecord",
+    "audio_style_transfer_tpu_torch.data.native",
+    "audio_style_transfer_tpu_torch.data.nsynth",
+    "audio_style_transfer_tpu_torch.train",
+    "audio_style_transfer_tpu_torch.train.optimizers",
+    "audio_style_transfer_tpu_torch.train.trainer",
+    "audio_style_transfer_tpu_torch.cli.train",
     "chip_smoke",
 ]
 
@@ -57,9 +65,9 @@ def _run(code, cwd=REPO, args=()):
 
 def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     """Every module of the port, then a one-epoch CPU run of its CLI, one
-    of its ``--exact`` mode and a run of the generate CLI on one frame, in
-    one subprocess: no JAX, no module of the JAX package, no kernel
-    library."""
+    of its ``--exact`` mode, a run of the generate CLI on one frame and one
+    step of the train CLI on a synthetic TFRecord, in one subprocess: no
+    JAX, no module of the JAX package, no kernel library."""
     code = (
         "import importlib, sys, wave\n"
         "import numpy as np, torch\n"
@@ -91,6 +99,13 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
         "generate.main(['--source_path', tmp + '/tone.wav', '--save_path', tmp + '/gen',\n"
         "               '--checkpoint_path', tmp + '/w.npz', '--device', 'cpu',\n"
         "               '--sample_length', '512'])\n"
+        "from audio_style_transfer_tpu_torch.data import build_example, write_tfrecord\n"
+        "write_tfrecord(tmp + '/t.tfrecord', [build_example({'pitch': np.array([60]),\n"
+        "    'audio': np.random.RandomState(0).uniform(-0.5, 0.5, 1024).astype('float32')})])\n"
+        "from audio_style_transfer_tpu_torch.cli import train\n"
+        "train.main(['--train_path', tmp + '/t.tfrecord', '--logdir', tmp + '/tlog',\n"
+        "            '--total_batch_size', '1', '--sample_length', '512', '--num_iters', '1',\n"
+        "            '--device', 'cpu'])\n"
         "bad = [m for m in foreign() if m != 'matplotlib']\n"
         "print('imported:', bad)\n"
         "sys.exit(1 if bad or _build._lib is not None else 0)\n"
@@ -100,6 +115,7 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     assert "optimized 1 epochs" in r.stdout
     assert "optimized 0.5s of audio" in r.stdout
     assert "generated 1 file(s)" in r.stdout
+    assert "ckpt-1 at step 1" in r.stdout
 
 
 def test_port_sources_name_no_module_of_the_jax_package():

@@ -56,6 +56,43 @@ def test_conv1d_matches_jax(f, cin, d, causal, batch):
     np.testing.assert_allclose(n(got), n(want), rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("f,d,causal", [(3, 4, True), (3, 2, False), (2, 3, False),
+                                         (1, 1, True)])
+def test_merged_taps_conv_and_its_gradients_match_jax(f, d, causal):
+    """The bf16 CUDA path's arithmetic (one product of the taps side by
+    side, each gradient one product), run here in float64 on the CPU: the
+    output, dx and dw of JAX's conv1d (float32 values, so 1e-5)."""
+    rng = np.random.RandomState(f * 10 + d)
+    x = rng.randn(2, 64, 4).astype(np.float32)
+    w = rng.randn(f, 4, 5).astype(np.float32)
+    g = rng.randn(2, 64, 5).astype(np.float32)
+    xt, wt = (torch.from_numpy(a).double().requires_grad_(True) for a in (x, w))
+    y = tconv._MergedTapsConv.apply(xt, wt, tconv._offsets(f, d, causal))
+    dx, dw = torch.autograd.grad(y, [xt, wt], torch.from_numpy(g).double())
+    want, vjp = jax.vjp(lambda a, b: jconv.conv1d(a, b, None, dilation=d, causal=causal),
+                        jnp.asarray(x), jnp.asarray(w))
+    for got, ref in zip((y, dx, dw), (want, *vjp(jnp.asarray(g)))):
+        np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("setting", [True, False])
+def test_float32_reduction_restores_the_global_flag(setting):
+    """The bf16 products run with reduced-precision split-K off and leave
+    the process-wide flag as they found it, also when the product raises."""
+    m = torch.backends.cuda.matmul
+    before = m.allow_bf16_reduced_precision_reduction
+    try:
+        m.allow_bf16_reduced_precision_reduction = setting
+        with tconv._float32_reduction():
+            assert m.allow_bf16_reduced_precision_reduction is False
+        assert m.allow_bf16_reduced_precision_reduction is setting
+        with pytest.raises(RuntimeError), tconv._float32_reduction():
+            raise RuntimeError("a failed product")
+        assert m.allow_bf16_reduced_precision_reduction is setting
+    finally:
+        m.allow_bf16_reduced_precision_reduction = before
+
+
 def test_pool1d_matches_jax():
     x = np.random.RandomState(0).randn(2, 1024, 3).astype(np.float32)
     for mode in ("avg", "max"):

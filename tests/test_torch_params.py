@@ -38,6 +38,36 @@ def test_npz_round_trip_through_jax_save_params(tmp_path):
     assert convert.load_pretrained(path).keys() == pnp.keys()
 
 
+def test_port_save_params_round_trips_through_jax_bit_for_bit(tmp_path):
+    """Weights trained in the port leave as the JAX ``.npz``: port
+    save_params -> JAX load_params and the port's own load_pretrained (the
+    CLIs' ``--checkpoint_path``), bit for bit; the JAX forward on them equals
+    the port's."""
+    import jax.numpy as jnp
+
+    from audio_style_transfer_tpu.ckpt.convert import load_params as jload_params
+    from audio_style_transfer_tpu.models import wavenet_ae as jw
+    from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer
+
+    cfg = dict(num_layers=2, num_stages=2, width=8, skip_width=8, ae_num_layers=2,
+               ae_num_stages=2, ae_width=8, ae_hop_length=64, ae_bottleneck_width=4)
+    tr = Trainer(TrainConfig(save_every_steps=0), tw.WaveNetAEConfig(**cfg), device="cpu")
+    wav = np.random.RandomState(0).uniform(-0.5, 0.5, (2, 256)).astype(np.float32)
+    state, _ = tr.step(tr.init_state(), wav)
+    path = str(tmp_path / "trained.npz")
+    convert.save_params(path, state["params"])
+    back = jload_params(path)
+    mine = convert.load_pretrained(path)
+    assert back.keys() == state["params"].keys() == mine.keys()
+    for layer, entry in state["params"].items():
+        for k, v in entry.items():
+            np.testing.assert_array_equal(np.asarray(back[layer][k]), v.detach().numpy())
+            assert torch.equal(mine[layer][k], v.detach())
+    want = jw.forward(back, {"wav": jnp.asarray(wav)}, jw.WaveNetAEConfig(**cfg))["loss"]
+    got = tw.forward(mine, {"wav": torch.tensor(wav)}, tw.WaveNetAEConfig(**cfg))["loss"]
+    assert float(got) == pytest.approx(float(want), rel=1e-6)
+
+
 def test_tf1_bundle_error_names_the_jax_converter(tmp_path):
     with pytest.raises(FileNotFoundError, match="convert_tf1_checkpoint"):
         convert.load_pretrained(str(tmp_path / "model.ckpt-200000"))
