@@ -219,6 +219,14 @@ def encoder_extracts(params: Params, x_quantized: torch.Tensor,
     return extracts, encoding
 
 
+def encoder_features(params: Params, x_quantized: torch.Tensor,
+                     cfg: WaveNetAEConfig | None = None) -> dict:
+    """Encoder pass as one dict: every tap (``extracts``), the ``encoding``,
+    and ``before_enc``, the last block's output before the bottleneck."""
+    extracts, encoding = encoder_extracts(params, x_quantized, cfg)
+    return {"extracts": extracts, "encoding": encoding, "before_enc": extracts[-2]}
+
+
 def _decoder_block(cfg: WaveNetAEConfig, i: int, l, s, p_dil, p_cond, p_res, p_skip,
                    encoding):
     """Decoder block i (1-based, reference model.py:148-177): (l, s) -> (l, s)."""

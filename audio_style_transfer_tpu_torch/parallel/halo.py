@@ -31,7 +31,7 @@ every window's graph: the oracle of the two-pass function, and fine for short
 clips.
 
 The mesh functions of the JAX module (halo exchange over devices,
-``make_sharded_loss_fn``) wait for the multi-device slice.
+``make_sharded_loss_fn``) are ROADMAP.md M8b.
 """
 
 from __future__ import annotations

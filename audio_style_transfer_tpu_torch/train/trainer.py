@@ -1,15 +1,21 @@
-"""WaveNet-AE training on one device (counterpart of
-audio_style_transfer_tpu/train/trainer.py; reference
-nsynth/wavenet/train.py:53-132).
+"""WaveNet-AE training (counterpart of audio_style_transfer_tpu/train/trainer.py;
+reference nsynth/wavenet/train.py:53-132).
 
-One step is the JAX step without the mesh: the loss of a batch, its
-gradients (the mean over microbatches when ``TrainConfig.microbatch`` splits
-the batch), Adam at the piecewise-constant learning rate of the step, then
-the EMA shadow with its ramp. The step runs eagerly: the encoder trunk
-through the hand-written K1 (forward, 30 launches) and K2 (the cotangent at
-the trunk input, 30 launches) on a CUDA device, the width-512 decoder as
-cuBLAS products under ``torch.utils.checkpoint`` (``TrainConfig.remat``).
-Data parallelism (the JAX ``pmean`` over a mesh) is ROADMAP.md M8.
+One step is the JAX step: the loss of a batch, its gradients (the mean over
+microbatches when ``TrainConfig.microbatch`` splits the batch), Adam at the
+piecewise-constant learning rate of the step, then the EMA shadow with its
+ramp. The step runs eagerly: the encoder trunk through the hand-written K1
+(forward, 30 launches) and K2 (the cotangent at the trunk input, 30
+launches) on a CUDA device, the width-512 decoder as cuBLAS products under
+``torch.utils.checkpoint`` (``TrainConfig.remat``).
+
+Data parallelism (``Trainer(mesh=parallel.make_mesh(n))``, one process per
+rank): each rank takes its contiguous row block of the global batch, and the
+gradients, one flat float32 buffer, and the loss are summed over the ranks
+and divided by their count (JAX's ``pmean``) before Adam and the EMA, which
+every rank applies alike. The state is broadcast from rank 0 when it is made
+or restored, so the weights stay equal bit for bit on every rank. Unlike
+JAX's, ``mesh=None`` means this process alone, not every local device.
 
 Checkpoints are ``torch.save`` files ``<logdir>/ckpt-<step>``, written under
 a temporary name and renamed, so a kill mid-save leaves no file that
@@ -26,6 +32,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from audio_style_transfer_tpu_torch.models.wavenet_ae import (
     Params,
@@ -35,6 +42,7 @@ from audio_style_transfer_tpu_torch.models.wavenet_ae import (
     init_params,
     nll_loss,
 )
+from audio_style_transfer_tpu_torch.parallel.mesh import rank_device, replicate, shard_rows
 from audio_style_transfer_tpu_torch.signal.mu_law import mu_law
 from audio_style_transfer_tpu_torch.train.optimizers import scheduled_step
 
@@ -91,7 +99,9 @@ def train_loss(params: Params, wav: torch.Tensor, cfg: WaveNetAEConfig) -> torch
 
 
 class Trainer:
-    """Owns the train step and the checkpoint lifecycle on one device."""
+    """Owns the train step and the checkpoint lifecycle, on one device or,
+    with ``mesh`` (a 1-D ``parallel.make_mesh``), on this rank's device of a
+    data-parallel mesh (``device`` is then not read)."""
 
     def __init__(
         self,
@@ -101,15 +111,23 @@ class Trainer:
         rng: torch.Generator | None = None,
         device: torch.device | str = "cuda",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "Trainer(mesh=...) is not ported yet: data parallelism is ROADMAP.md M8 "
-                "(multi-device, torch.distributed)")
         self.cfg = cfg or TrainConfig()
         self.model_cfg = model_cfg or WaveNetAEConfig()
         if self.cfg.remat and not self.model_cfg.remat:
             self.model_cfg = dataclasses.replace(self.model_cfg, remat=True)
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.rank = 0
+        if mesh is None:
+            self.device = torch.device(device)
+        else:
+            self.axis = mesh.mesh_dim_names[0]
+            self._group = mesh.get_group(self.axis)
+            self._n = mesh.size(0)
+            if self.cfg.total_batch_size % self._n:
+                raise ValueError(f"total_batch_size {self.cfg.total_batch_size} does not split "
+                                 f"over the {self._n} ranks of the mesh")
+            self.rank = mesh.get_local_rank(self.axis)
+            self.device = rank_device(mesh)
         rng = rng if rng is not None else torch.Generator().manual_seed(0)
         # Every init_state() draws the same weights, as the JAX key does.
         self._rng_state = rng.get_state()
@@ -137,6 +155,8 @@ class Trainer:
             params = init_params(gen, self.model_cfg)
         params = {layer: {k: v.detach().to(self.device, torch.float32).clone()
                           for k, v in e.items()} for layer, e in params.items()}
+        if self.mesh is not None:
+            replicate(self.mesh, _leaves(params), self.axis)
         ema = {layer: {k: v.clone() for k, v in e.items()} for layer, e in params.items()}
         return self._state(params, ema, 0)
 
@@ -168,7 +188,22 @@ class Trainer:
                 p.grad = torch.zeros_like(p)
         if n > 1:
             torch._foreach_div_([p.grad for p in leaves], float(n))
+        if self.mesh is not None:
+            loss = self._mean_over_ranks(loss, leaves)
         return loss
+
+    def _mean_over_ranks(self, loss: torch.Tensor, leaves: list[torch.Tensor]) -> torch.Tensor:
+        """JAX's ``pmean`` of the loss and the gradients: one all-reduce (sum)
+        of one flat float32 buffer that holds every gradient and the loss,
+        then a division by the rank count. Each .grad becomes a view of it."""
+        flat = torch.cat([p.grad.reshape(-1) for p in leaves] + [loss.reshape(1)])
+        dist.all_reduce(flat, group=self._group)
+        flat.div_(self._n)
+        offset = 0
+        for p in leaves:
+            p.grad = flat[offset:offset + p.numel()].view_as(p)
+            offset += p.numel()
+        return flat[offset]
 
     def _update(self, state: TrainState, wav: torch.Tensor) -> torch.Tensor:
         params = state["params"]
@@ -188,20 +223,25 @@ class Trainer:
         state["step"] = step + 1
         return loss
 
-    def _batch(self, wav) -> torch.Tensor:
+    def _batch(self, wav, dim: int = 0) -> torch.Tensor:
+        """The batch on the device; with a mesh, this rank's rows of the
+        global batch along ``dim``."""
+        if self.mesh is not None:
+            wav = shard_rows(self.mesh, wav, self.axis, dim)
         if isinstance(wav, torch.Tensor):
             return wav.to(self.device, torch.float32)
         return torch.from_numpy(np.asarray(wav, np.float32)).to(self.device)
 
     def step(self, state: TrainState, wav) -> tuple[TrainState, torch.Tensor]:
-        """One step on the batch ``wav`` [B, T] (numpy or tensor). Updates
-        ``state`` in place and returns it with the loss (a device scalar)."""
+        """One step on the global batch ``wav`` [B, T] (numpy or tensor).
+        Updates ``state`` in place and returns it with the loss (a device
+        scalar, the mean over the ranks)."""
         return state, self._update(state, self._batch(wav))
 
     def run_steps(self, state: TrainState, wavs) -> tuple[TrainState, torch.Tensor]:
         """K steps over ``wavs`` [K, B, T]: (state, losses [K] on the device;
         nothing is read back)."""
-        wavs = self._batch(wavs)
+        wavs = self._batch(wavs, dim=1)
         losses = [self._update(state, w) for w in wavs]
         return state, torch.stack(losses)
 
@@ -226,8 +266,12 @@ class Trainer:
     def _upload(self, group: list) -> torch.Tensor:
         """Start the copy of a group of host batches [K, B, T] to the device:
         from pinned memory on a side stream, so it overlaps the step running
-        on the compute stream (``_ready`` orders them)."""
-        host = torch.from_numpy(np.stack(group).astype(np.float32, copy=False))
+        on the compute stream (``_ready`` orders them). With a mesh, only
+        this rank's rows."""
+        host = np.stack(group).astype(np.float32, copy=False)
+        if self.mesh is not None:
+            host = shard_rows(self.mesh, host, self.axis, dim=1)
+        host = torch.from_numpy(np.ascontiguousarray(host))
         if self.device.type != "cuda":
             return host.to(self.device)
         if self._copy_stream is None:
@@ -252,11 +296,16 @@ class Trainer:
     ) -> TrainState:
         """Training loop with periodic checkpoints and preemption safety.
 
-        Batches come in groups of ``steps_per_call``; a full group runs
-        through ``run_steps``, a partial (trailing) one a step at a time.
-        The step counter lives on the host: the loop reads a device value
-        only at log steps. A SIGTERM/SIGINT ends the loop after the running
-        group with a checkpoint.
+        Batches come in groups of ``steps_per_call`` (the last one may be
+        partial), each group copied to the device while the previous one
+        runs. The step counter lives on the host: the loop reads a device
+        value only at log steps. A SIGTERM/SIGINT ends the loop after the
+        running group with a checkpoint.
+
+        With a mesh every rank reads the same global stream and uploads its
+        own rows; the preemption flag is reduced (max) over the ranks after
+        each group, so all of them stop together; rank 0 alone logs and
+        writes checkpoints.
         """
         cfg = self.cfg
         num_steps = num_steps or cfg.num_iters
@@ -291,12 +340,8 @@ class Trainer:
             while remaining > 0 and pending is not None:
                 group = self._ready(pending)
                 n_in_group = group.shape[0]
-                if n_in_group == k and k > 1:
-                    state, losses = self.run_steps(state, group)
-                    loss = losses[-1]
-                else:
-                    for i in range(n_in_group):
-                        state, loss = self.step(state, group[i])
+                for wav in group:
+                    loss = self._update(state, wav)
                 # The steps are queued on the device; read and copy the next
                 # group meanwhile.
                 pending = (
@@ -306,7 +351,7 @@ class Trainer:
                 )
                 remaining -= n_in_group
                 step += n_in_group
-                if step % cfg.log_every_steps < n_in_group:
+                if self.rank == 0 and step % cfg.log_every_steps < n_in_group:
                     log(
                         f"step {step} loss {float(loss):.4f} "
                         f"({(step - step_start) / (time.time() - t0):.2f}"
@@ -314,14 +359,23 @@ class Trainer:
                     )
                 if cfg.save_every_steps and step % cfg.save_every_steps < n_in_group:
                     self.save(state)
-                if interrupted["flag"]:
-                    log(f"preemption signal at step {step}: checkpointing")
+                if self._any_rank(interrupted["flag"]):
+                    if self.rank == 0:
+                        log(f"preemption signal at step {step}: checkpointing")
                     self.save(state)
                     break
         finally:
             signal.signal(signal.SIGTERM, prev_term)
             signal.signal(signal.SIGINT, prev_int)
         return state
+
+    def _any_rank(self, flag: bool) -> bool:
+        """``flag`` or-ed over the ranks of the mesh (an all-reduce max)."""
+        if self.mesh is None:
+            return flag
+        t = torch.tensor([float(flag)], device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self._group)
+        return bool(t.item())
 
     # ------------------------------------------------------------------ #
     # Checkpointing (reference ckpt cadence: train.py:130; resume semantics
@@ -333,8 +387,16 @@ class Trainer:
 
     def save(self, state: TrainState) -> str:
         """Write ``<logdir>/ckpt-<step>``: params, the optimizer's state_dict,
-        EMA and step, under a temporary name, then renamed into place."""
+        EMA and step, under a temporary name, then renamed into place. With a
+        mesh, rank 0 writes and every rank waits for it at a barrier."""
         path = self._ckpt_path(int(state["step"]))
+        if self.rank == 0:
+            self._write(state, path)
+        if self.mesh is not None:
+            dist.barrier(group=self._group)
+        return path
+
+    def _write(self, state: TrainState, path: str) -> None:
         os.makedirs(os.path.dirname(path), exist_ok=True)
         detach = lambda tree: {layer: {k: v.detach() for k, v in e.items()}  # noqa: E731
                                for layer, e in tree.items()}
@@ -343,12 +405,13 @@ class Trainer:
         tmp = f"{path}.tmp-{os.getpid()}"
         torch.save(payload, tmp)
         os.replace(tmp, path)
-        return path
 
     def restore(self, step: int | None = None) -> TrainState:
         """The state saved at ``step``, or at the largest step saved. Only
         complete checkpoints count: names whose suffix is not all digits
-        (a save cut off before its rename) are skipped."""
+        (a save cut off before its rename) are skipped. With a mesh every
+        rank reads the checkpoint (the logdir is shared), then the params,
+        EMA and Adam's moments are broadcast from rank 0."""
         logdir = os.path.abspath(self.cfg.logdir)
         if step is None:
             steps = [
@@ -365,4 +428,10 @@ class Trainer:
         state = self._state(on_device(saved["params"]), on_device(saved["ema"]),
                             int(saved["step"]))
         state["opt_state"].load_state_dict(saved["opt_state"])
+        if self.mesh is not None:
+            moments = [v for p in _leaves(state["params"])
+                       for key, v in sorted(state["opt_state"].state[p].items())
+                       if key != "step"]
+            replicate(self.mesh, _leaves(state["params"]) + _leaves(state["ema"]) + moments,
+                      self.axis)
         return state

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+from audio_style_transfer_tpu_torch.parallel.mesh import gather_rows
 from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law_numpy, mu_law_numpy
 from audio_style_transfer_tpu_torch.transfer.grams import l2_normalize, select_style_layers
 from audio_style_transfer_tpu_torch.transfer.lbfgs import LBFGSOptions, lbfgs_minimize
@@ -80,7 +81,8 @@ def _metrics_row(parts) -> np.ndarray:
 
 
 class StyleTransfer:
-    """Runs transfers with one set of encoder weights on one device."""
+    """Runs transfers with one set of encoder weights on one device (on each
+    rank's, with ``optimize_batch(mesh=)``)."""
 
     def __init__(self, spec: TransferSpec, params, model_cfg: WaveNetAEConfig | None = None):
         self.spec = spec
@@ -236,23 +238,39 @@ class StyleTransfer:
         ``snapshots`` [K, epochs, T], ``metrics`` [K, epochs, 4], ``evals``
         [K, epochs] (rows past a clip's ``epochs_done`` are zero),
         ``epochs_done`` [K] and ``x`` [K, 1, T], each clip's last iterate.
-        The clip-sharded form (``mesh``) belongs to the multi-device slice.
+
+        With ``mesh`` (a 1-D ``parallel.make_mesh`` whose device is the
+        engine's), rank r of n runs clips ``[r K/n, (r+1) K/n)`` (K must be a
+        multiple of n), with no communication until the results are gathered:
+        every rank returns the dict above for all K clips, equal to
+        ``mesh=None``'s. This is JAX's ``lax.map`` inside ``shard_map``.
         """
-        if mesh is not None:
-            raise NotImplementedError(
-                "optimize_batch(mesh=...) is not ported yet (ROADMAP.md M8: multi-device)")
         epochs = epochs or self.spec.epochs
+        clips = range(len(phi_c))
+        if mesh is not None:
+            n = mesh.size(0)
+            if len(phi_c) % n:
+                raise ValueError(f"{len(phi_c)} clips do not split over the {n} ranks of the mesh")
+            if mesh.device_type != self.device.type:
+                raise ValueError(f"a {mesh.device_type} mesh for an engine on {self.device}")
+            per = len(phi_c) // n
+            clips = range(mesh.get_local_rank(0) * per, (mesh.get_local_rank(0) + 1) * per)
         outs = [
             self._run_epochs(self._start(None if x0 is None else x0[i]),
                              self._tensor(phi_c[i]), self._tensor(phi_s[i]), epochs)
-            for i in range(len(phi_c))
+            for i in clips
         ]
         snapshots = np.stack([o[0] for o in outs])
+        metrics = np.stack([o[1] for o in outs])
+        evals = np.stack([o[2] for o in outs])
         ep_done = np.asarray([o[3] for o in outs], np.int32)
+        if mesh is not None:
+            snapshots, metrics, evals, ep_done = (
+                gather_rows(mesh, a) for a in (snapshots, metrics, evals, ep_done))
         return {
             "snapshots": snapshots,
-            "metrics": np.stack([o[1] for o in outs]),
-            "evals": np.stack([o[2] for o in outs]),
+            "metrics": metrics,
+            "evals": evals,
             "epochs_done": ep_done,
             "x": np.stack([snapshots[i, max(int(e) - 1, 0)]
                            for i, e in enumerate(ep_done)])[:, None, :],

@@ -10,10 +10,14 @@ Optionally the style target is first mapped through the NMF + optimal
 transport palette transform (reference utils.py:132-145), the "OT loss"
 flavour of BASELINE.json config 5.
 
+With a mesh (``parallel.make_mesh``) the windows are sharded over the ranks
+in groups, each rank optimizing its share with no communication until the
+results are gathered; every rank returns the whole stitched clip.
+
 Exact mode (``transfer_exact``) optimizes ONE window spanning the whole
 clip with one global gram, on one device: as a single unmasked trunk pass, or
-as a scan over halo-extended windows (parallel/halo.py). Its mesh form waits
-for the multi-device slice.
+as a scan over halo-extended windows (parallel/halo.py). Its time-sharded
+mesh form is ROADMAP.md M8b.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 from audio_style_transfer_tpu_torch.analysis.nmf import nmf, nmf_transform
 from audio_style_transfer_tpu_torch.analysis.ot import ot_admm, transform_palette
 from audio_style_transfer_tpu_torch.models.wavenet_ae import encoder_extracts
+from audio_style_transfer_tpu_torch.parallel.mesh import replicate
 from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law_numpy, mu_law_numpy
 from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer
 from audio_style_transfer_tpu_torch.transfer.grams import l2_normalize, style_gram
@@ -66,6 +71,7 @@ def transfer_longform(
     ot_blend: float = 0.5,
     crossfade: int = 256,
     mesh=None,
+    windows_per_device: int = 8,
 ) -> LongformResult:
     """Chunked long-form transfer with the reference's gram-translation trick
     applied per window, optionally through the NMF+OT palette transform.
@@ -78,13 +84,18 @@ def transfer_longform(
       ot_blend: weight of the OT translated-gram delta on the style target
         (0 = reference target untouched, 1 = full correction).
       crossfade: samples of linear crossfade when stitching windows.
-      mesh: windows sharded over several devices; not ported yet.
+      mesh: a 1-D ``parallel.make_mesh``: the windows are sharded over its
+        ranks (``optimize_batch(mesh=)``) in groups of
+        ``windows_per_device * n``. A trailing partial group is padded by
+        repeating its last window, to the full group when earlier groups
+        exist, else to a multiple of n, and the padding is trimmed from the
+        results. Rank 0's style and window targets are broadcast, so every
+        rank optimizes against the same bits. Without a mesh the windows run
+        one after another and ``windows_per_device`` is unused.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "transfer_longform(mesh=...) is not ported yet (ROADMAP.md M8: multi-device)")
     window = engine.spec.batch_size
     windows = chunk_audio(content_audio, window)
+    k = windows.shape[0]
 
     # Shared style statistics (chunk-averaged, methods.py:97-111).
     phi_t = engine.get_style_phi(style_audio, max_examples=max_style_examples)
@@ -100,10 +111,25 @@ def transfer_longform(
     phi_cs, phis = _window_targets(engine.params, to_dev(mu_law_numpy(windows)),
                                    to_dev(phi_t), to_dev(phi_s), engine.cfg,
                                    engine.loss_spec)
-    result = engine.optimize_batch(phi_cs, phis, epochs=epochs)
+    if mesh is None:
+        result = engine.optimize_batch(phi_cs, phis, epochs=epochs)
+    else:
+        replicate(mesh, [phi_cs, phis], mesh.mesh_dim_names[0])
+        n = mesh.size(0)
+        group = max(windows_per_device * n, n)
+        parts = []
+        for s in range(0, k, group):
+            pc, ph = phi_cs[s : s + group], phis[s : s + group]
+            pad = (group if k > group else -(-len(pc) // n) * n) - len(pc)
+            if pad:
+                pc = torch.cat([pc, pc[-1:].expand(pad, *pc.shape[1:])])
+                ph = torch.cat([ph, ph[-1:].expand(pad, *ph.shape[1:])])
+            r = engine.optimize_batch(pc, ph, epochs=epochs, mesh=mesh)
+            parts.append({key: v[: len(v) - pad] for key, v in r.items()})
+        result = {key: np.concatenate([p[key] for p in parts]) for key in parts[0]}
 
     # Stitch windows with a short crossfade to hide seam discontinuities.
-    outs = [inv_mu_law_numpy(result["x"][i, 0]) for i in range(windows.shape[0])]
+    outs = [inv_mu_law_numpy(result["x"][i, 0]) for i in range(k)]
     return LongformResult(audio=_stitch(outs, crossfade), per_window=result)
 
 
@@ -227,7 +253,8 @@ def transfer_exact(
     length the loss ran over: in scan mode the padded one, which is what a
     per-evaluation cost divides by) and ``x`` [1, t_optimized].
 
-    ``mesh``: the time-sharded form over several devices; not ported yet.
+    ``mesh``: the time-sharded form over several devices, ROADMAP.md M8b;
+    not ported yet.
     """
     from audio_style_transfer_tpu_torch.parallel.halo import (
         make_scan_exact_embeds_fn,
@@ -237,7 +264,7 @@ def transfer_exact(
 
     if mesh is not None:
         raise NotImplementedError(
-            "transfer_exact(mesh=...) is not ported yet (ROADMAP.md M8: multi-device)")
+            "transfer_exact(mesh=...) is not ported yet (ROADMAP.md M8b: time sharding)")
     spec = engine.spec
     epochs = epochs or spec.epochs
     if scan_window is None:

@@ -98,6 +98,19 @@ Phases (any failure raises and exits non-zero):
      reader (a full group of steps and a partial one), save -> restore bit
      for bit, an EMA ``evaluate`` {K1: 30, K2: 0}; `[train cli]`
      cli/train.py as a subprocess for 3 iterations, its launches counted;
+     then data parallelism and clip sharding (parallel/mesh.py):
+     `[dp train nccl, world 1]` ``Trainer(mesh=make_mesh(1))`` over NCCL,
+     the bf16 step at 32 x 6144 for 3 steps, bit for bit ``mesh=None``'s,
+     ms per step both ways and the gradient all-reduce alone; then one
+     spawned group of 2 ranks sharing the card over gloo (NCCL takes one
+     card per rank), each phase against this process's single-rank run:
+     `[dp train gloo, 2 ranks on one card]` 3 f32 steps at full width on a
+     global batch of 4 x 2048 (losses, the weights after step 1, both ranks
+     bit for bit, {K1: 30, K2: 30} per rank per step), `[clip sharded]`
+     ``optimize_batch(mesh=)`` of 8 clips at T=16384 (stack 0, bf16, 2
+     epochs of maxiter 20; aggregate evals/s both ways), `[longform
+     sharded]` ``transfer_longform(mesh=, windows_per_device=1)`` on the
+     long-form cell's clips; their launches go into the totals;
   6. print the per-kernel JSON line (time, plain time, bound, library time,
      FMA time, windowed time, the error at the exact runs' shapes and, for
      K1 and K2, at the training step's in both types), then the
@@ -2358,6 +2371,336 @@ def train_phases(dev, smi: str) -> tuple[dict, dict]:
     return totals, trunk
 
 
+# Data parallelism and clip sharding (parallel/mesh.py) on the one card: NCCL
+# at world size 1 in this process, and 2 ranks that share the card over gloo
+# (NCCL refuses two ranks on one card) in one spawned group.
+DP_STEPS = 3
+DP_GLOO_SHAPE = (4, 2048)  # the 2-rank step's global batch, f32: 2 x 2048 per rank
+# The loss's rel, each step. The weights after the first step are held as the
+# train parity phase holds them (TRAIN_FLIP_SHARE): Adam moves a weight by
+# about lr whatever the size of its gradient, so where a gradient near zero
+# differs between two sum orders (the whole batch at once, or a mean of the
+# ranks' halves) the weights differ by a share of lr, not by a rounding
+# error; every later step spreads such differences to more gradients.
+DP_TOL = 1e-4
+GLOO_RANKS = 2
+CLIP_K, CLIP_EPOCHS, CLIP_MAXITER = 8, 2, 20  # clips of T at stack 0, bf16, fixed work
+LONGFORM_TOL = (2e-4, 1e-4)  # sharded long-form audio: rtol, atol (tests/test_longform.py)
+GLOO_DEADLINE_S = 900.0
+
+
+def _step_launches(label: str, i: int) -> dict:
+    """The launches of one training step, which must be {K1: 30, K2: 30}."""
+    from audio_style_transfer_tpu_torch.ops import _build
+
+    want = {k: 0 for k in KERNELS}
+    want.update(K1=LAYERS, K2=LAYERS)
+    if dict(_build.LAUNCHES) != want:
+        raise AssertionError(f"[{label}] step {i} launched {dict(_build.LAUNCHES)}, want "
+                             "K1 30, K2 30 and nothing else")
+    return want
+
+
+def dp_nccl_phase(dev, smi: str) -> dict:
+    """[dp train nccl, world 1] ``Trainer(mesh=make_mesh(1))`` over NCCL against
+    ``mesh=None``: TrainConfig()'s bf16 step at 32 x 6144 from the same weights
+    on the same DP_STEPS batches, equal bit for bit (one rank's all-reduce and
+    the division by 1 are exact); ms per step both ways, and the all-reduce of
+    the flat float32 gradient buffer alone. Returns the launches."""
+    import torch
+    import torch.distributed as dist
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+    from audio_style_transfer_tpu_torch.ops import _build
+    from audio_style_transfer_tpu_torch.parallel import make_mesh
+    from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer
+    from audio_style_transfer_tpu_torch.train.trainer import _leaves
+
+    label = "dp train nccl, world 1"
+    wavs = [torch.from_numpy(train_batch(TRAIN_SHAPE, 20 + i)).to(dev) for i in range(DP_STEPS)]
+    cfg, model_cfg = TrainConfig(save_every_steps=0), WaveNetAEConfig(compute_dtype=torch.bfloat16)
+    totals = {k: 0 for k in KERNELS}
+    mesh = make_mesh(1)
+    try:
+        runs = {}
+        for name, m in (("mesh=None", None), ("make_mesh(1)", mesh)):
+            tr = Trainer(cfg, model_cfg, mesh=m, device=dev)
+            st = tr.init_state()
+            losses, ms = [], []
+            for i, wav in enumerate(wavs):
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                st, loss = tr.step(st, wav)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                for k, v in _step_launches(label, i).items():
+                    totals[k] += v
+                losses.append(loss.detach())
+            runs[name] = (torch.stack(losses).cpu(),
+                          [p.detach().cpu() for p in _leaves(st["params"]) + _leaves(st["ema"])],
+                          ms)
+            del tr, st
+        n_weights = sum(p.numel() for p in runs["mesh=None"][1]) // 2
+        flat = torch.zeros(n_weights + 1, device=dev)
+        reduce_ms = cuda_ms(lambda: dist.all_reduce(flat), reps=10)
+        backend = dist.get_backend()
+    finally:
+        dist.destroy_process_group()
+    (l0, w0, ms0), (l1, w1, ms1) = runs.values()
+    same = torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(w0, w1))
+    print(f"[{label}] {backend}, {TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} bf16, {DP_STEPS} steps: "
+          f"losses {[round(float(v), 6) for v in l1]}; params and EMA equal mesh=None's bit for "
+          f"bit: {'ok' if same else 'FAIL'}; launches per step {{K1: 30, K2: 30}} ok")
+    print(f"[{label}] ms per step (first with warm-up): mesh=None {[round(v, 1) for v in ms0]}, "
+          f"make_mesh(1) {[round(v, 1) for v in ms1]}; all-reduce of the {n_weights} gradients "
+          f"and the loss ({4 * (n_weights + 1) / 1e6:.1f} MB f32) alone {reduce_ms:.3f} ms "
+          f"({smi})")
+    if not same:
+        raise AssertionError(f"[{label}] the world-1 mesh's state differs from mesh=None's")
+    return totals
+
+
+def _clip_inputs(engine) -> tuple:
+    """CLIP_K content windows of T from one synthetic clip, and the style grams
+    of CLIP_K windows of a synthetic style clip: (phi_cs, phi_ss) as numpy."""
+    content = synth_audio(CLIP_K * T / 16000 + 0.1, kind="content")
+    style = synth_audio(CLIP_K * T / 16000 + 0.1, kind="style")
+    phi_cs = np.stack([engine.get_embeds(content[i * T:(i + 1) * T]) for i in range(CLIP_K)])
+    phi_ss = np.stack([engine.get_embeds(style[i * T:(i + 1) * T], is_content=False)
+                       for i in range(CLIP_K)])
+    return phi_cs, phi_ss
+
+
+def _clip_engine(dev):
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, init_params
+    from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
+
+    spec = TransferSpec(stack=0, batch_size=T, epochs=CLIP_EPOCHS, maxiter=CLIP_MAXITER,
+                        early_stop_evals=0, compute_dtype="bfloat16", write_artifacts=False,
+                        device=str(dev))
+    return StyleTransfer(spec, init_params(0, WaveNetAEConfig()))
+
+
+def _longform_engine(dev):
+    """The long-form cell's engine, as the CLI builds it for ``--longform
+    --ot_components 8 --gamma 1e-3 --stack 0 --epochs 2 --precision bfloat16
+    --fused --random_init``."""
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, init_params
+    from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
+
+    spec = TransferSpec(stack=0, batch_size=T, epochs=2, gamma=1e-3, compute_dtype="bfloat16",
+                        fused_encoder=True, write_artifacts=False, device=str(dev))
+    return StyleTransfer(spec, init_params(0, WaveNetAEConfig()))
+
+
+def _longform_clips() -> tuple:
+    return (synth_audio((WINDOWS * T + 1000) / 16000, kind="content"),
+            synth_audio(1.1, kind="style"))
+
+
+def _timed_launches(fn):
+    """(fn(), wall seconds, its launches), the device drained either side."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import _build
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, dict(_build.LAUNCHES)
+
+
+def gloo_rank(rank: int, tmp: str) -> None:
+    """One of the GLOO_RANKS ranks of ``gloo_phases`` (spawned, gloo, on the one
+    card): the DP steps, the clip-sharded batch and the sharded long-form run,
+    each started together after a barrier. Writes ``<tmp>/rank<r>.npz``."""
+    import torch
+    import torch.distributed as dist
+
+    from audio_style_transfer_tpu_torch.ops import _build
+    from audio_style_transfer_tpu_torch.parallel import make_mesh
+    from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer
+    from audio_style_transfer_tpu_torch.train.trainer import _leaves
+    from audio_style_transfer_tpu_torch.transfer.longform import transfer_longform
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(GLOO_RANKS, device="cuda", backend="gloo")
+    dev = torch.device("cuda", torch.cuda.current_device())
+    inp = np.load(os.path.join(tmp, "in.npz"))
+    out = {}
+
+    b, t = DP_GLOO_SHAPE
+    tr = Trainer(TrainConfig(total_batch_size=b, sample_length=t, save_every_steps=0), mesh=mesh)
+    st = tr.init_state()
+    losses, ms, launches = [], [], {k: 0 for k in KERNELS}
+    for i in range(DP_STEPS):
+        dist.barrier()
+        (st, loss), wall, _ = _timed_launches(
+            lambda: tr.step(st, train_batch(DP_GLOO_SHAPE, 30 + i)))
+        for k, v in _step_launches(f"dp train gloo, rank {rank}", i).items():
+            launches[k] += v
+        losses.append(float(loss))
+        ms.append(wall * 1e3)
+        if i == 0 and rank == 0:
+            out["dp_params1"] = torch.cat([p.detach().reshape(-1)
+                                           for p in _leaves(st["params"])]).cpu().numpy()
+    flat = torch.cat([p.detach().reshape(-1) for p in _leaves(st["params"]) + _leaves(st["ema"])])
+    mine = flat.clone()
+    dist.broadcast(flat, src=0)
+    out.update(dp_losses=np.array(losses), dp_ms=np.array(ms), dp_ranks_equal=np.array(
+        bool(torch.equal(flat, mine))), dp_launches=np.array([launches[k] for k in KERNELS]))
+    del tr, st, flat, mine
+
+    engine = _clip_engine(dev)
+    dist.barrier()
+    res, wall, got = _timed_launches(
+        lambda: engine.optimize_batch(inp["phi_cs"], inp["phi_ss"], mesh=mesh))
+    out.update(clip_x=res["x"], clip_evals=res["evals"], clip_wall=np.array(wall),
+               clip_launches=np.array([got[k] for k in KERNELS]))
+
+    engine = _longform_engine(dev)
+    content, style = _longform_clips()
+    dist.barrier()
+    res, wall, got = _timed_launches(lambda: transfer_longform(
+        engine, content, style, ot_components=8, mesh=mesh, windows_per_device=1))
+    out.update(lf_audio=res.audio, lf_evals=res.per_window["evals"], lf_wall=np.array(wall),
+               lf_launches=np.array([got[k] for k in KERNELS]))
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+
+
+def gloo_phases(dev, smi: str) -> tuple[dict, dict]:
+    """[dp train gloo, 2 ranks on one card], [clip sharded] and [longform
+    sharded]: GLOO_RANKS spawned ranks over gloo on the one card (``gloo_rank``),
+    each held to this process's single-rank run of the same work:
+    - DP_STEPS f32 steps at full width on the global batch DP_GLOO_SHAPE
+      against one Trainer on the whole batch: loss per step rel DP_TOL; after
+      the first step at most TRAIN_FLIP_SHARE of the params differ by more
+      than 1e-6; params and EMA after the last step equal on both ranks bit
+      for bit; {K1: 30, K2: 30} per rank per step;
+    - ``optimize_batch(mesh=)`` of CLIP_K clips (T, stack 0, bf16, CLIP_EPOCHS
+      epochs of CLIP_MAXITER iterations, no early stop) against ``mesh=None``:
+      max|d| stated (0 expected: each clip runs the same code on the same
+      card), evaluations equal; aggregate evals/s both ways;
+    - ``transfer_longform(mesh=, windows_per_device=1)`` on the long-form
+      cell's clips (WINDOWS windows, OT target of 8 components) against
+      ``mesh=None``: audio within LONGFORM_TOL, max|d| stated.
+    Returns (runs entries (launches, evals, wall) for the evals/s summary, the
+    training steps' launches)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.parallel.mesh import spawn
+    from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer, learning_rate
+    from audio_style_transfer_tpu_torch.train.trainer import _leaves
+    from audio_style_transfer_tpu_torch.transfer.longform import transfer_longform
+
+    b, t = DP_GLOO_SHAPE
+    tr = Trainer(TrainConfig(total_batch_size=b, sample_length=t, save_every_steps=0),
+                 device=dev)
+    st = tr.init_state()
+    ref_losses, ref_ms = [], []
+    for i in range(DP_STEPS):
+        (st, loss), wall, _ = _timed_launches(
+            lambda: tr.step(st, train_batch(DP_GLOO_SHAPE, 30 + i)))
+        ref_losses.append(float(loss))
+        ref_ms.append(wall * 1e3)
+        if i == 0:
+            ref_leaves = [p.detach().cpu() for p in _leaves(st["params"])]
+    del tr, st
+    engine = _clip_engine(dev)
+    phi_cs, phi_ss = _clip_inputs(engine)
+    clip_ref, clip_wall, clip_launches = _timed_launches(
+        lambda: engine.optimize_batch(phi_cs, phi_ss))
+    lf_engine = _longform_engine(dev)
+    content, style = _longform_clips()
+    lf_ref, lf_wall, lf_launches = _timed_launches(lambda: transfer_longform(
+        lf_engine, content, style, ot_components=8))
+    del engine, lf_engine
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        np.savez(os.path.join(tmp, "in.npz"), phi_cs=phi_cs, phi_ss=phi_ss)
+        t0 = time.perf_counter()
+        spawn(gloo_rank, GLOO_RANKS, args=(tmp,), device="cuda", backend="gloo",
+              deadline_s=GLOO_DEADLINE_S)
+        spawn_s = time.perf_counter() - t0
+        ranks = [dict(np.load(os.path.join(tmp, f"rank{r}.npz"))) for r in range(GLOO_RANKS)]
+    as_dict = lambda a: dict(zip(KERNELS, (int(v) for v in a)))  # noqa: E731
+
+    label = "dp train gloo, 2 ranks on one card"
+    loss_rel = max(abs(a - c) / abs(c) for a, c in zip(ranks[0]["dp_losses"], ref_losses))
+    got, worst, moved, off = ranks[0]["dp_params1"], 0.0, 0, 0
+    for ref in ref_leaves:
+        d = np.abs(got[off:off + ref.numel()].reshape(ref.shape) - ref.numpy())
+        off += ref.numel()
+        worst = max(worst, float(d.max()))
+        moved += int((d > 1e-6).sum())
+    equal = all(bool(r["dp_ranks_equal"]) for r in ranks)
+    print(f"[{label}] f32 full width, global batch {b} x {t}, {DP_STEPS} steps: losses "
+          f"{[round(float(v), 6) for v in ranks[0]['dp_losses']]} against one process "
+          f"{[round(v, 6) for v in ref_losses]}, worst rel {loss_rel:.2e} (tol {DP_TOL:.0e}); "
+          f"params after step 1 against one process: max|d| {worst:.2e} (lr "
+          f"{learning_rate(0):.0e}), {moved} of {off} differ by more than 1e-6 (<= "
+          f"{TRAIN_FLIP_SHARE:.0e} of them); params and EMA after step {DP_STEPS} equal on "
+          f"both ranks bit for bit: {'ok' if equal else 'FAIL'}; launches per rank per step "
+          f"{{K1: 30, K2: 30}} ok")
+    print(f"[{label}] ms per step (first with warm-up) by rank "
+          f"{[[round(float(v), 1) for v in r['dp_ms']] for r in ranks]}, one process on the "
+          f"whole batch {[round(v, 1) for v in ref_ms]} ({smi})")
+    if not (loss_rel <= DP_TOL and moved <= TRAIN_FLIP_SHARE * off and equal):
+        raise AssertionError(f"[{label}] disagrees with the single process")
+    train_launches = {k: sum(as_dict(r["dp_launches"])[k] for r in ranks) for k in KERNELS}
+
+    label = "clip sharded"
+    evals = int(np.sum(clip_ref["evals"]))
+    shard_launches = {k: sum(as_dict(r["clip_launches"])[k] for r in ranks) for k in KERNELS}
+    d = max(float(np.abs(r["clip_x"] - clip_ref["x"]).max()) for r in ranks)
+    same_evals = all(np.array_equal(r["clip_evals"], clip_ref["evals"]) for r in ranks)
+    shard_wall = max(float(r["clip_wall"]) for r in ranks)
+    print(f"[{label}] {CLIP_K} clips of {T}, stack 0, bf16, {CLIP_EPOCHS} epochs of maxiter "
+          f"{CLIP_MAXITER}: {GLOO_RANKS} gloo ranks on one card against mesh=None: x max|d| "
+          f"{d:.3e}, evaluations equal {'ok' if same_evals else 'FAIL'} ({evals}); "
+          f"aggregate {evals / clip_wall:.1f} evals/s in one process ({clip_wall:.2f} s), "
+          f"{evals / shard_wall:.1f} evals/s over {GLOO_RANKS} ranks ({shard_wall:.2f} s, "
+          f"the slower rank), ratio {clip_wall / shard_wall:.2f} ({smi})")
+    scale = float(np.abs(clip_ref["x"]).max())
+    if not (same_evals and d <= 1e-3 * scale):
+        raise AssertionError(f"[{label}] the sharded batch differs from mesh=None's")
+    check_launches(f"{label}, {GLOO_RANKS} ranks", shard_launches, {"K1", "K2", "K5", "K6"},
+                   evals)
+    check_launches(f"{label}, mesh=None", clip_launches, {"K1", "K2", "K5", "K6"}, evals)
+
+    label = "longform sharded"
+    lf_evals = int(np.sum(lf_ref.per_window["evals"]))
+    lf_shard = {k: sum(as_dict(r["lf_launches"])[k] for r in ranks) for k in KERNELS}
+    d = max(float(np.abs(r["lf_audio"] - lf_ref.audio).max()) for r in ranks)
+    ok = all(np.allclose(r["lf_audio"], lf_ref.audio, rtol=LONGFORM_TOL[0], atol=LONGFORM_TOL[1])
+             for r in ranks)
+    lf_shard_wall = max(float(r["lf_wall"]) for r in ranks)
+    print(f"[{label}] {WINDOWS} windows, OT 8 components, gamma 1e-3, stack 0, bf16, 2 epochs, "
+          f"windows_per_device=1 over {GLOO_RANKS} gloo ranks against mesh=None: audio max|d| "
+          f"{d:.3e} (rtol {LONGFORM_TOL[0]:.0e}, atol {LONGFORM_TOL[1]:.0e}) "
+          f"{'ok' if ok else 'FAIL'}; evals by window {ranks[0]['lf_evals'].sum(axis=1).tolist()}"
+          f" against {lf_ref.per_window['evals'].sum(axis=1).tolist()}; wall {lf_wall:.2f} s "
+          f"in one process, {lf_shard_wall:.2f} s over {GLOO_RANKS} ranks (setup included); "
+          f"the spawned group took {spawn_s:.1f} s with process start ({smi})")
+    if not ok:
+        raise AssertionError(f"[{label}] the sharded audio differs from mesh=None's")
+    shard_lf_evals = int(np.sum(ranks[0]["lf_evals"]))
+    check_launches(f"{label}, {GLOO_RANKS} ranks", lf_shard, {"K1", "K2", "K5", "K6"},
+                   shard_lf_evals)
+    runs = {
+        "clip sharded, mesh=None": (clip_launches, evals, clip_wall),
+        f"clip sharded, {GLOO_RANKS} ranks": (shard_launches, evals, shard_wall),
+        "longform sharded, mesh=None": (lf_launches, lf_evals, lf_wall),
+        f"longform sharded, {GLOO_RANKS} ranks": (lf_shard, shard_lf_evals, lf_shard_wall),
+    }
+    return runs, train_launches
+
+
 def main() -> int:
     import torch
 
@@ -2421,6 +2764,12 @@ def main() -> int:
     generate_device_ops(params, dev, synth_rows[0]["steady_us"])
     generate_cli_phase(params, dev)
     train_launches, train_trunk = train_phases(dev, smi)
+    dp_launches = dp_nccl_phase(dev, smi)
+    gloo_runs, gloo_train_launches = gloo_phases(dev, smi)
+    runs.update(gloo_runs)
+    for part in (dp_launches, gloo_train_launches):
+        for k, v in part.items():
+            train_launches[k] += v
     for label, (_, evals, wall, *_) in runs.items():
         print(f"[{label}] {evals} evals, {evals / wall:.2f} evals/s setup included ({smi})")
     # bf16 against f32 from the same 1e-6 start. Printed, not yet a check: the

@@ -898,6 +898,40 @@ def test_one_train_step_on_card_matches_cpu(dev):
     assert moved <= 1e-3 * total
 
 
+def test_world_one_nccl_trainer_equals_mesh_none(dev):
+    """Trainer(mesh=make_mesh(1)) over NCCL at world size 1: two steps equal
+    mesh=None's bit for bit (one rank's all-reduce and the division by 1 are
+    exact), with K1 and K2 launched once a layer a step either way; NCCL's
+    gather of host rows (``optimize_batch(mesh=)``'s) returns them."""
+    import torch.distributed as dist
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+    from audio_style_transfer_tpu_torch.parallel import make_mesh
+    from audio_style_transfer_tpu_torch.parallel.mesh import gather_rows
+    from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer
+    from audio_style_transfer_tpu_torch.train.trainer import _leaves
+
+    wavs = np.random.RandomState(1).uniform(-0.8, 0.8, (2, 2, 1024)).astype(np.float32)
+    mesh = make_mesh(1)
+    try:
+        assert dist.get_backend() == "nccl"
+        out = []
+        for m in (None, mesh):
+            tr = Trainer(TrainConfig(save_every_steps=0), WaveNetAEConfig(**TRAIN_CFG), mesh=m,
+                         device=dev)
+            st = tr.init_state()
+            _build.reset_launches()
+            losses = [tr.step(st, w)[1] for w in wavs]
+            assert _build.LAUNCHES["K1"] == _build.LAUNCHES["K2"] == 2 * TRAIN_CFG["ae_num_layers"]
+            out.append((torch.stack(losses), _leaves(st["params"]) + _leaves(st["ema"])))
+        rows = np.arange(6, dtype=np.float32).reshape(3, 2)
+        np.testing.assert_array_equal(gather_rows(mesh, rows), rows)
+    finally:
+        dist.destroy_process_group()
+    assert torch.equal(out[0][0], out[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_trunk_weight_gradients_through_k1_k2_match_plain_autograd(dev, dtype):
     """TrunkFunction (K1 forward, K2 for dx, the weight gradients by

@@ -23,11 +23,11 @@ from audio_style_transfer_tpu.ops import conv as jconv
 from audio_style_transfer_tpu.utils import audio_io as jio
 from audio_style_transfer_tpu_torch.models import wavenet_ae as model
 from audio_style_transfer_tpu_torch.ops import conv
-from audio_style_transfer_tpu_torch.signal import mu_law as mu
 from audio_style_transfer_tpu_torch.utils import audio_io
 
-# The JAX package's signal/__init__ exports a function named mu_law.
+# Both packages' signal/__init__ export a function named mu_law.
 jmu = importlib.import_module("audio_style_transfer_tpu.signal.mu_law")
+mu = importlib.import_module("audio_style_transfer_tpu_torch.signal.mu_law")
 
 TINY = dict(num_layers=4, num_stages=2, width=8, skip_width=8, ae_num_layers=2,
             ae_num_stages=2, ae_width=8, ae_hop_length=32, ae_bottleneck_width=4)

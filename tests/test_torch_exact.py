@@ -152,7 +152,7 @@ def test_transfer_exact_stops_early_and_refuses_what_it_cannot_run():
     content, style = _clip(W, 0, 0.05), _clip(W, 1, 0.11)
     res = tlong.transfer_exact(early, content, style, epochs=3)
     assert res.per_window["epochs_done"] == 1 and res.per_window["evals"].shape == (1,)
-    with pytest.raises(NotImplementedError, match="M8"):
+    with pytest.raises(NotImplementedError, match="M8b"):
         tlong.transfer_exact(teng, content, style, mesh=object())
     with pytest.raises(ValueError, match="shorter than one"):
         tlong.transfer_exact(teng, content[:3000], style)

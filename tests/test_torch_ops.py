@@ -15,12 +15,12 @@ from torch_helpers import n, t
 from audio_style_transfer_tpu.ops import conv as jconv
 from audio_style_transfer_tpu.transfer import grams as jgrams
 from audio_style_transfer_tpu_torch.ops import conv as tconv
-from audio_style_transfer_tpu_torch.signal import mu_law as tmu
 from audio_style_transfer_tpu_torch.transfer import grams as tgrams
 
 RTOL = ATOL = 1e-5
-# The JAX signal package re-exports a function named mu_law over the module.
+# Both signal packages re-export a function named mu_law over the module.
 jmu = importlib.import_module("audio_style_transfer_tpu.signal.mu_law")
+tmu = importlib.import_module("audio_style_transfer_tpu_torch.signal.mu_law")
 
 
 def test_mu_law_codecs_match_jax():

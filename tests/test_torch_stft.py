@@ -16,11 +16,11 @@ from audio_style_transfer_tpu.models.wavenet_ae import WaveNetAEConfig as JCfg
 from audio_style_transfer_tpu.signal.mu_law import mu_law_numpy
 from audio_style_transfer_tpu.transfer import losses as jlosses
 from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig as TCfg
-from audio_style_transfer_tpu_torch.signal import stft as tstft
 from audio_style_transfer_tpu_torch.transfer import losses as tlosses
 
-# The module, not the function of the same name the package re-exports.
+# The modules, not the functions of the same name the packages re-export.
 jstft = importlib.import_module("audio_style_transfer_tpu.signal.stft")
+tstft = importlib.import_module("audio_style_transfer_tpu_torch.signal.stft")
 
 # Both sides run a float32 FFT of 1024 points on the same frames; the two
 # libraries order the butterflies differently (about 1e-6 of the peak).

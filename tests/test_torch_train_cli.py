@@ -57,9 +57,22 @@ def test_cli_trains_checkpoints_and_resumes_on_the_cpu(records, tmp_path, capsys
     assert not torch.equal(w2, w3) and bool(torch.isfinite(w3).all())
 
 
-def test_cli_refuses_what_it_cannot_do(records, tmp_path):
+def test_cli_refuses_what_it_cannot_do(records, tmp_path, monkeypatch):
+    """No --train_path; --num_devices beyond the visible cards on cuda. What
+    it can do since data parallelism: --num_devices 2 --device cpu spawns 2
+    gloo ranks that train 2 steps on a global batch of 2, and rank 0 alone
+    writes the one checkpoint."""
     with pytest.raises(RuntimeError, match="train_path"):
         train.main(["--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="M8"):
-        train.main(["--train_path", records, "--num_devices", "2", "--device", "cpu",
-                    "--logdir", str(tmp_path)])
+    if not torch.cuda.is_available():
+        with pytest.raises(ValueError, match="--num_devices 2: 0 CUDA device"):
+            train.main(["--train_path", records, "--num_devices", "2",
+                        "--logdir", str(tmp_path)])
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
+    logdir = str(tmp_path / "dp")
+    train.main(["--train_path", records, "--num_devices", "2", "--device", "cpu",
+                "--logdir", logdir, "--total_batch_size", "2", "--sample_length", "512",
+                "--num_iters", "2"])
+    assert os.listdir(logdir) == ["ckpt-2"]
+    state = Trainer(TrainConfig(logdir=logdir), device="cpu").restore()
+    assert state["step"] == 2 and bool(torch.isfinite(state["params"]["logits"]["w"]).all())

@@ -323,11 +323,6 @@ def test_fit_groups_and_the_partial_trailing_group(tmp_path, pnp, steps_per_call
     assert_trees_equal(st["params"], ref["params"])
 
 
-def test_mesh_raises_naming_m8():
-    with pytest.raises(NotImplementedError, match="M8"):
-        Trainer(TrainConfig(), mesh=object(), device="cpu")
-
-
 def test_memorizing_one_batch_lowers_the_loss(port):
     st = port.init_state()
     wav = wavs(0, lo=-0.5, hi=0.5)
