@@ -1,9 +1,10 @@
-"""Process groups and meshes over torch.distributed (mesh.py), and the exact
-long-form windows on one device (halo.py; its sharded half and
-``tp_decode_logits`` are ROADMAP.md M8b)."""
+"""Process groups, meshes and differentiable collectives over
+torch.distributed (mesh.py), the exact long-form loss over several ranks or
+on one device (halo.py) and the tensor-parallel decoder (tensor.py)."""
 
 from audio_style_transfer_tpu_torch.parallel.mesh import (
     data_parallel_specs,
     make_hybrid_mesh,
     make_mesh,
 )
+from audio_style_transfer_tpu_torch.parallel.tensor import tp_decode_logits

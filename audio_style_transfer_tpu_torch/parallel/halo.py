@@ -1,10 +1,29 @@
-"""Exact full-sequence transfer loss on one device (counterpart of the
-single-device half of audio_style_transfer_tpu/parallel/halo.py).
+"""Exact full-sequence transfer loss, over several ranks or on one device
+(counterpart of audio_style_transfer_tpu/parallel/halo.py).
 
 The reference scales long audio by chunking with gram averaging, which
 changes semantics at chunk borders. Exact mode keeps ONE global gram over the
 whole clip, exact content features at every sample and SAME padding only at
-the clip's ends. Two flavours compute the same loss:
+the clip's ends.
+
+Over the ranks of a mesh axis (time sharding), each rank holds a contiguous
+chunk of the clip:
+  1. one halo exchange (``parallel.mesh.neighbour_exchange``) gives every
+     rank the encoder's receptive field from both neighbours, rounded up to
+     a multiple of 512 (3072 at full width);
+  2. every rank runs the trunk on its halo-extended chunk with a valid
+     window on the first and the last rank (the clip's SAME padding), and
+     crops the halo off its taps;
+  3. grams are time sums, so the global gram is the sum of the ranks'
+     partial grams (``parallel.mesh.psum``); the content term is the mean of
+     the ranks' means and the STFT regularizer a sum over frames, each one
+     all-reduce. Content features stay sharded.
+Every rank computes the same loss. The all-reduces' backward is the
+identity: each rank backpropagates that replicated loss, so the cotangent it
+receives is already the whole one. The exchange's backward sends each halo's
+cotangent back to the rank it came from.
+
+On one device two flavours compute the same loss:
 
   - single window (``_single_window_exact_loss_fn``): one unmasked trunk pass
     at T = the clip. The trunk's own clip-edge padding is the global one, so
@@ -29,14 +48,12 @@ window's slice of the gradient (overlapping halos accumulate).
 ``make_scan_exact_loss_fn`` returns the plain differentiable loss, which holds
 every window's graph: the oracle of the two-pass function, and fine for short
 clips.
-
-The mesh functions of the JAX module (halo exchange over devices,
-``make_sharded_loss_fn``) are ROADMAP.md M8b.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from audio_style_transfer_tpu_torch.models.wavenet_ae import (
     WaveNetAEConfig,
@@ -44,6 +61,7 @@ from audio_style_transfer_tpu_torch.models.wavenet_ae import (
     receptive_field_radius,
 )
 from audio_style_transfer_tpu_torch.ops.gram import pair_gram
+from audio_style_transfer_tpu_torch.parallel.mesh import neighbour_exchange, psum
 from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law, safe_abs
 from audio_style_transfer_tpu_torch.signal.stft import stft, stft_l1
 from audio_style_transfer_tpu_torch.transfer.grams import l2_normalize
@@ -85,6 +103,118 @@ def _normalized(gram_sum, spec: LossSpec) -> torch.Tensor:
     if spec.nb_channels < gram.shape[0] and not spec.gatys:
         gram = gram[:spec.nb_channels]
     return gram
+
+
+def _exchange_halos(x_local, radius: int, group):
+    """[B, chunk] -> [B, chunk + 2 radius]: ``radius`` samples of each
+    neighbour on either side of the rank's chunk; zeros past the clip's
+    ends (the single-device encoder's zero padding)."""
+    if x_local.shape[-1] < radius:
+        raise ValueError(f"a chunk of {x_local.shape[-1]} samples is shorter than the halo "
+                         f"{radius}: the exchange reaches only the next rank")
+    left_halo, right_halo = neighbour_exchange(group, x_local[:, :radius], x_local[:, -radius:])
+    return torch.cat([left_halo, x_local, right_halo], dim=1)
+
+
+def time_sharded_trunk(params, x_local, cfg: WaveNetAEConfig, group, needed_taps=None):
+    """The rank's taps of the whole clip's encoder trunk, cropped to its
+    chunk ``x_local`` [1, chunk] (entries the caller did not list in
+    ``needed_taps`` may be None, as in ``encoder_trunk``).
+
+    The valid window comes from the rank's index: the first rank's halo lies
+    before the clip (lo = radius), the last rank's after it (hi = chunk +
+    radius); ranks in between see only clip samples and run unwindowed, the
+    same as their full window (0, chunk + 2 radius). Every rank of ``group``
+    must call it together."""
+    radius = _window_radius(cfg)
+    x_ext = _exchange_halos(x_local, radius, group)
+    idx, n = dist.get_rank(group), dist.get_world_size(group)
+    chunk = x_local.shape[1]
+    window = (radius if idx == 0 else 0,
+              chunk + radius if idx == n - 1 else chunk + 2 * radius)
+    if window == (0, chunk + 2 * radius):
+        window = None
+    extracts = encoder_trunk(params, x_ext, cfg, needed_taps=needed_taps, valid_window=window)
+    return [None if e is None else e[:, radius:-radius, :] for e in extracts]
+
+
+def sharded_stft_l1(a_local, group, frame_length: int = FRAME_LENGTH,
+                    frame_step: int = FRAME_STEP):
+    """The global ``stft_l1`` of a time-sharded signal ``a_local`` [chunk]
+    (audio domain), equal on every rank. Each rank takes frame_length -
+    frame_step samples of its right neighbour, so a frame across a chunk
+    border is computed once, by the rank it starts on; frames past the
+    clip's end are masked off. Needs chunk % frame_step == 0."""
+    idx, n = dist.get_rank(group), dist.get_world_size(group)
+    chunk = a_local.shape[-1]
+    if chunk % frame_step:
+        raise ValueError(
+            f"sharded_stft_l1 needs chunk % frame_step == 0, got {chunk} % {frame_step}")
+    _, right_halo = neighbour_exchange(group, a_local[..., :frame_length - frame_step], None)
+    s = stft(torch.cat([a_local, right_halo], dim=-1), frame_length, frame_step)
+    m = s.shape[-2]
+    n_global = 1 + (n * chunk - frame_length) // frame_step
+    in_range = (idx * m + torch.arange(m, device=a_local.device)) < n_global
+    vals = safe_abs(s.real) + safe_abs(s.imag)
+    total = psum(torch.sum(vals * in_range.to(vals.dtype)[..., :, None]), group)
+    return total / (n_global * s.shape[-1])
+
+
+def make_sharded_embeds_fn(cfg: WaveNetAEConfig, spec: LossSpec, mesh,
+                           axis_name: str = "time"):
+    """(params, x_local [1, chunk]) -> (the rank's content embed [chunk, C*],
+    the whole clip's normalized style gram, equal on every rank): the
+    target-building companion of ``make_sharded_loss_fn``, one trunk pass."""
+    group = mesh.get_group(axis_name)
+    needed = _needed(spec)
+
+    def embeds(params, x_local):
+        extracts = time_sharded_trunk(params, x_local, cfg, group, needed_taps=needed)
+        return _content(extracts, spec), _normalized(psum(_window_grams(extracts, spec), group),
+                                                     spec)
+
+    return embeds
+
+
+def make_sharded_embeds(params, cfg: WaveNetAEConfig, spec: LossSpec, mesh,
+                        axis_name: str = "time"):
+    """``make_sharded_embeds_fn`` with the weights bound: x_local -> (content
+    embed, gram)."""
+    embeds = make_sharded_embeds_fn(cfg, spec, mesh, axis_name)
+    return lambda x_local: embeds(params, x_local)
+
+
+def make_sharded_loss_fn(cfg: WaveNetAEConfig, spec: LossSpec, mesh, axis_name: str = "time"):
+    """(params, x_local [1, chunk], phi_c_local [chunk, C*], phi_s) -> the
+    whole clip's transfer loss, equal on every rank of the mesh axis: the
+    rank's chunk of the waveform and of the content target, the style target
+    replicated. Differentiable in ``x_local``: its gradient is the rank's
+    chunk of the whole clip's. Chunks must be of one length on every rank."""
+    group = mesh.get_group(axis_name)
+    n = mesh.size(mesh.mesh_dim_names.index(axis_name))
+    needed = _needed(spec)
+
+    def loss(params, x_local, phi_c_local, phi_s):
+        extracts = time_sharded_trunk(params, x_local, cfg, group, needed_taps=needed)
+        content_sq = torch.mean(torch.square(_content(extracts, spec).to(_F32)
+                                             - phi_c_local.to(_F32)))
+        content_loss = psum(content_sq, group) / n * 10.0
+        gram = _normalized(psum(_window_grams(extracts, spec), group), spec)
+        style_loss = torch.mean(torch.square(gram - phi_s)) * 1e3
+        total = content_loss + spec.lambd * style_loss
+        if spec.gamma != 0.0:
+            total = total + spec.gamma * sharded_stft_l1(inv_mu_law(x_local[0]), group)
+        return total
+
+    return loss
+
+
+def make_sharded_loss(params, phi_c_local, phi_s, cfg: WaveNetAEConfig, spec: LossSpec, mesh,
+                      axis_name: str = "time"):
+    """``make_sharded_loss_fn`` with weights and targets bound: x_local ->
+    loss."""
+    loss = make_sharded_loss_fn(cfg, spec, mesh, axis_name)
+    return lambda x_local: loss(params, x_local, phi_c_local, phi_s)
 
 
 def _single_window_exact_loss_fn(cfg: WaveNetAEConfig, spec: LossSpec, t_total: int):

@@ -19,6 +19,14 @@ with one GPU run that way. NCCL refuses two ranks on one card.
 store (no TCP port to collide), each group with a timeout and the whole run
 with a deadline after which the workers are terminated: a hung collective
 becomes an error, never a stuck run.
+
+The differentiable collectives of the sharded paths (parallel/halo.py,
+parallel/tensor.py) are here too: ``neighbour_exchange`` (JAX's
+``ppermute`` to both neighbours), ``psum`` (an all-reduce whose backward is
+the identity: the loss it feeds is replicated, so every rank's cotangent is
+already the whole one), ``copy_to_ranks`` (its mirror: identity forward,
+all-reduce backward) and ``take_shard`` (a rank's slice of a replicated
+tensor, whose backward all-gathers the slices).
 """
 
 from __future__ import annotations
@@ -136,20 +144,156 @@ def data_parallel_specs(axis_name: str = "data"):
 def gather_rows(mesh: DeviceMesh, local: np.ndarray, axis_name: str | None = None) -> np.ndarray:
     """Every rank's block of rows, concatenated in rank order, on every rank
     (JAX's ``out_specs=P(axis)`` read back to the host). The blocks must have
-    the same shape. NCCL gathers on the card; gloo on host tensors, because
-    it gathers no CUDA tensor."""
+    the same shape."""
     axis_name = axis_name or mesh.mesh_dim_names[0]
     group = mesh.get_group(axis_name)
-    n = dist.get_world_size(group)
     t = torch.from_numpy(np.ascontiguousarray(local))
     if dist.get_backend(group) == "nccl":
         t = t.to(rank_device(mesh))
-    out = torch.empty((n * t.shape[0],) + tuple(t.shape[1:]), dtype=t.dtype, device=t.device)
-    if dist.get_backend(group) == "nccl":
-        dist.all_gather_into_tensor(out, t, group=group)
+    return all_gather_along(t, 0, group).cpu().numpy()
+
+
+def _is_gloo(group) -> bool:
+    return dist.get_backend(group) == "gloo"
+
+
+def all_gather_along(t: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``t`` (one shape on all ranks), concatenated along ``dim``
+    in rank order, on ``t``'s device. NCCL gathers on the card; gloo on host
+    tensors, because it gathers no CUDA tensor."""
+    n = dist.get_world_size(group)
+    src = t.movedim(dim, 0).contiguous()
+    if _is_gloo(group):
+        host = src.cpu()
+        parts = [torch.empty_like(host) for _ in range(n)]
+        dist.all_gather(parts, host, group=group)
+        out = torch.cat(parts).to(t.device)
     else:
-        dist.all_gather(list(out.chunk(n)), t, group=group)
-    return out.cpu().numpy()
+        out = torch.empty((n * src.shape[0],) + tuple(src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        dist.all_gather_into_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _exchange(group, to_prev, to_next):
+    """(from_prev, from_next): send ``to_prev`` to rank - 1 and ``to_next`` to
+    rank + 1 of ``group`` and receive what those neighbours send this way, as
+    one ``batch_isend_irecv`` (both sends and both receives posted at once,
+    so no pair of ranks can deadlock). Either may be None: nothing moves that
+    way on any rank, and None comes back from the other side. A neighbour
+    past the group's ends sends zeros; at world size 1 nothing is sent.
+    gloo moves host copies of CUDA tensors."""
+    rank, n = dist.get_rank(group), dist.get_world_size(group)
+    dev = (to_prev if to_prev is not None else to_next).device
+    staged = _is_gloo(group) and dev.type != "cpu"
+
+    def out(t):
+        return None if t is None else t.to("cpu") if staged else t.contiguous()
+
+    send_prev, send_next = out(to_prev), out(to_next)
+    from_prev = None if to_next is None else torch.zeros_like(send_next)
+    from_next = None if to_prev is None else torch.zeros_like(send_prev)
+    ops = []
+    for neighbour, send, recv in ((rank - 1, send_prev, from_prev),
+                                  (rank + 1, send_next, from_next)):
+        if 0 <= neighbour < n:
+            peer = dist.get_global_rank(group, neighbour)
+            ops += [dist.P2POp(op, t, peer, group)
+                    for op, t in ((dist.isend, send), (dist.irecv, recv)) if t is not None]
+    if ops:
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+    if staged:
+        from_prev, from_next = (None if t is None else t.to(dev) for t in (from_prev, from_next))
+    return from_prev, from_next
+
+
+class _NeighbourExchange(torch.autograd.Function):
+    """``_exchange`` with its transpose as the backward: the cotangent of
+    what came from rank - 1 goes back to rank - 1, where it is the gradient
+    of what that rank sent, and so for rank + 1."""
+
+    @staticmethod
+    def forward(ctx, group, to_prev, to_next):
+        ctx.group = group
+        return _exchange(group, to_prev, to_next)
+
+    @staticmethod
+    def backward(ctx, g_from_prev, g_from_next):
+        g_prev, g_next = _exchange(ctx.group, g_from_prev, g_from_next)
+        return None, g_prev, g_next
+
+
+def neighbour_exchange(group, to_prev: torch.Tensor | None, to_next: torch.Tensor | None):
+    """(from_prev, from_next), differentiable: ``to_prev`` goes to rank - 1
+    and ``to_next`` to rank + 1 of ``group``; the first rank receives zeros
+    from before it and the last zeros from after it (the clip's SAME
+    padding). Either argument may be None (then nothing moves that way).
+    Every rank of ``group`` must call it with the same shapes."""
+    return _NeighbourExchange.apply(group, to_prev, to_next)
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)  # NCCL reduces contiguous tensors
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def psum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (JAX's ``psum``), with the
+    identity as its backward. Right where what it feeds is replicated: every
+    rank then backpropagates the same loss, and the cotangent each receives
+    is already the whole dL/dsum. ``torch.distributed.nn.functional
+    .all_reduce`` all-reduces the cotangent as well, which would count it n
+    times."""
+    return _Psum.apply(x, group)
+
+
+class _CopyToRanks(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def copy_to_ranks(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (replicated) as it enters rank-local work: the identity, whose
+    backward sums the ranks' partial cotangents (Megatron's f; ``psum`` is
+    its g)."""
+    return _CopyToRanks.apply(x, group)
+
+
+class _TakeShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, full, dim, group):
+        n = dist.get_world_size(group)
+        size = full.shape[dim] // n
+        ctx.dim, ctx.group = dim, group
+        return full.narrow(dim, dist.get_rank(group) * size, size).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather_along(g, ctx.dim, ctx.group), None, None
+
+
+def take_shard(full: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's contiguous 1/n of a replicated tensor along ``dim``. Its
+    backward all-gathers the ranks' cotangents, so the replicated tensor
+    gets its whole gradient on every rank. ``full.shape[dim]`` must split
+    over the ranks."""
+    return _TakeShard.apply(full, dim, group)
 
 
 def make_hybrid_mesh(ici_axis: str = "data", dcn_axis: str = "slice",

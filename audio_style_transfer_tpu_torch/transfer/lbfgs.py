@@ -13,6 +13,11 @@ twice; removing those syncs is later work.
 search inside SciPy's L-BFGS-B; ``"zoom"`` is the plainer bracketing search
 the transfer engine runs. The JAX versions compute every branch and select;
 here only the branch taken is computed, with the same float32 arithmetic.
+
+A sharded iterate (``group``: each rank holds a slice of x, of the gradient
+and of the curvature memory, as JAX's GSPMD shards them) reduces every inner
+product and norm over the ranks, so every scalar that steers the control
+flow is the same on every rank and all ranks take the same branches.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import dataclasses
 from typing import Callable, NamedTuple
 
 import torch
+import torch.distributed as dist
 
 _F32 = torch.float32
 
@@ -76,12 +82,20 @@ def _scalar(v: float) -> torch.Tensor:
     return torch.tensor(v, dtype=_F32)
 
 
-def _ip(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Flat inner product as elementwise multiply + full sum."""
-    return torch.sum(a * b)
+def _over_ranks(v: torch.Tensor, group, op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """A rank's partial sum (or max) reduced over ``group``; None: unchanged."""
+    if group is not None:
+        dist.all_reduce(v, op=op, group=group)
+    return v
 
 
-def _two_loop(g, s_hist, y_hist, rho, head: int, gamma):
+def _ip(a: torch.Tensor, b: torch.Tensor, group=None) -> torch.Tensor:
+    """Flat inner product as elementwise multiply + full sum (over the ranks
+    of ``group`` too)."""
+    return _over_ranks(torch.sum(a * b), group)
+
+
+def _two_loop(g, s_hist, y_hist, rho, head: int, gamma, group=None):
     """H·g by the two-loop recursion over the circular history. Unused slots
     carry rho=0, so they contribute nothing; all m slots are visited, newest
     first, as in the JAX version."""
@@ -90,13 +104,13 @@ def _two_loop(g, s_hist, y_hist, rho, head: int, gamma):
     alpha = []
     for i in range(m):
         idx = (head - 1 - i) % m
-        a = rho[idx] * _ip(s_hist[idx], q)
+        a = rho[idx] * _ip(s_hist[idx], q, group)
         q = q - a * y_hist[idx]
         alpha.append((idx, a))
     r = gamma * q
     for i in range(m - 1, -1, -1):
         idx, a = alpha[i]
-        beta = rho[idx] * _ip(y_hist[idx], r)
+        beta = rho[idx] * _ip(y_hist[idx], r, group)
         r = r + s_hist[idx] * (a - beta)
     return r
 
@@ -342,7 +356,7 @@ def _mt_line_search(value_and_grad_1d, f0, g0, dphi0, a_init, opts: LBFGSOptions
 
 def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
                    opts: LBFGSOptions = LBFGSOptions(), history: dict | None = None,
-                   return_history: bool = False, has_aux: bool = False):
+                   return_history: bool = False, has_aux: bool = False, group=None):
     """Minimize f with L-BFGS.
 
     Args:
@@ -352,6 +366,9 @@ def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
       history: curvature memory from a previous call (``return_history``) to
         warm-start the Hessian approximation. It is copied, not modified.
       return_history: also return the final curvature memory.
+      group: a process group over which x0 is sharded (each rank passes its
+        slice, and ``value_and_grad`` returns the same f on every rank and
+        the rank's slice of g); None: x0 is the whole iterate.
 
     Returns ``LBFGSResult`` (aux is the objective's aux at x0) or
     ``(LBFGSResult, history)``.
@@ -390,31 +407,32 @@ def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
     k, n_evals, status, ftol_strikes = 0, 1, 2, 0
     done = False
     while not done and k < opts.maxiter:
-        d = -_two_loop(g, s_hist, y_hist, rho, head, gamma)
-        dphi0 = _host(_ip(g, d))
+        d = -_two_loop(g, s_hist, y_hist, rho, head, gamma, group)
+        dphi0 = _host(_ip(g, d, group))
         if bool(dphi0 >= 0.0):  # not a descent direction: steepest descent
             d = -g
-            dphi0 = -_host(_ip(g, g))
+            dphi0 = -_host(_ip(g, g, group))
         # The small first step applies only with an empty memory: 1/||d||_2
         # for the Moré-Thuente search (lnsrlb.f), 1/||g||_1 for zoom.
         if k != 0 or count != 0:
             a_init = _scalar(1.0)
         elif opts.line_search == "mt":
-            a_init = 1.0 / torch.sqrt(_host(_ip(d, d)))
+            a_init = 1.0 / torch.sqrt(_host(_ip(d, d, group)))
         else:
-            a_init = torch.minimum(_scalar(1.0), 1.0 / _host(torch.sum(torch.abs(g))))
+            a_init = torch.minimum(
+                _scalar(1.0), 1.0 / _host(_over_ranks(torch.sum(torch.abs(g)), group)))
 
         def vg_1d(a, x=x, d=d):
             fa, ga = vg(x + a * d)
-            return fa, _host(_ip(ga, d)), ga
+            return fa, _host(_ip(ga, d, group)), ga
 
         a, f_new, g_new, ls_evals, ok = search(vg_1d, f, g, dphi0, a_init, opts)
         x_new = x + a * d
 
         s = x_new - x
         y = g_new - g
-        sy = _host(_ip(s, y))
-        yy = _host(_ip(y, y))
+        sy = _host(_ip(s, y, group))
+        yy = _host(_ip(y, y, group))
         if ok and bool(sy > 1e-10 * yy):
             idx = head % m
             s_hist[idx] = s
@@ -429,7 +447,8 @@ def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
             rho = torch.zeros_like(rho)
             count, gamma = 0, _scalar(1.0)
 
-        gtol_hit = bool(torch.max(torch.abs(g_new)) <= opts.gtol)
+        gtol_hit = bool(_over_ranks(torch.max(torch.abs(g_new)), group, dist.ReduceOp.MAX)
+                        <= opts.gtol)
         ftol_tick = bool((f - f_new) <= opts.ftol * torch.clamp(
             torch.maximum(torch.abs(f), torch.abs(f_new)), min=1.0))
         ftol_strikes = ftol_strikes + 1 if (ftol_tick and ok) else 0

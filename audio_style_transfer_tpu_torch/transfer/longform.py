@@ -15,9 +15,9 @@ in groups, each rank optimizing its share with no communication until the
 results are gathered; every rank returns the whole stitched clip.
 
 Exact mode (``transfer_exact``) optimizes ONE window spanning the whole
-clip with one global gram, on one device: as a single unmasked trunk pass, or
-as a scan over halo-extended windows (parallel/halo.py). Its time-sharded
-mesh form is ROADMAP.md M8b.
+clip with one global gram: on one device as a single unmasked trunk pass, or
+as a scan over halo-extended windows; with a mesh time-sharded, each rank
+holding a chunk of the clip (parallel/halo.py).
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ import torch
 from audio_style_transfer_tpu_torch.analysis.nmf import nmf, nmf_transform
 from audio_style_transfer_tpu_torch.analysis.ot import ot_admm, transform_palette
 from audio_style_transfer_tpu_torch.models.wavenet_ae import encoder_extracts
-from audio_style_transfer_tpu_torch.parallel.mesh import replicate
+from audio_style_transfer_tpu_torch.parallel.mesh import gather_rows, replicate, shard_rows
 from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law_numpy, mu_law_numpy
 from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer
 from audio_style_transfer_tpu_torch.transfer.grams import l2_normalize, style_gram
@@ -253,20 +253,25 @@ def transfer_exact(
     length the loss ran over: in scan mode the padded one, which is what a
     per-evaluation cost divides by) and ``x`` [1, t_optimized].
 
-    ``mesh``: the time-sharded form over several devices, ROADMAP.md M8b;
-    not ported yet.
+    ``mesh``: a 1-D ``parallel.make_mesh``; the clip is time-sharded over its
+    ranks (``halo.make_sharded_loss_fn``): trimmed to a multiple of
+    ``n * 512`` samples (equal chunks, each a whole number of STFT frame
+    steps), no scan and no pad, ``scan_window`` unused. Each rank holds its
+    chunk of the iterate, the gradient and the curvature memory, and L-BFGS
+    reduces its inner products over the ranks (``lbfgs_minimize(group=)``).
+    Rank 0's style target is broadcast, so every rank optimizes against the
+    same bits. Every rank returns the whole clip, gathered at the end.
     """
     from audio_style_transfer_tpu_torch.parallel.halo import (
         make_scan_exact_embeds_fn,
         make_scan_exact_value_and_grad_fn,
     )
-    from audio_style_transfer_tpu_torch.transfer.lbfgs import LBFGSOptions, lbfgs_minimize
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "transfer_exact(mesh=...) is not ported yet (ROADMAP.md M8b: time sharding)")
     spec = engine.spec
     epochs = epochs or spec.epochs
+    if mesh is not None:
+        return _transfer_exact_sharded(engine, content_audio, style_audio, mesh, epochs,
+                                       max_style_examples, ot_components, ot_blend)
     if scan_window is None:
         scan_window = (len(content_audio) if len(content_audio) <= SINGLE_WINDOW_MAX
                        else 32768)
@@ -285,13 +290,8 @@ def transfer_exact(
         t_total = t_valid
     content = np.pad(content_audio[:t_valid], (0, t_total - t_valid))
 
-    # Reference-semantics style statistics (chunk-averaged).
-    phi_t = engine.get_style_phi(style_audio, max_examples=max_style_examples)
-    phi_s = engine.get_style_phi(content_audio, max_examples=max_style_examples)
-    if ot_components is not None:
-        phi_t = _ot_transform_gram(engine, style_audio, content_audio,
-                                   phi_t, ot_components, blend=ot_blend)
-
+    phi_t, phi_s = _exact_style_phi(engine, content_audio, style_audio, max_style_examples,
+                                    ot_components, ot_blend)
     geometry = (engine.cfg, engine.loss_spec, t_total, scan_window, t_valid)
     embeds_fn = make_scan_exact_embeds_fn(*geometry)
     value_and_grad = make_scan_exact_value_and_grad_fn(*geometry)
@@ -308,28 +308,96 @@ def transfer_exact(
         loss, g = value_and_grad(engine.params, x[None, :], phi_c, phi)
         return loss, g[0]
 
+    x, metrics, evals = _exact_epochs(vg, to_dev(np.full((t_total,), 1e-6, np.float32)), spec,
+                                      epochs)
+    return _exact_result(x.detach().cpu().numpy()[None, :], t_valid, metrics, evals)
+
+
+def _exact_epochs(vg, x, spec, epochs: int, group=None):
+    """Exact mode's L-BFGS epochs from x (zoom, no restart on a failed
+    search, the ``< early_stop_evals`` stop): (x, losses, evaluations)."""
+    from audio_style_transfer_tpu_torch.transfer.lbfgs import LBFGSOptions, lbfgs_minimize
+
     opts = LBFGSOptions(maxiter=spec.maxiter, line_search="zoom", restart_on_ls_fail=False)
-    x = to_dev(np.full((t_total,), 1e-6, np.float32))
     metrics, evals = [], []
     for _ in range(epochs):
-        res = lbfgs_minimize(vg, x, opts)
+        res = lbfgs_minimize(vg, x, opts, group=group)
         x = res.x
         metrics.append(float(res.f))
         evals.append(int(res.n_evals))
         if evals[-1] < spec.early_stop_evals:
             break
+    return x, metrics, evals
 
-    x_np = x.detach().cpu().numpy()[None, :]
+
+def _exact_result(x_np, t_valid: int, metrics, evals) -> LongformResult:
+    """The result of x_np [1, t_optimized], its first t_valid samples the audio."""
     return LongformResult(
         audio=inv_mu_law_numpy(x_np[0, :t_valid]),
         per_window={
             "metrics": np.asarray(metrics, np.float32),
             "evals": np.asarray(evals, np.int32),
             "epochs_done": len(evals),
-            "t_optimized": int(t_total),
+            "t_optimized": int(x_np.shape[1]),
             "x": x_np,
         },
     )
+
+
+def _exact_style_phi(engine, content_audio, style_audio, max_style_examples, ot_components,
+                     ot_blend):
+    """(phi_t, phi_s): the chunk-averaged style statistics of the style and
+    the content clip (reference methods.py:97-111), phi_t OT-corrected when
+    asked."""
+    phi_t = engine.get_style_phi(style_audio, max_examples=max_style_examples)
+    phi_s = engine.get_style_phi(content_audio, max_examples=max_style_examples)
+    if ot_components is not None:
+        phi_t = _ot_transform_gram(engine, style_audio, content_audio,
+                                   phi_t, ot_components, blend=ot_blend)
+    return phi_t, phi_s
+
+
+def _transfer_exact_sharded(engine, content_audio, style_audio, mesh, epochs: int,
+                            max_style_examples: int, ot_components, ot_blend) -> LongformResult:
+    """``transfer_exact(mesh=)``: JAX's ``transfer_exact`` with a mesh and
+    its ``_exact_programs``, one process per rank."""
+    from audio_style_transfer_tpu_torch.parallel.halo import (
+        make_sharded_embeds_fn,
+        make_sharded_loss_fn,
+    )
+
+    if mesh.device_type != engine.device.type:
+        raise ValueError(f"a {mesh.device_type} mesh for an engine on {engine.device}")
+    axis = mesh.mesh_dim_names[0]
+    quantum = mesh.size(0) * 512
+    t_total = (len(content_audio) // quantum) * quantum
+    if t_total == 0:
+        raise ValueError(f"content ({len(content_audio)} samples) shorter than one "
+                         f"{quantum}-sample quantum")
+    phi_t, phi_s = _exact_style_phi(engine, content_audio, style_audio, max_style_examples,
+                                    ot_components, ot_blend)
+    embeds_fn = make_sharded_embeds_fn(engine.cfg, engine.loss_spec, mesh, axis)
+    loss_fn = make_sharded_loss_fn(engine.cfg, engine.loss_spec, mesh, axis)
+
+    # The rank's content targets and the global gram through one sharded pass.
+    to_dev = engine._tensor
+    chunk = shard_rows(mesh, mu_law_numpy(content_audio[None, :t_total]), axis, dim=1)
+    with torch.no_grad():
+        phi_c, phi_full = embeds_fn(engine.params, to_dev(chunk))
+        phi_c = phi_c.to(torch.float32)
+        phi = l2_normalize(phi_full.to(torch.float32) + to_dev(phi_t) - to_dev(phi_s),
+                           axes=(1, 2))
+    replicate(mesh, [phi], axis)
+
+    def vg(x):
+        xv = x[None, :].detach().requires_grad_(True)
+        loss = loss_fn(engine.params, xv, phi_c, phi)
+        return loss.detach(), torch.autograd.grad(loss, xv)[0][0]
+
+    x, metrics, evals = _exact_epochs(vg, to_dev(np.full((chunk.shape[1],), 1e-6, np.float32)),
+                                      engine.spec, epochs, group=mesh.get_group(axis))
+    return _exact_result(gather_rows(mesh, x.detach().cpu().numpy(), axis)[None, :], t_total,
+                         metrics, evals)
 
 
 def _stitch(windows: list[np.ndarray], crossfade: int) -> np.ndarray:

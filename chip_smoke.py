@@ -101,7 +101,15 @@ Phases (any failure raises and exits non-zero):
      then data parallelism and clip sharding (parallel/mesh.py):
      `[dp train nccl, world 1]` ``Trainer(mesh=make_mesh(1))`` over NCCL,
      the bf16 step at 32 x 6144 for 3 steps, bit for bit ``mesh=None``'s,
-     ms per step both ways and the gradient all-reduce alone; then one
+     ms per step both ways and the gradient all-reduce alone; in the same
+     world-1 group `[exact sharded nccl, world 1, float32|bfloat16]`
+     ``transfer_exact(mesh=make_mesh(1))`` on the 15 s clip: its first
+     evaluation against the one-window flavour's, its launches per
+     evaluation {K1: 30, K2: 30, K5: 1, K6: 1}, then 2 epochs (evals, losses,
+     ms per evaluation, peak memory, every launch accounted for), and `[tp
+     decoder nccl, world 1]` ``tp_decode_logits`` at full width on 4 x 6144
+     f32 against ``decode_logits`` (logits, NLL, every weight's gradient,
+     ms; no hand-written kernel launched); then one
      spawned group of 2 ranks sharing the card over gloo (NCCL takes one
      card per rank), each phase against this process's single-rank run:
      `[dp train gloo, 2 ranks on one card]` 3 f32 steps at full width on a
@@ -110,7 +118,16 @@ Phases (any failure raises and exits non-zero):
      ``optimize_batch(mesh=)`` of 8 clips at T=16384 (stack 0, bf16, 2
      epochs of maxiter 20; aggregate evals/s both ways), `[longform
      sharded]` ``transfer_longform(mesh=, windows_per_device=1)`` on the
-     long-form cell's clips; their launches go into the totals;
+     long-form cell's clips, `[exact sharded gloo, 2 ranks on one card]`
+     the time-sharded evaluation of the 15 s clip in f32 and bf16 against
+     the one-window flavour (launches per rank per evaluation checked; ms per
+     evaluation, the halo exchange and the all-reduces timed alone), then
+     ``transfer_exact(mesh=)`` for 2 bf16 epochs on each rank (its launches
+     printed per rank and checked; evaluations and final loss equal on the
+     ranks) and `[tp
+     decoder gloo, 2 ranks]` (logits and gradients against each rank's own
+     ``decode_logits``, the ranks' gradients equal bit for bit); their
+     launches go into the totals;
   6. print the per-kernel JSON line (time, plain time, bound, library time,
      FMA time, windowed time, the error at the exact runs' shapes and, for
      K1 and K2, at the training step's in both types), then the
@@ -1359,6 +1376,31 @@ def exact_flavours_phase(params, dev, dtype_name: str) -> None:
         raise AssertionError("exact scan: the pad tail's gradient is not zero")
 
 
+@contextlib.contextmanager
+def lbfgs_clock():
+    """While open, ``lbfgs_minimize`` is timed (the device drained either
+    side) and its seconds summed into the yielded one-element list."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.transfer import lbfgs
+
+    seconds, original = [0.0], lbfgs.lbfgs_minimize
+
+    def timed_minimize(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[0] += time.perf_counter() - t0
+        return out
+
+    lbfgs.lbfgs_minimize = timed_minimize
+    try:
+        yield seconds
+    finally:
+        lbfgs.lbfgs_minimize = original
+
+
 def exact_phase(dev, label: str, scan_window):
     """The exact long-form CLI (bf16, stack 0, gamma 1e-3, 2 epochs) on the
     15 s clip, as one window or as a scan; returns (launches, evals, wall
@@ -1367,27 +1409,18 @@ def exact_phase(dev, label: str, scan_window):
 
     from audio_style_transfer_tpu_torch.cli.transfer import main
     from audio_style_transfer_tpu_torch.ops import _build
-    from audio_style_transfer_tpu_torch.transfer import lbfgs, longform
+    from audio_style_transfer_tpu_torch.transfer import longform
 
     scan = scan_window is not None
     quantum = 512 if scan else 4096
     t_valid = (EXACT_SAMPLES // quantum) * quantum
     t_total = -(-t_valid // scan_window) * scan_window if scan else t_valid
     n_win = t_total // scan_window if scan else 1
-    captured, in_lbfgs = {}, [0.0]
-    originals = (longform.transfer_exact, lbfgs.lbfgs_minimize)
+    captured, original = {}, longform.transfer_exact
 
     def keep_result(*args, **kwargs):
-        captured["res"] = originals[0](*args, **kwargs)
+        captured["res"] = original(*args, **kwargs)
         return captured["res"]
-
-    def timed_minimize(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = originals[1](*args, **kwargs)
-        torch.cuda.synchronize()
-        in_lbfgs[0] += time.perf_counter() - t0
-        return out
 
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "src")
@@ -1402,20 +1435,20 @@ def exact_phase(dev, label: str, scan_window):
                 "--fused", "--random_init", "--no_artifacts", "--device", str(dev)]
         print(f"[{label}] {' '.join(argv[:2])} {' '.join(argv[8:])}")
         buf = io.StringIO()
-        longform.transfer_exact, lbfgs.lbfgs_minimize = keep_result, timed_minimize
+        longform.transfer_exact = keep_result
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             _build.reset_launches()
             t0 = time.perf_counter()
-            with contextlib.redirect_stdout(buf):
+            with contextlib.redirect_stdout(buf), lbfgs_clock() as in_lbfgs:
                 audio = main(argv)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(_build.LAUNCHES)
             peak = torch.cuda.max_memory_allocated()
         finally:
-            longform.transfer_exact, lbfgs.lbfgs_minimize = originals
+            longform.transfer_exact = original
     print(buf.getvalue(), end="")
     per = captured["res"].per_window
     losses = [float(v) for v in per["metrics"]]
@@ -2401,7 +2434,7 @@ def _step_launches(label: str, i: int) -> dict:
     return want
 
 
-def dp_nccl_phase(dev, smi: str) -> dict:
+def dp_nccl_phase(dev, smi: str, mesh) -> dict:
     """[dp train nccl, world 1] ``Trainer(mesh=make_mesh(1))`` over NCCL against
     ``mesh=None``: TrainConfig()'s bf16 step at 32 x 6144 from the same weights
     on the same DP_STEPS batches, equal bit for bit (one rank's all-reduce and
@@ -2412,7 +2445,6 @@ def dp_nccl_phase(dev, smi: str) -> dict:
 
     from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
     from audio_style_transfer_tpu_torch.ops import _build
-    from audio_style_transfer_tpu_torch.parallel import make_mesh
     from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer
     from audio_style_transfer_tpu_torch.train.trainer import _leaves
 
@@ -2420,33 +2452,30 @@ def dp_nccl_phase(dev, smi: str) -> dict:
     wavs = [torch.from_numpy(train_batch(TRAIN_SHAPE, 20 + i)).to(dev) for i in range(DP_STEPS)]
     cfg, model_cfg = TrainConfig(save_every_steps=0), WaveNetAEConfig(compute_dtype=torch.bfloat16)
     totals = {k: 0 for k in KERNELS}
-    mesh = make_mesh(1)
-    try:
-        runs = {}
-        for name, m in (("mesh=None", None), ("make_mesh(1)", mesh)):
-            tr = Trainer(cfg, model_cfg, mesh=m, device=dev)
-            st = tr.init_state()
-            losses, ms = [], []
-            for i, wav in enumerate(wavs):
-                torch.cuda.synchronize()
-                _build.reset_launches()
-                t0 = time.perf_counter()
-                st, loss = tr.step(st, wav)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-                for k, v in _step_launches(label, i).items():
-                    totals[k] += v
-                losses.append(loss.detach())
-            runs[name] = (torch.stack(losses).cpu(),
-                          [p.detach().cpu() for p in _leaves(st["params"]) + _leaves(st["ema"])],
-                          ms)
-            del tr, st
-        n_weights = sum(p.numel() for p in runs["mesh=None"][1]) // 2
-        flat = torch.zeros(n_weights + 1, device=dev)
-        reduce_ms = cuda_ms(lambda: dist.all_reduce(flat), reps=10)
-        backend = dist.get_backend()
-    finally:
-        dist.destroy_process_group()
+    runs = {}
+    for name, m in (("mesh=None", None), ("make_mesh(1)", mesh)):
+        tr = Trainer(cfg, model_cfg, mesh=m, device=dev)
+        st = tr.init_state()
+        losses, ms = [], []
+        for i, wav in enumerate(wavs):
+            torch.cuda.synchronize()
+            _build.reset_launches()
+            t0 = time.perf_counter()
+            st, loss = tr.step(st, wav)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+            for k, v in _step_launches(label, i).items():
+                totals[k] += v
+            losses.append(loss.detach())
+        runs[name] = (torch.stack(losses).cpu(),
+                      [p.detach().cpu() for p in _leaves(st["params"]) + _leaves(st["ema"])],
+                      ms)
+        del tr, st
+    n_weights = sum(p.numel() for p in runs["mesh=None"][1]) // 2
+    flat = torch.zeros(n_weights + 1, device=dev)
+    reduce_ms = cuda_ms(lambda: dist.all_reduce(flat), reps=10)
+    backend = dist.get_backend()
+    del flat
     (l0, w0, ms0), (l1, w1, ms1) = runs.values()
     same = torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(w0, w1))
     print(f"[{label}] {backend}, {TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} bf16, {DP_STEPS} steps: "
@@ -2515,8 +2544,9 @@ def _timed_launches(fn):
 
 def gloo_rank(rank: int, tmp: str) -> None:
     """One of the GLOO_RANKS ranks of ``gloo_phases`` (spawned, gloo, on the one
-    card): the DP steps, the clip-sharded batch and the sharded long-form run,
-    each started together after a barrier. Writes ``<tmp>/rank<r>.npz``."""
+    card): the DP steps, the clip-sharded batch, the sharded long-form run,
+    the time-sharded exact evaluation and the tensor-parallel decoder, each
+    started together after a barrier. Writes ``<tmp>/rank<r>.npz``."""
     import torch
     import torch.distributed as dist
 
@@ -2569,6 +2599,11 @@ def gloo_rank(rank: int, tmp: str) -> None:
         engine, content, style, ot_components=8, mesh=mesh, windows_per_device=1))
     out.update(lf_audio=res.audio, lf_evals=res.per_window["evals"], lf_wall=np.array(wall),
                lf_launches=np.array([got[k] for k in KERNELS]))
+    del engine, res
+    torch.cuda.empty_cache()
+
+    out.update(exact_sharded_rank(rank, dev))
+    out.update(tp_rank(dev))
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
 
 
@@ -2619,6 +2654,11 @@ def gloo_phases(dev, smi: str) -> tuple[dict, dict]:
     lf_ref, lf_wall, lf_launches = _timed_launches(lambda: transfer_longform(
         lf_engine, content, style, ot_components=8))
     del engine, lf_engine
+    ex_ref = {}
+    for dtype_name in ("float32", "bfloat16"):
+        engine = _exact_engine(dev, dtype_name)
+        ex_ref[dtype_name] = [t.cpu() for t in exact_one_window_eval(engine)]
+        del engine
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -2692,13 +2732,405 @@ def gloo_phases(dev, smi: str) -> tuple[dict, dict]:
     shard_lf_evals = int(np.sum(ranks[0]["lf_evals"]))
     check_launches(f"{label}, {GLOO_RANKS} ranks", lf_shard, {"K1", "K2", "K5", "K6"},
                    shard_lf_evals)
+    label = "exact sharded gloo, 2 ranks on one card"
+    ex_launches = {k: sum(as_dict(r["ex_launches"])[k] for r in ranks) for k in KERNELS}
+    ex_evals = 2 * (1 + EXACT_GLOO_TIMED)  # evaluations of the whole clip, each over both ranks
+    for dtype_name, (f_ref, g_ref) in ex_ref.items():
+        loss_tol, grad_tol = EXACT_TOL[dtype_name]
+        print(f"[{label}] {dtype_name}, {EXACT_SHARDED_T} samples in chunks of "
+              f"{EXACT_SHARDED_T // GLOO_RANKS}: first evaluation by rank "
+              f"{[float(r[f'ex_{dtype_name}_f']) for r in ranks]} against one window in one "
+              f"process {float(f_ref):.6f}; ms per evaluation by rank (first with warm-up) "
+              f"{[[round(float(v), 1) for v in r[f'ex_{dtype_name}_ms']] for r in ranks]}")
+        for r in ranks:
+            check("loss, sharded against one window", torch.tensor(r[f"ex_{dtype_name}_f"]),
+                  f_ref, loss_tol)
+            check("waveform gradient gathered, sharded against one window",
+                  torch.from_numpy(r[f"ex_{dtype_name}_g"])[None], g_ref, grad_tol)
+    print(f"[{label}] launches per rank per evaluation {EVAL_LAUNCHES} ok ({ex_launches} in "
+          f"all: {ex_evals} evaluations of the clip, each on {GLOO_RANKS} ranks); halo exchange "
+          f"of 2 x 3072 f32 samples "
+          f"{[round(float(r['ex_halo_ms']), 3) for r in ranks]} ms, all-reduce of the gram "
+          f"({C} x 10 x 10 f32) {[round(float(r['ex_gram_ms']), 3) for r in ranks]} ms, of a "
+          f"scalar {[round(float(r['ex_scalar_ms']), 3) for r in ranks]} ms, by rank ({smi})")
+
+    run_launches = {k: sum(as_dict(r["ex_run_launches"])[k] for r in ranks) for k in KERNELS}
+    run_evals = int(ranks[0]["ex_run_evals"])
+    run_wall = max(float(r["ex_run_wall"]) for r in ranks)
+    same = len({float(r["ex_run_loss"]) for r in ranks}) == 1 and all(
+        int(r["ex_run_evals"]) == run_evals for r in ranks)
+    print(f"[{label}] transfer_exact(mesh=) bf16, 2 epochs: {run_evals} evaluations and final "
+          f"loss {float(ranks[0]['ex_run_loss']):.4f} on every rank "
+          f"{'ok' if same else 'FAIL'}; {run_wall:.2f} s ({smi})")
+    if not same:
+        raise AssertionError(f"[{label}] the ranks' transfer_exact runs differ")
+
+    label = "tp decoder gloo, 2 ranks"
+    for i, r in enumerate(ranks):
+        err = dict(zip(("logits", "gradients", "nll"), (float(v) for v in r["tp_err"])),
+                   worst=str(r["tp_worst"]))
+        check_tp(f"{label}, rank {i}", err, float(r["tp_ms"]), float(r["tp_ref_ms"]), smi)
+    if not all(bool(r["tp_ranks_equal"]) for r in ranks):
+        raise AssertionError(f"[{label}] the ranks' gradients differ")
+    print(f"[{label}] the ranks' gradients equal bit for bit ok")
+
     runs = {
         "clip sharded, mesh=None": (clip_launches, evals, clip_wall),
         f"clip sharded, {GLOO_RANKS} ranks": (shard_launches, evals, shard_wall),
         "longform sharded, mesh=None": (lf_launches, lf_evals, lf_wall),
         f"longform sharded, {GLOO_RANKS} ranks": (lf_shard, shard_lf_evals, lf_shard_wall),
+        f"exact sharded gloo, {GLOO_RANKS} ranks": (ex_launches, ex_evals, max(
+            sum(float(np.sum(r[f"ex_{d}_ms"])) for d in ex_ref) for r in ranks) / 1e3),
+        f"exact sharded gloo, {GLOO_RANKS} ranks, transfer_exact": (run_launches, run_evals,
+                                                                   run_wall),
     }
     return runs, train_launches
+
+
+# Time sharding and the tensor-parallel decoder (parallel/halo.py,
+# parallel/tensor.py) on the one card: NCCL at world size 1 in this process,
+# and in the spawned group of 2 gloo ranks (gloo_rank).
+EXACT_SHARDED_T = (EXACT_SAMPLES // 4096) * 4096  # the one-window clip; splits over 1 or 2 ranks
+EVAL_LAUNCHES = {"K1": LAYERS, "K2": LAYERS, "K5": 1, "K6": 1}  # one evaluation of a rank's chunk
+TP_SHAPE = (4, 6144)  # the tensor-parallel decoder's batch, f32, TF32 off
+TP_TIMED = 2  # timed forward + backward passes after one warm-up
+# The decoder's logits and each parameter's gradient, tensor-parallel against
+# decode_logits in one process: max|d| over the reference's largest entry.
+# f32 products over 30 layers summed in another order (the fused res + skip
+# product, the ranks' partial products added by the all-reduce): about
+# 2.4e-6 a product of 1536 terms, grown through the residual stream; 10x
+# that margin and more for the gradients, whose small entries move most.
+TP_TOL = {"logits": 1e-4, "gradients": 1e-3}
+COLLECTIVE_REPS = 10
+EXACT_GLOO_TIMED = 3  # evaluations timed after the first on each gloo rank
+
+
+def _exact_engine(dev, dtype_name: str):
+    """The exact long-form engine of ``[exact, ...]``: full width, seed-0
+    weights, stack 0, gamma 1e-3, the chained kernels, 2 epochs."""
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, init_params
+    from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
+
+    spec = TransferSpec(stack=0, gamma=1e-3, epochs=2, compute_dtype=dtype_name,
+                        fused_encoder=True, write_artifacts=False, device=str(dev))
+    return StyleTransfer(spec, init_params(0, WaveNetAEConfig()))
+
+
+def exact_one_window_eval(engine) -> tuple:
+    """(loss, waveform gradient) of the one-window flavour's first evaluation
+    on the first EXACT_SHARDED_T samples of the 15 s clip."""
+    t = EXACT_SHARDED_T
+    vg, params, x, phi_c, phi_s = exact_first_eval(engine, t, t, t)
+    return vg(params, x, phi_c, phi_s)
+
+
+def exact_sharded_eval(engine, mesh, axis: str) -> tuple:
+    """(vg, x at 1e-6) of the time-sharded exact loss on the rank's chunk of
+    the clip of ``exact_one_window_eval``: the content target from the
+    sharded embeds pass, the style target the style clip's statistics, as
+    ``exact_first_eval`` makes them. ``vg(x)`` -> (loss, the chunk's
+    gradient)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.parallel import halo
+    from audio_style_transfer_tpu_torch.parallel.mesh import shard_rows
+    from audio_style_transfer_tpu_torch.signal.mu_law import mu_law_numpy
+
+    content = synth_audio(EXACT_SAMPLES / 16000, kind="content")[:EXACT_SHARDED_T]
+    xq = engine._tensor(shard_rows(mesh, mu_law_numpy(content[None]), axis, dim=1))
+    phi_s = engine._tensor(engine.get_style_phi(synth_audio(3.0, kind="style")))
+    geometry = (engine.cfg, engine.loss_spec, mesh, axis)
+    with torch.no_grad():
+        phi_c = halo.make_sharded_embeds_fn(*geometry)(engine.params, xq)[0].to(torch.float32)
+    loss_fn = halo.make_sharded_loss_fn(*geometry)
+
+    def vg(x):
+        xv = x.detach().requires_grad_(True)
+        loss = loss_fn(engine.params, xv, phi_c, phi_s)
+        return loss.detach(), torch.autograd.grad(loss, xv)[0]
+
+    return vg, torch.full_like(xq, 1e-6)
+
+
+def check_eval_launches(label: str, launches: dict) -> None:
+    """One evaluation of a rank's chunk launched EVAL_LAUNCHES and nothing else."""
+    want = {k: EVAL_LAUNCHES.get(k, 0) for k in KERNELS}
+    if launches != want:
+        raise AssertionError(f"[{label}] one evaluation launched {launches}, want {want}")
+
+
+def host_ms(fn, reps: int = COLLECTIVE_REPS) -> float:
+    """Median ms of fn() by the host clock, the device drained either side
+    (a collective over gloo runs on the host)."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def exact_sharded_run(engine, mesh, label: str) -> tuple:
+    """``transfer_exact(mesh=)`` on the 15 s clip (2 epochs): losses falling,
+    the audio the mesh's trimmed length, every launch accounted for (per
+    evaluation EVAL_LAUNCHES; gradient-free, the engine windows of style
+    statistics and one sharded embeds pass); ms per evaluation in L-BFGS
+    and peak memory. Returns (launches, evals, wall seconds, final loss)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.transfer import longform
+
+    quantum = 512 * mesh.size(0)
+    t_total = (EXACT_SAMPLES // quantum) * quantum
+    content = synth_audio(EXACT_SAMPLES / 16000, kind="content")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with lbfgs_clock() as in_lbfgs:
+        res, wall, launches = _timed_launches(lambda: longform.transfer_exact(
+            engine, content, synth_audio(3.0, kind="style"), mesh=mesh))
+    peak = torch.cuda.max_memory_allocated()
+    per = res.per_window
+    losses = [float(v) for v in per["metrics"]]
+    evals = int(np.sum(per["evals"]))
+    check_losses(label, losses, res.audio, samples=t_total)
+    if per["t_optimized"] != t_total or per["x"].shape != (1, t_total):
+        raise AssertionError(f"[{label}] optimized {per['t_optimized']} samples, expected "
+                             f"{t_total}")
+    # Gradient-free passes: the style statistics' engine windows (at most 5
+    # of T each, of the content and of the style clip) and the sharded embeds.
+    passes = sum(min(n, 5 * T) // T for n in (EXACT_SAMPLES, 48000)) + 1
+    want = {k: 0 for k in KERNELS}
+    want.update(K1=LAYERS * (evals + passes), K2=LAYERS * evals, K5=evals + passes, K6=evals)
+    if launches != want:
+        raise AssertionError(f"[{label}] launches {launches} for {evals} evaluations, expected "
+                             f"{want}")
+    # flush: the gloo ranks print here too, each line in one write
+    print(f"[{label}] launches {launches} == per evaluation K1 30, K2 30, K5 1, K6 1, plus "
+          f"{passes} gradient-free passes ok", flush=True)
+    print(f"[{label}] {per['epochs_done']} epochs, evals {per['evals'].tolist()}, losses {losses}; "
+          f"t_optimized {t_total}; {evals} evals in {wall:.2f} s wall ({evals / wall:.2f} "
+          f"evals/s, setup included), {1e3 * in_lbfgs[0] / evals:.3f} ms per eval in L-BFGS; "
+          f"peak memory {peak / 2**30:.3f} GiB", flush=True)
+    return launches, evals, wall, losses[-1]
+
+
+def exact_sharded_nccl_phase(dev, smi: str) -> dict:
+    """[exact sharded nccl, world 1] ``transfer_exact(mesh=make_mesh(1))`` (NCCL,
+    world size 1: the halos zeros, the windowed K1/K2 on (radius, chunk +
+    radius), one rank's all-reduces) in float32 and bfloat16: the first
+    evaluation's loss and gradient against the one-window flavour at
+    EXACT_TOL (the same kernels on the same valid rows, the grams summed
+    over other tiles), with its launches, then the 2-epoch run. Returns the
+    runs' entries (launches, evals, wall, final loss)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(1, axis_name="time")
+    runs = {}
+    for dtype_name in ("float32", "bfloat16"):
+        label = f"exact sharded nccl, world 1, {dtype_name}"
+        engine = _exact_engine(dev, dtype_name)
+        f1, g1 = exact_one_window_eval(engine)
+        vg, x = exact_sharded_eval(engine, mesh, "time")
+        (f2, g2), wall, launches = _timed_launches(lambda: vg(x))
+        check_eval_launches(label, launches)
+        loss_tol, grad_tol = EXACT_TOL[dtype_name]
+        print(f"[{label}] first evaluation on {EXACT_SHARDED_T} samples: one window "
+              f"{float(f1):.6f}, sharded {float(f2):.6f} ({1e3 * wall:.1f} ms); launches "
+              f"{launches} ok")
+        check("loss, sharded against one window", f2, f1, loss_tol)
+        check("waveform gradient, sharded against one window", g2, g1, grad_tol)
+        runs[label] = exact_sharded_run(engine, mesh, label)
+        del engine, vg, x, g1, g2
+        torch.cuda.empty_cache()
+    return runs
+
+
+def tp_inputs(dev) -> tuple:
+    """The full-width decoder's seed-0 weights on the card, TP_SHAPE mu-law
+    samples and a random encoding [B, T / 512, 16]."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, init_params
+    from audio_style_transfer_tpu_torch.signal.mu_law import mu_law_numpy
+
+    params = {k: {m: v.to(dev) for m, v in e.items()}
+              for k, e in init_params(0, WaveNetAEConfig()).items() if not k.startswith("ae_")}
+    b, t = TP_SHAPE
+    xq = torch.from_numpy(mu_law_numpy(train_batch(TP_SHAPE, 40)).astype(np.float32)).to(dev)
+    enc = np.random.RandomState(41).randn(b, t // 512, 16).astype(np.float32)
+    return params, xq, torch.from_numpy(enc).to(dev)
+
+
+def tp_step(decode, params, xq, enc) -> tuple:
+    """(logits, the NLL, the gradients of params' leaves, median ms) of the NLL
+    forward + backward through ``decode(params, xq, enc)``, TP_TIMED passes
+    timed after one warm-up; the outputs of the last. Launches of the
+    hand-written kernels: none (the decoder runs ``ops.conv``)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import nll_loss
+    from audio_style_transfer_tpu_torch.ops import _build
+
+    leaves = [v.requires_grad_(True) for e in params.values() for v in e.values()]
+    _build.reset_launches()
+    ms = []
+    for i in range(TP_TIMED + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = decode(params, xq, enc)
+        nll = nll_loss(logits, xq)
+        grads = torch.autograd.grad(nll, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        if i:
+            ms.append((time.perf_counter() - t0) * 1e3)
+    if any(_build.LAUNCHES.values()):
+        raise AssertionError(f"the decoder launched {dict(_build.LAUNCHES)}")
+    # The last layer's residual output feeds nothing: res_30 has no gradient.
+    grads = [torch.zeros_like(v) if g is None else g.detach() for g, v in zip(grads, leaves)]
+    return logits.detach(), float(nll.detach()), grads, float(np.median(ms))
+
+
+def tp_errors(got, ref, params) -> dict:
+    """The tensor-parallel pass against ``decode_logits``: logits and the worst
+    gradient (and its weight's name) as max|d| over the reference's largest
+    entry, the NLL's rel."""
+    names = [f"{layer}/{k}" for layer, e in params.items() for k in e]
+    rels = [rel_err(a, b)[1] for a, b in zip(got[2], ref[2])]
+    worst = int(np.argmax(rels))
+    return {"logits": rel_err(got[0], ref[0])[1], "gradients": rels[worst],
+            "nll": abs(got[1] - ref[1]) / abs(ref[1]), "worst": names[worst]}
+
+
+def check_tp(label: str, err: dict, ms: float, ref_ms: float, smi: str) -> None:
+    ok = all(err[k] <= TP_TOL[k] for k in TP_TOL)
+    b, t = TP_SHAPE
+    print(f"[{label}] full-width decoder, {b} x {t}, f32: logits max|d| rel {err['logits']:.3e} "
+          f"(tol {TP_TOL['logits']:.0e}), worst parameter gradient {err['gradients']:.3e} (tol "
+          f"{TP_TOL['gradients']:.0e}; {err['worst']}), NLL rel {err['nll']:.2e} against "
+          f"decode_logits in one process {'ok' if ok else 'FAIL'}; NLL forward + backward "
+          f"{ms:.1f} ms, decode_logits {ref_ms:.1f} ms ({smi})")
+    if not ok:
+        raise AssertionError(f"[{label}] disagrees with decode_logits")
+
+
+def tp_nccl_phase(dev, smi: str) -> None:
+    """[tp decoder nccl, world 1] ``tp_decode_logits`` over ``make_mesh(1)``
+    (NCCL; the fused res + skip product, one rank's all-reduces and
+    gathers) against ``decode_logits``: logits and every decoder weight's
+    gradient at TP_SHAPE, ms of both."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, decode_logits
+    from audio_style_transfer_tpu_torch.parallel import make_mesh, tp_decode_logits
+
+    mesh, cfg = make_mesh(1, axis_name="model"), WaveNetAEConfig()
+    params, xq, enc = tp_inputs(dev)
+    ref = tp_step(lambda p, x, e: decode_logits(p, x, e, cfg), params, xq, enc)
+    got = tp_step(lambda p, x, e: tp_decode_logits(p, x, e, cfg, mesh), params, xq, enc)
+    check_tp("tp decoder nccl, world 1", tp_errors(got, ref, params), got[3], ref[3], smi)
+    del params, ref, got
+    torch.cuda.empty_cache()
+
+
+def exact_sharded_rank(rank: int, dev) -> dict:
+    """A gloo rank's part of [exact sharded gloo, 2 ranks on one card]: per
+    type, the sharded evaluation at 1e-6, its launches checked per
+    evaluation, the first one's loss and gathered gradient, EXACT_GLOO_TIMED
+    more timed; in bf16 then ``transfer_exact(mesh=)`` itself
+    (``exact_sharded_run``: 2 epochs, the rank's launches printed and
+    checked); the halo exchange and the all-reduces of the gram and of a
+    scalar timed alone."""
+    import torch
+    import torch.distributed as dist
+
+    from audio_style_transfer_tpu_torch.parallel import halo, make_mesh
+    from audio_style_transfer_tpu_torch.parallel.mesh import gather_rows, neighbour_exchange, psum
+
+    mesh = make_mesh(GLOO_RANKS, axis_name="time", device=dev.type, backend="gloo")
+    group = mesh.get_group("time")
+    out, launches = {}, {k: 0 for k in KERNELS}
+    for dtype_name in ("float32", "bfloat16"):
+        engine = _exact_engine(dev, dtype_name)
+        radius = halo._window_radius(engine.cfg)
+        vg, x = exact_sharded_eval(engine, mesh, "time")
+        walls = []
+        for i in range(1 + EXACT_GLOO_TIMED):
+            dist.barrier()
+            (f, g), wall, got = _timed_launches(lambda: vg(x))
+            check_eval_launches(f"exact sharded gloo, rank {rank}", got)
+            launches = {k: launches[k] + got[k] for k in KERNELS}
+            walls.append(wall * 1e3)
+            if i == 0:
+                out[f"ex_{dtype_name}_f"] = np.array(float(f))
+                out[f"ex_{dtype_name}_g"] = gather_rows(mesh, g[0].cpu().numpy(), "time")
+        out[f"ex_{dtype_name}_ms"] = np.array(walls)
+        if dtype_name == "bfloat16":
+            dist.barrier()
+            got, evals, wall, loss = exact_sharded_run(
+                engine, mesh, f"exact sharded gloo, rank {rank}, bfloat16")
+            out.update(ex_run_launches=np.array([got[k] for k in KERNELS]),
+                       ex_run_evals=np.array(evals), ex_run_wall=np.array(wall),
+                       ex_run_loss=np.array(loss))
+        del engine, vg, g
+    gram = torch.zeros((C, len(STYLE), len(STYLE)), device=dev)
+    out.update(ex_launches=np.array([launches[k] for k in KERNELS]),
+               ex_halo_ms=np.array(host_ms(lambda: neighbour_exchange(
+                   group, x[:, :radius], x[:, -radius:]))),
+               ex_gram_ms=np.array(host_ms(lambda: psum(gram, group))),
+               ex_scalar_ms=np.array(host_ms(lambda: psum(gram[0, 0, 0], group))))
+    del x, gram
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_rank(dev) -> dict:
+    """A gloo rank's part of [tp decoder gloo, 2 ranks]: ``tp_decode_logits``
+    against its own ``decode_logits`` pass, the errors, both ms, and whether
+    the ranks' gradients are equal bit for bit."""
+    import torch
+    import torch.distributed as dist
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, decode_logits
+    from audio_style_transfer_tpu_torch.parallel import make_mesh, tp_decode_logits
+
+    mesh, cfg = make_mesh(GLOO_RANKS, axis_name="model", device=dev.type, backend="gloo"), \
+        WaveNetAEConfig()
+    params, xq, enc = tp_inputs(dev)
+    ref = tp_step(lambda p, xx, e: decode_logits(p, xx, e, cfg), params, xq, enc)
+    dist.barrier()
+    got = tp_step(lambda p, xx, e: tp_decode_logits(p, xx, e, cfg, mesh), params, xq, enc)
+    err = tp_errors(got, ref, params)
+    flat = torch.cat([g.reshape(-1) for g in got[2]])
+    mine = flat.clone()
+    dist.broadcast(flat, src=0)
+    return dict(tp_err=np.array([err[k] for k in ("logits", "gradients", "nll")]),
+                tp_worst=np.array(err["worst"]),
+                tp_ms=np.array(got[3]), tp_ref_ms=np.array(ref[3]),
+                tp_ranks_equal=np.array(bool(torch.equal(flat, mine))))
+
+
+def nccl_world1_phases(dev, smi: str) -> tuple:
+    """The world-size-1 NCCL phases in one process group: [dp train nccl,
+    world 1], [exact sharded nccl, world 1] and [tp decoder nccl, world 1].
+    Returns (the training steps' launches, the exact runs' entries)."""
+    import torch.distributed as dist
+
+    from audio_style_transfer_tpu_torch.parallel import make_mesh
+
+    try:
+        dp_launches = dp_nccl_phase(dev, smi, make_mesh(1))
+        exact_runs = exact_sharded_nccl_phase(dev, smi)
+        tp_nccl_phase(dev, smi)
+    finally:
+        dist.destroy_process_group()
+    return dp_launches, exact_runs
 
 
 def main() -> int:
@@ -2764,7 +3196,8 @@ def main() -> int:
     generate_device_ops(params, dev, synth_rows[0]["steady_us"])
     generate_cli_phase(params, dev)
     train_launches, train_trunk = train_phases(dev, smi)
-    dp_launches = dp_nccl_phase(dev, smi)
+    dp_launches, exact_sharded_runs = nccl_world1_phases(dev, smi)
+    runs.update(exact_sharded_runs)
     gloo_runs, gloo_train_launches = gloo_phases(dev, smi)
     runs.update(gloo_runs)
     for part in (dp_launches, gloo_train_launches):

@@ -932,6 +932,49 @@ def test_world_one_nccl_trainer_equals_mesh_none(dev):
     assert all(torch.equal(a, b) for a, b in zip(out[0][1], out[1][1]))
 
 
+def test_world_one_nccl_sharded_loss_equals_mesh_none(dev):
+    """The time-sharded exact loss (``halo.make_sharded_loss_fn``) over
+    ``make_mesh(1)`` (NCCL, world size 1: zero halos, the windowed K1/K2 with
+    (radius, chunk + radius), one rank's all-reduces) against the one-window
+    loss of ``mesh=None`` on the same 8192-sample clip, float32, the 30-layer
+    encoder at full width, stack 0, gamma 1e-3: the same rows through the
+    same kernels, the grams summed over other tiles, so loss rtol 1e-4 and
+    gradient max|d| within 1e-4 of its largest entry. One evaluation launches
+    K1 30, K2 30, K5 1, K6 1."""
+    import torch.distributed as dist
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, init_params
+    from audio_style_transfer_tpu_torch.parallel import halo, make_mesh
+    from audio_style_transfer_tpu_torch.transfer.losses import LossSpec
+
+    cfg, t = WaveNetAEConfig(), 8192
+    spec = LossSpec(cont_lyr_ids=(29,), style_layer_ids=tuple(range(10)), gamma=1e-3)
+    params = {k: {m: v.to(dev) for m, v in e.items()} for k, e in init_params(0, cfg).items()}
+    rng = np.random.RandomState(3)
+    x = torch.tensor(rng.uniform(-100, 100, (1, t)), dtype=torch.float32, device=dev)
+    target = torch.tensor(rng.uniform(-100, 100, (1, t)), dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        phi_c, phi_s = halo._single_window_exact_embeds_fn(cfg, spec)(params, target)
+    out = []
+    mesh = make_mesh(1, axis_name="time")
+    try:
+        assert dist.get_backend() == "nccl"
+        for loss_fn in (halo._single_window_exact_loss_fn(cfg, spec, t),
+                        halo.make_sharded_loss_fn(cfg, spec, mesh, "time")):
+            xv = x.clone().requires_grad_(True)
+            _build.reset_launches()
+            loss = loss_fn(params, xv, phi_c, phi_s)
+            (g,) = torch.autograd.grad(loss, xv)
+            torch.cuda.synchronize()
+            out.append((float(loss.detach()), g, dict(_build.LAUNCHES)))
+    finally:
+        dist.destroy_process_group()
+    (l0, g0, n0), (l1, g1, n1) = out
+    assert abs(l1 - l0) <= 1e-4 * abs(l0)
+    assert _rel(g1, g0) <= 1e-4
+    assert n0 == n1 and (n1["K1"], n1["K2"], n1["K5"], n1["K6"]) == (30, 30, 1, 1)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_trunk_weight_gradients_through_k1_k2_match_plain_autograd(dev, dtype):
     """TrunkFunction (K1 forward, K2 for dx, the weight gradients by

@@ -10,6 +10,7 @@ tests/test_torch_slice.py holds the engine from that start.
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -152,8 +153,13 @@ def test_transfer_exact_stops_early_and_refuses_what_it_cannot_run():
     content, style = _clip(W, 0, 0.05), _clip(W, 1, 0.11)
     res = tlong.transfer_exact(early, content, style, epochs=3)
     assert res.per_window["epochs_done"] == 1 and res.per_window["evals"].shape == (1,)
-    with pytest.raises(NotImplementedError, match="M8b"):
-        tlong.transfer_exact(teng, content, style, mesh=object())
+    # A mesh on another device than the engine's, and a clip shorter than the
+    # mesh's quantum (4 ranks x 512), are refused before any collective.
+    with pytest.raises(ValueError, match="a cuda mesh for an engine on cpu"):
+        tlong.transfer_exact(teng, content, style, mesh=SimpleNamespace(device_type="cuda"))
+    four = SimpleNamespace(device_type="cpu", mesh_dim_names=("time",), size=lambda dim: 4)
+    with pytest.raises(ValueError, match="shorter than one 2048-sample quantum"):
+        tlong.transfer_exact(teng, content[:2000], style, mesh=four)
     with pytest.raises(ValueError, match="shorter than one"):
         tlong.transfer_exact(teng, content[:3000], style)
     with pytest.raises(ValueError, match="shorter than one"):

@@ -26,7 +26,6 @@ SUBPACKAGES = ("analysis", "ckpt", "data", "generate", "models", "ops", "paralle
 # Names the port leaves out, and the roadmap item (ROADMAP.md) that says why.
 LEFT_OUT = {
     ("ckpt", "convert_tf1_checkpoint"): "queue 1: the TF1 reader stays with the JAX converter",
-    ("parallel", "tp_decode_logits"): "queue 1 M8b: tensor parallelism",
 }
 
 

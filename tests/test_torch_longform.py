@@ -8,6 +8,7 @@ engine runs with ``fused_encoder=False`` (its XLA path).
 import os
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import jax.numpy as jnp
@@ -204,12 +205,14 @@ def test_transfer_longform_with_the_ot_target_matches_jax(engines, clips, jax_nm
 
 def test_exact_mode_and_meshes_raise_naming_their_roadmap_item(engines, clips):
     """Exact mode itself no longer raises (tests/test_torch_exact.py holds it
-    to JAX), and the chunked mesh forms run (tests/test_torch_clip_sharded.py);
-    what is left to a later slice is exact mode's time-sharded mesh form."""
+    to JAX), the chunked mesh forms run (tests/test_torch_clip_sharded.py), and
+    so does exact mode's time-sharded mesh form
+    (tests/test_torch_time_sharded.py): no roadmap item is left to name. A
+    mesh on another device than the engine's is refused, not deferred."""
     _, teng = engines
     content, style = clips
-    with pytest.raises(NotImplementedError, match="M8b"):
-        tlong.transfer_exact(teng, content, style, mesh=object())
+    with pytest.raises(ValueError, match="a cuda mesh for an engine on cpu"):
+        tlong.transfer_exact(teng, content, style, mesh=SimpleNamespace(device_type="cuda"))
 
 
 def _cli(tmp_path, *extra):

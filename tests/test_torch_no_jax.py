@@ -40,6 +40,7 @@ MODULES = [
     "audio_style_transfer_tpu_torch.parallel",
     "audio_style_transfer_tpu_torch.parallel.halo",
     "audio_style_transfer_tpu_torch.parallel.mesh",
+    "audio_style_transfer_tpu_torch.parallel.tensor",
     "audio_style_transfer_tpu_torch.cli.transfer",
     "audio_style_transfer_tpu_torch.generate",
     "audio_style_transfer_tpu_torch.generate.fastgen",

@@ -1,6 +1,6 @@
 """Worker functions of the port's multi-process tests (tests/test_torch_dp_train.py,
-tests/test_torch_clip_sharded.py), run by ``parallel.mesh.spawn`` in fresh
-processes over gloo on the CPU.
+tests/test_torch_clip_sharded.py, tests/test_torch_time_sharded.py), run by
+``parallel.mesh.spawn`` in fresh processes over gloo on the CPU.
 
 Each worker reads its inputs from ``<tmp>/in.npz`` (written by the test
 process), runs every case of its file in one process group, and writes
@@ -24,16 +24,28 @@ CLIP_SPEC = dict(batch_size=4096, stack=None, style_lyr_ids=(0, 1, 2, 3), cont_l
                  nb_channels=8, cnt_channels=8, epochs=1, maxiter=2, early_stop_evals=0,
                  write_artifacts=False, device="cpu")
 LONGFORM_MAXITER = 4
+# tests/test_halo.py's SMALL encoder (6 trunk layers, radius 15: one 512-sample
+# halo) and tests/test_tensor_parallel.py's TINY decoder (4 layers of width 16).
+HALO_SMALL = dict(num_layers=2, num_stages=2, width=8, skip_width=8, ae_num_layers=6,
+                  ae_num_stages=3, ae_width=8, ae_hop_length=64, ae_bottleneck_width=4)
+HALO_SPEC = dict(cont_lyr_ids=(5,), style_layer_ids=(0, 1, 2, 3, 4, 5), cnt_channels=8,
+                 nb_channels=8, lambd=10.0, gamma=0.01)
+TP_TINY = dict(num_layers=4, num_stages=2, width=16, skip_width=8, ae_num_layers=2,
+               ae_num_stages=2, ae_width=8, ae_hop_length=32, ae_bottleneck_width=4)
+TIME_RANKS = 4  # a middle rank exists: its unwindowed trunk is tested too
+EXACT_SPEC = dict(CLIP_SPEC, epochs=2, maxiter=4)
 
 
-def params_from_flat(flat) -> dict:
-    """``{"<layer>/<key>": array}`` -> the port's params dict on the CPU."""
+def params_from_flat(flat, prefix: str = "") -> dict:
+    """``{"<prefix><layer>/<key>": array}`` -> the port's params dict on the
+    CPU (keys without the prefix, or with one more "/", are not weights)."""
     from audio_style_transfer_tpu_torch.ckpt.convert import params_from_numpy
 
     tree: dict = {}
     for name in flat.files if hasattr(flat, "files") else flat:
-        if "/" in name:
-            layer, key = name.split("/")
+        rest = name[len(prefix):]
+        if name.startswith(prefix) and rest.count("/") == 1:
+            layer, key = rest.split("/")
             tree.setdefault(layer, {})[key] = np.asarray(flat[name])
     return params_from_numpy(tree)
 
@@ -191,6 +203,91 @@ def clip_worker(rank: int, tmp: str) -> None:
 
     out["err_clips"] = _error(lambda: engine.optimize_batch(
         inp["phi_cs"][:3], inp["phi_ss"][:3], epochs=1, mesh=mesh))
+    np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
+
+
+def time_sharded_worker(rank: int, tmp: str) -> None:
+    """Every time-sharded and tensor-parallel case on a TIME_RANKS-rank gloo
+    mesh (inputs ``small/``, ``dry/`` and ``tiny/`` weights and the arrays
+    named below; gathered results are whole-clip arrays):
+    - ``trunk_first`` / ``trunk_last``: ``time_sharded_trunk``'s taps 0 and
+      31 of ``trunk_x``;
+    - ``stft_v`` / ``stft_g``: ``sharded_stft_l1`` of ``stft_a`` and its
+      gradient; ``err_stft``: a 1000-sample chunk refused;
+    - ``<cw|gatys>_loss`` / ``_grad``: ``make_sharded_loss`` of ``loss_x``
+      against ``<flavour>_phi_c`` / ``_phi_s``, and its gradient;
+    - ``emb_c`` / ``emb_gram``: ``make_sharded_embeds`` of ``loss_x``;
+    - ``ex_*``: ``transfer_exact(mesh=)`` of ``content`` / ``style``;
+    - ``tp<remat>_*``: ``tp_decode_logits`` of ``tp_xq`` / ``tp_enc``, its
+      NLL and the gradients of the original params (and of the encoding);
+      ``err_tp``: a width that does not split."""
+    torch.set_num_threads(1)
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, nll_loss
+    from audio_style_transfer_tpu_torch.parallel import halo, make_mesh, tp_decode_logits
+    from audio_style_transfer_tpu_torch.parallel.mesh import gather_rows, shard_rows
+    from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer, TransferSpec
+    from audio_style_transfer_tpu_torch.transfer.longform import transfer_exact
+    from audio_style_transfer_tpu_torch.transfer.losses import LossSpec
+
+    inp = np.load(os.path.join(tmp, "in.npz"))
+    mesh = make_mesh(TIME_RANKS, axis_name="time", device="cpu")
+    group = mesh.get_group("time")
+    small, ps = WaveNetAEConfig(**HALO_SMALL), params_from_flat(inp, "small/")
+    out = {}
+
+    def local(name, dim=1):
+        return shard_rows(mesh, torch.from_numpy(inp[name]), "time", dim=dim).clone()
+
+    def gather(t):
+        return gather_rows(mesh, t.detach().numpy(), "time")
+
+    taps = halo.time_sharded_trunk(ps, local("trunk_x"), small, group)
+    out["trunk_first"], out["trunk_last"] = gather(taps[0][0]), gather(taps[-1][0])
+
+    a = local("stft_a", dim=0).requires_grad_(True)
+    v = halo.sharded_stft_l1(a, group)
+    out["stft_v"], out["stft_g"] = v.detach().numpy(), gather(torch.autograd.grad(v, a)[0])
+    out["err_stft"] = _error(lambda: halo.sharded_stft_l1(torch.zeros(1000), group))
+
+    for flavour in ("cw", "gatys"):
+        spec = LossSpec(**HALO_SPEC, gatys=flavour == "gatys")
+        x = local("loss_x").requires_grad_(True)
+        loss = halo.make_sharded_loss(ps, local(f"{flavour}_phi_c", dim=0),
+                                      torch.from_numpy(inp[f"{flavour}_phi_s"]), small, spec,
+                                      mesh, "time")(x)
+        out[f"{flavour}_loss"] = loss.detach().numpy()
+        out[f"{flavour}_grad"] = gather(torch.autograd.grad(loss, x)[0][0])
+    with torch.no_grad():
+        c, gram = halo.make_sharded_embeds(ps, small, LossSpec(**HALO_SPEC), mesh,
+                                           "time")(local("loss_x"))
+    out["emb_c"], out["emb_gram"] = gather(c), gram.numpy()
+
+    engine = StyleTransfer(TransferSpec(**EXACT_SPEC), params_from_flat(inp, "dry/"),
+                           model_cfg=WaveNetAEConfig(**DRY))
+    res = transfer_exact(engine, inp["content"], inp["style"], mesh=mesh)
+    out.update({f"ex_{k}": np.asarray(v) for k, v in res.per_window.items()})
+    out["ex_audio"] = res.audio
+
+    tp_mesh = make_mesh(TIME_RANKS, axis_name="model", device="cpu")
+    tiny = params_from_flat(inp, "tiny/")
+    xq = torch.from_numpy(inp["tp_xq"])
+    for remat in (False, True):
+        leaves = [v.requires_grad_(True) for e in tiny.values() for v in e.values()]
+        enc = torch.from_numpy(inp["tp_enc"]).requires_grad_(not remat)
+        logits = tp_decode_logits(tiny, xq, enc, WaveNetAEConfig(**TP_TINY, remat=remat),
+                                  tp_mesh)
+        nll = nll_loss(logits, xq)
+        grads = torch.autograd.grad(nll, leaves + ([] if remat else [enc]),
+                                    allow_unused=True, materialize_grads=True)
+        key = f"tp{int(remat)}"
+        out[f"{key}_logits"], out[f"{key}_nll"] = logits.detach().numpy(), nll.detach().numpy()
+        names = [f"{layer}/{k}" for layer, e in tiny.items() for k in e]
+        out.update({f"{key}_g/{n}": g.numpy() for n, g in zip(names, grads)})
+        if not remat:
+            out[f"{key}_enc_grad"] = grads[-1].numpy()
+    out["err_tp"] = _error(lambda: tp_decode_logits(
+        tiny, xq, torch.from_numpy(inp["tp_enc"]),
+        WaveNetAEConfig(**dict(TP_TINY, width=18)), tp_mesh))
     np.savez(os.path.join(tmp, f"rank{rank}.npz"), **out)
 
 
