@@ -1,6 +1,7 @@
-"""Gram-matrix grid and NMF palette plots (reference utils.py:107-129,
-223-257): the port's own copy of ``show_gram`` and ``compare_2_matrix`` from
-audio_style_transfer_tpu/analysis/viz.py. matplotlib is imported at the call."""
+"""Gram-matrix grids, activation and gram panels, NMF palette plots
+(reference utils.py:107-257, output-grams.py:69-77): the port's own copy of
+audio_style_transfer_tpu/analysis/viz.py. matplotlib is imported at the
+call."""
 
 from __future__ import annotations
 
@@ -69,6 +70,108 @@ def show_gram(mats, ep=None, figdir=None, gatys: bool = False):
         show_gatys_gram(mats, ep, figdir)
     else:
         show_our_gram(mats, ep, figdir)
+
+
+def vis_actis(aud, enc, fig_dir, ep, layers, nb_channels=5, dspl=64,
+              output_file=False, sr=16000):
+    """Per-layer activation triptychs (reference utils.py:148-167)."""
+    plt = _plt()
+    enc = np.asarray(enc)
+    nb_layers = enc.shape[0]
+    fig, axs = plt.subplots(nb_layers + 1, 3, figsize=(30, 5 * (nb_layers + 1)))
+    axs[0, 1].plot(aud)
+    axs[0, 1].set_title("Audio Signal")
+    axs[0, 0].axis("off")
+    axs[0, 2].axis("off")
+    for i in range(nb_layers):
+        for part in range(3):
+            seg = enc[i, part * dspl : (part + 1) * dspl, :nb_channels]
+            axs[i + 1, part].plot(np.log(seg + 1))
+            axs[i + 1, part].set_title(f"Embeds layer {layers[i]} part {part}")
+    sp = os.path.join(fig_dir, f"f-{ep}")
+    plt.savefig(sp + ".png", dpi=50)
+    plt.close(fig)
+    if output_file:
+        from audio_style_transfer_tpu_torch.utils.audio_io import write_wav
+
+        write_wav(sp + ".wav", aud, sr=sr)
+
+
+def vis_actis_ens(aud, enc, fig_dir, ep, layer_ids, nb_channels=5, dspl=256,
+                  output_file=False, sr=16000):
+    """Windowed min/max/std/mean activation summaries (utils.py:170-196)."""
+    plt = _plt()
+    enc = np.asarray(enc)
+    nb_layers = enc.shape[0]
+    fig, axs = plt.subplots(nb_layers + 1, 3, figsize=(30, 5 * (nb_layers + 1)))
+    axs[0, 1].plot(aud)
+    axs[0, 1].set_title("Audio Signal")
+    axs[0, 0].axis("off")
+    axs[0, 2].axis("off")
+    for i in range(nb_layers):
+        a = np.reshape(enc[i, :, :nb_channels], [-1, dspl, nb_channels])
+        std = np.std(a, axis=1)
+        mean = np.mean(a, axis=1)
+        axs[i + 1, 0].plot(a.min(axis=1))
+        axs[i + 1, 0].plot(a.max(axis=1))
+        axs[i + 1, 0].set_title(f"embeds layer {layer_ids[i]} -- MIN/MAX")
+        axs[i + 1, 1].plot(std + mean)
+        axs[i + 1, 1].plot(-std + mean)
+        axs[i + 1, 1].set_title(f"embeds layer {layer_ids[i]} -- STD/MEAN")
+        axs[i + 1, 2].plot(mean)
+        axs[i + 1, 2].set_title(f"embeds layer {layer_ids[i]} -- AVG")
+    sp = os.path.join(fig_dir, f"fe-{ep}")
+    plt.savefig(sp + ".png", dpi=50)
+    plt.close(fig)
+    if output_file:
+        from audio_style_transfer_tpu_torch.utils.audio_io import write_wav
+
+        write_wav(sp + ".wav", aud, sr=sr)
+
+
+def vis_mats(phis, phit, layer_ids, figdir=None, srcname=None, trgname=None):
+    """Side-by-side source/target gram panels (reference utils.py:198-220)."""
+    plt = _plt()
+    phis, phit = np.asarray(phis), np.asarray(phit)
+    fig, axs = plt.subplots(
+        len(layer_ids) + 1, 2, figsize=(40, 10 * len(layer_ids) + 1), squeeze=False
+    )
+    if srcname:
+        axs[0, 0].set_title(srcname)
+    if trgname:
+        axs[0, 1].set_title(trgname)
+    axs[0, 0].imshow(
+        phis.reshape(phis.shape[0], -1) if phis.ndim == 3 else phis,
+        interpolation="nearest", cmap=plt.cm.plasma, aspect="auto",
+    )
+    axs[0, 1].imshow(
+        phit.reshape(phit.shape[0], -1) if phit.ndim == 3 else phit,
+        interpolation="nearest", cmap=plt.cm.plasma, aspect="auto",
+    )
+    im = None
+    for i in layer_ids:
+        axs[i + 1, 0].set_title(f"layer-{layer_ids[i]}")
+        axs[i + 1, 0].imshow(phis[i], interpolation="nearest", cmap=plt.cm.plasma)
+        axs[i + 1, 1].set_title(f"layer-{layer_ids[i]}")
+        im = axs[i + 1, 1].imshow(phit[i], interpolation="nearest", cmap=plt.cm.plasma)
+    if im is not None:
+        fig.subplots_adjust(right=0.8)
+        cbar_ax = fig.add_axes([0.85, 0.15, 0.05, 0.7])
+        fig.colorbar(im, cax=cbar_ax)
+    if figdir:
+        fig.savefig(os.path.join(figdir, "mats_plt.png"), dpi=100)
+    plt.close(fig)
+
+
+def show_inten(mats, ep, figdir):
+    """Per-channel gram-norm intensity plot (reference output-grams.py:69-77)."""
+    plt = _plt()
+    mats = np.asarray(mats)
+    a = np.array([np.linalg.norm(mats[i]) for i in range(mats.shape[0])])
+    plt.plot(a)
+    plt.savefig(os.path.join(figdir, f"int{ep}"), dpi=100)
+    plt.close()
+    return a
 
 
 def compare_2_matrix(ws, wt, figdir):

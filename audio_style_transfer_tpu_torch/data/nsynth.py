@@ -10,7 +10,8 @@ pipeline is a plain Python generator with a shuffle buffer (capacity
 mirrors reader.py:96-98) feeding numpy batches, through the C++ reader of
 csrc/ (data/native.py) where it builds, else the pure-Python reader.
 Random cropping to the train length (6144, reference model.py:32) happens
-on the host; everything after that is device work.
+on the host; everything after that is device work, the baseline AE's
+specgram features included.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import itertools
 from typing import Iterator
 
 import numpy as np
+import torch
+import torch.nn.functional as F
 
 from audio_style_transfer_tpu_torch.data import native
 from audio_style_transfer_tpu_torch.data.tfrecord import parse_example, read_tfrecord
@@ -138,12 +141,43 @@ class NSynthDataset:
                 "key": [b["key"] for b in batch],
             }
 
-    def get_baseline_batch(self, hparams) -> Iterator[dict]:
-        """Spectrogram batches for the baseline AE (reader.py:115-197): not
-        ported; they need the on-device specgram (ROADMAP.md M9)."""
-        raise NotImplementedError(
-            "get_baseline_batch is not ported yet: it needs signal/specgram.py "
-            "(ROADMAP.md M9: specgram and the baseline AE)")
+    def get_baseline_batch(self, hparams, device: torch.device | str = "cuda") -> Iterator[dict]:
+        """Spectrogram batches for the baseline AE (reader.py:115-197):
+        {'audio': [B, 64000], 'pitch': [B], 'spectrogram': [B, F, N, C],
+        'key': [B]} as numpy, as JAX yields them.
+
+        The specgram features (signal/specgram.py) are computed on ``device``
+        for the whole batch at once, each clip normalised by its own maxima
+        (JAX calls its jitted specgram clip by clip), then brought back to
+        the host. With ``hparams.pad`` the time axis is zero-padded to a power
+        of two and the Nyquist row dropped (reader.py:153-160): [B, 512, 256,
+        1] at the nfft_1024 geometry.
+        """
+        from audio_style_transfer_tpu_torch.signal.specgram import specgram
+
+        device = torch.device(device)
+        for batch in self.get_wavenet_batch(hparams.batch_size, length=AUDIO_LEN):
+            audio = batch["wav"]
+            spec = specgram(
+                torch.from_numpy(audio).to(device),
+                n_fft=hparams.n_fft,
+                hop_length=hparams.hop_length,
+                mask=hparams.mask,
+                log_mag=hparams.log_mag,
+                re_im=hparams.re_im,
+                dphase=hparams.dphase,
+                mag_only=hparams.mag_only,
+            )
+            if getattr(hparams, "pad", True):
+                t = spec.shape[2]
+                num_padding = 2 ** int(np.ceil(np.log2(t))) - t
+                spec = F.pad(spec, (0, 0, 0, num_padding))[:, : spec.shape[1] - 1]
+            yield {
+                "audio": audio,
+                "pitch": batch["pitch"],
+                "spectrogram": spec.cpu().numpy(),
+                "key": batch["key"],
+            }
 
 
 def _shuffled(stream, capacity: int, rng: np.random.RandomState):

@@ -128,6 +128,25 @@ Phases (any failure raises and exits non-zero):
      decoder gloo, 2 ranks]` (logits and gradients against each rank's own
      ``decode_logits``, the ranks' gradients equal bit for bit); their
      launches go into the totals;
+     then the side-car (cuDNN convs, torch.fft and torch.matmul; float32,
+     TF32 off) over a synthetic TFRecord of 16 x 64000-sample examples:
+     `[baseline train]` cli/baseline_train.py as a subprocess for 12 steps at
+     the nfft_1024 geometry (BaselineHParams(): 8 x [512, 256, 1], num_latent
+     1984) with a checkpoint, then 10 steps on one batch in this process (the
+     loss falling, ms per step by CUDA events, samples/s, the step's 1.86
+     TFLOP against its bound, peak memory, one step's split under
+     torch.profiler: conv, transposed conv, their backward, Adam, the rest;
+     the busy share) and `[baseline parity]` one step card against CPU at a
+     shallow spec (loss, gradients, BN statistics); `[baseline
+     save_embeddings]` the CLI from that checkpoint, each z [1, 1, 1984]
+     against this process's eval encode; `[specgram]` get_baseline_batch's
+     features card against CPU and their ms, ispecgram with 1000 Griffin-Lim
+     iterations (ms, spectral convergence), 20 iterations card against CPU;
+     `[cqt]` a 4 s clip against the host multirate oracle and the CPU, its
+     ms; `[output grams]` cli/output_grams.py's ``window_grams`` over 3
+     windows of 16384 at the full stack, exactly K1 30 and K5 1 a window,
+     the grams against the plain trunk and gram on the card (its launches go
+     into the totals);
   6. print the per-kernel JSON line (time, plain time, bound, library time,
      FMA time, windowed time, the error at the exact runs' shapes and, for
      K1 and K2, at the training step's in both types), then the
@@ -2067,6 +2086,29 @@ def train_parity_phase(dev) -> None:
           f"by more than 1e-6 (<= {TRAIN_FLIP_SHARE:.0e} of them) ok")
 
 
+def device_busy(prof, what: str) -> tuple[list, float]:
+    """The device events of a torch.profiler capture and the device's busy
+    time in us: the union of their intervals, so overlaps count once."""
+    import torch
+
+    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not kernels:
+        raise RuntimeError(f"torch.profiler recorded no device event in {what}")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    return kernels, busy + hi - lo
+
+
+def inclusive_us(e) -> float:
+    """An op's device time with its children's (the name moved across torch
+    versions)."""
+    return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+
 def _split_step(tr, st, wav) -> dict:
     """torch.profiler over one step: the step's wall time; the device's busy
     time (the union of its kernels' intervals, so overlaps count once); the
@@ -2083,16 +2125,7 @@ def _split_step(tr, st, wav) -> dict:
         tr.step(st, wav)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not kernels:
-        raise RuntimeError("torch.profiler recorded no device event in a training step")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo = busy + hi - lo, a
-        hi = max(hi, b)
-    busy += hi - lo
+    kernels, busy = device_busy(prof, "a training step")
     kinds = {"products": 0.0, "hand-written": 0.0, "other": 0.0}
     by_name = {}
     for e in kernels:
@@ -2105,9 +2138,6 @@ def _split_step(tr, st, wav) -> dict:
         else:
             kinds["other"] += us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-
-    def inclusive_us(e):
-        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
 
     ranges = {e.key: inclusive_us(e) / 1e3 for e in prof.key_averages()
               if e.key in ("trunk weight recompute", "adam and ema")}
@@ -3133,6 +3163,446 @@ def nccl_world1_phases(dev, smi: str) -> tuple:
     return dp_launches, exact_runs
 
 
+# The side-car slice (ROADMAP M9): the baseline spectral AE's training and
+# embedding CLIs at the nfft_1024 geometry, its spectrogram features and
+# Griffin-Lim, the CQT, and the gram-figure CLI's per-window grams. The
+# baseline model is cuDNN convs (XLA ops in JAX, no Pallas kernel) in float32
+# with TF32 off; the grams run K1 and K5.
+BASELINE_EXAMPLES = 16  # 64000-sample examples in the synthetic TFRecord
+BASELINE_BATCH = 8  # BaselineHParams()'s batch
+BASELINE_CLI_ITERS = 12
+BASELINE_STEPS = 10  # in-process steps on one batch; the first 2 are warm-up
+BASELINE_WARMUP = 2
+BASELINE_SHALLOW = dict(  # card against CPU: tests/test_baseline_ae.py's spec
+    num_latent=8, pitch_embedding_dim=8, n_fft=64,
+    encoder_spec=(((5, 5), (2, 2), 16), ((4, 4), (2, 2), 16), ((4, 4), (2, 2), 32)),
+    decoder_spec=(((4, 4), (2, 2), 32), ((4, 4), (2, 2), 16), ((5, 5), (2, 2), 16)))
+# f32 card against CPU after one step, TF32 off: the loss 1e-5 relative;
+# each gradient 1e-4 of its largest entry (cuDNN's sums in other orders),
+# except the biases before a training-mode BN, whose gradients are rounding
+# noise (zero in exact arithmetic); the BN running statistics 1e-5.
+BASELINE_LOSS_TOL = 1e-5
+BASELINE_GRAD_TOL = 1e-4
+BASELINE_BN_TOL = 1e-5
+BASELINE_Z_TOL = 1e-5  # the CLI's z against this process's encode: cuDNN in two processes
+# dB features in [0, 1], cuFFT against the CPU's FFT: an FFT's float32 error
+# is about 1e-7 of the clip's peak, so a bin's feature moves by that over the
+# bin's magnitude: 1e-4 within 60 dB of the peak (feature >= 0.5), and up to
+# 1e-2 below (0.9 dB at the -120 dB floor, where the error is 10% of the bin).
+SPEC_TOL = 1e-4
+SPEC_FLOOR_TOL = 1e-2
+GL_ITERS = 1000  # the reference's Griffin-Lim iterations (ispecgram's default)
+GL_CHECK_ITERS = 20
+GL_TOL = 1e-3  # 20 projections card vs CPU from one phase, of the audio's peak
+CQT_SECONDS = 4.0
+CQT_TOL = 1e-5  # card vs the port's CPU CQT: 16384-term float32 sums, TF32 off
+GRAMS_WINDOWS = 3
+GRAMS_TOL = 1e-4  # the f32 K1 chain + K5 against the plain trunk + einsum, of the max
+
+
+def baseline_flops(hp, batch: int) -> tuple[float, list]:
+    """Operations (2 per multiply-add) of one forward of the baseline AE from
+    its layer shapes, and each conv's share: a conv does out_h out_w cout cin
+    kh kw multiply-adds; a transposed conv in_h in_w cin cout kh kw (each input
+    pixel meets the whole kernel once: no work on the stride's zeros)."""
+    h, w, cin = 512, 256, 1
+    rows = []
+    for (kh, kw), (sh, sw), cout in hp.enc_layers:
+        h, w = -(-h // sh), -(-w // sw)
+        rows.append(("conv", h * w * cout * cin * kh * kw))
+        cin = cout
+    rows.append(("conv", h * w * hp.num_latent * cin))
+    cin = hp.num_latent + hp.pitch_embedding_dim
+    for (kh, kw), (sh, sw), cout in hp.dec_layers:
+        rows.append(("transposed conv", h * w * cin * cout * kh * kw))
+        h, w, cin = h * sh, w * sw, cout
+    rows.append(("conv", h * w * cin))
+    total = 2.0 * batch * sum(r[1] for r in rows)
+    return total, [(kind, 2.0 * batch * n / total) for kind, n in rows]
+
+
+def write_baseline_records(path: str) -> None:
+    """Synthetic NSynth examples: 64000 samples of tones and noise each, keyed
+    and pitched (no NSynth data ships with the repository)."""
+    from audio_style_transfer_tpu_torch.data import build_example, write_tfrecord
+
+    clips = train_batch((BASELINE_EXAMPLES, 64000), 11)
+    write_tfrecord(path, [build_example({
+        "note_str": f"synth-{i:02d}".encode(), "pitch": np.array([36 + 3 * i], np.int64),
+        "velocity": np.array([100], np.int64), "audio": clips[i],
+        "qualities": np.zeros(10, np.int64), "instrument_source": np.array([0], np.int64),
+        "instrument_family": np.array([i % 3], np.int64)}) for i in range(len(clips))])
+
+
+def run_cli(label: str, module: str, args: list) -> tuple[str, float]:
+    """``python -m module args`` from the checkout; its stdout and wall."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", module, *args], cwd=here, env=env,
+                       capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"[{label}] failed:\n{r.stdout}\n{r.stderr[-3000:]}")
+    return r.stdout, wall
+
+
+def baseline_parity_phase(dev) -> None:
+    """One step at the shallow geometry, card against CPU from the same
+    weights and batch: the loss, every gradient, the updated BN statistics."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.models import baseline_ae as tb
+
+    label = "baseline parity"
+    hp = tb.BaselineHParams(**BASELINE_SHALLOW)
+    rng = np.random.RandomState(0)
+    spec = torch.tensor(rng.rand(2, 32, 16, 1).astype(np.float32))
+    pitch = torch.tensor([60, 64])
+    out = {}
+    for where in ("cpu", str(dev)):
+        model = tb.BaselineAE(hp, seed=1).to(where)
+        loss = tb.train_step(model, tb.make_optimizer(model), spec.to(where), pitch.to(where))
+        out[where] = (float(loss), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                      {n: b.cpu() for n, b in model.named_buffers()})
+    (lc, gc, bc), (lg, gg, bg) = out["cpu"], out[str(dev)]
+    rel = abs(lg - lc) / abs(lc)
+    noise = [n for n in gc if n.endswith(".b") and not n.startswith("mag_out")]
+    grads = [(rel_err(gg[n], gc[n])[1], n) for n in gc if n not in noise]
+    bns = [(rel_err(bg[n], bc[n])[1], n) for n in bc]
+    print(f"[{label}] shallow spec, one step: loss card {lg:.8f} cpu {lc:.8f} (rel {rel:.2e}, "
+          f"tol {BASELINE_LOSS_TOL:.0e}); worst of {len(grads)} gradients {max(grads)[1]} "
+          f"{max(grads)[0]:.2e} (tol {BASELINE_GRAD_TOL:.0e}; the {len(noise)} pre-BN biases' "
+          f"noise not held); worst BN statistic {max(bns)[1]} {max(bns)[0]:.2e} (tol "
+          f"{BASELINE_BN_TOL:.0e})")
+    if not (rel <= BASELINE_LOSS_TOL and max(grads)[0] <= BASELINE_GRAD_TOL
+            and max(bns)[0] <= BASELINE_BN_TOL):
+        raise AssertionError(f"[{label}] card and CPU disagree")
+
+
+def _baseline_split(model, opt, spec, pitch) -> dict:
+    """torch.profiler over one step: device time inside the forward conv ops
+    (``aten::cudnn_convolution``), the forward transposed ones
+    (``aten::cudnn_convolution_transpose``), both kinds' backward
+    (``aten::convolution_backward``) and Adam (``Optimizer.step#Adam.step``);
+    the rest of the busy time is BN, leaky relu, the loss and other
+    elementwise work."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from audio_style_transfer_tpu_torch.models.baseline_ae import train_step
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        train_step(model, opt, spec, pitch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels, busy = device_busy(prof, "a baseline step")
+
+    names = {"aten::cudnn_convolution": "conv forward",
+             "aten::cudnn_convolution_transpose": "transposed conv forward",
+             "aten::convolution_backward": "conv + transposed conv backward",
+             "Optimizer.step#Adam.step": "Adam"}
+    kinds = {v: 0.0 for v in names.values()}
+    for e in prof.key_averages():
+        if e.key in names:
+            kinds[names[e.key]] += inclusive_us(e) / 1e3
+    kinds["BN, leaky relu, loss, other"] = busy / 1e3 - sum(kinds.values())
+    return dict(wall_ms=wall, launches=len(kernels), busy_ms=busy / 1e3, kinds_ms=kinds)
+
+
+def baseline_train_phase(dev, smi: str, tmp: str) -> str:
+    """The baseline AE at nfft_1024 (BaselineHParams(): batch 8, spectrograms
+    [8, 512, 256, 1], num_latent 1984, float32, TF32 off): cli/baseline_train.py
+    as a subprocess over the synthetic TFRecord, a checkpoint at its last
+    step; then in this process 10 steps on one batch (ms per step by CUDA
+    events, median after the warm-up; samples/s; peak memory; the loss
+    falling), the step's operations and bound, one step's split under
+    torch.profiler; then the card against the CPU at the shallow spec.
+    Returns the CLI's logdir."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.data import NSynthDataset
+    from audio_style_transfer_tpu_torch.models import baseline_ae as tb
+
+    label = "baseline train"
+    path = os.path.join(tmp, "baseline.tfrecord")
+    logdir = os.path.join(tmp, "baseline_log")
+    out, wall = run_cli(label, "audio_style_transfer_tpu_torch.cli.baseline_train",
+                        ["--train_path", path, "--logdir", logdir, "--batch_size", str(BASELINE_BATCH),
+                         "--num_iters",
+                         str(BASELINE_CLI_ITERS), "--log_every", "4", "--save_every",
+                         str(BASELINE_CLI_ITERS), "--device", str(dev)])
+    m = re.search(r"trained (\d+) steps on (\S+), last loss (\S+); last checkpoint (\S+)", out)
+    if not m or int(m.group(1)) != BASELINE_CLI_ITERS or not m.group(4).endswith(
+            f"ckpt-{BASELINE_CLI_ITERS}") or not math.isfinite(float(m.group(3))):
+        raise AssertionError(f"[{label}] unexpected output:\n{out}")
+    logged = [json.loads(line) for line in open(os.path.join(logdir, "metrics.jsonl"))]
+    print(f"[{label}] cli/baseline_train.py, {BASELINE_CLI_ITERS} steps of {BASELINE_BATCH} x 64000 "
+          f"samples from {BASELINE_EXAMPLES} examples in {wall:.1f} s (process start included): "
+          f"losses logged {[(r['step'], round(r['loss'], 5)) for r in logged]}; "
+          f"{os.path.basename(m.group(4))} ok ({smi})")
+
+    hp = tb.BaselineHParams(batch_size=BASELINE_BATCH)
+    batch = next(NSynthDataset(path, is_training=True).get_baseline_batch(hp, device=dev))
+    spec = torch.from_numpy(batch["spectrogram"]).to(dev)
+    pitch = torch.from_numpy(batch["pitch"]).to(dev)
+    if tuple(spec.shape) != (BASELINE_BATCH, 512, 256, 1):
+        raise AssertionError(f"[{label}] spectrogram batch {tuple(spec.shape)}")
+    model = tb.BaselineAE(hp, seed=0).to(dev)
+    opt = tb.make_optimizer(model)
+    losses, ms = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for _ in range(BASELINE_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        loss = tb.train_step(model, opt, spec, pitch)
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        losses.append(float(loss))
+    peak = torch.cuda.max_memory_allocated(dev) / 1e9
+    if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[{label}] losses {losses}: not finite or not falling")
+    step_ms = float(np.median(ms[BASELINE_WARMUP:]))
+    fwd, shares = baseline_flops(hp, BASELINE_BATCH)
+    flops = 3.0 * fwd  # the backward: each conv's input and weight gradients, 2x forward
+    bnd = bound(0.0, flops, "float32")
+    tail = sum(s for _, s in shares[-3:-1])  # the last two transposed convs
+    split = _baseline_split(model, opt, spec, pitch)
+    busy = split["busy_ms"] / split["wall_ms"]
+    print(f"[{label}] BaselineHParams() (nfft_1024), {BASELINE_BATCH} x [512, 256, 1], float32, "
+          f"TF32 off: "
+          f"{BASELINE_STEPS} steps on one batch, losses {[round(v, 5) for v in losses]} "
+          f"(falling ok)")
+    print(f"[{label}] step ms {[round(v, 2) for v in ms]} (median after {BASELINE_WARMUP} "
+          f"warm-up steps {step_ms:.2f}); {BASELINE_BATCH / step_ms * 1e3:.1f} samples/s; forward "
+          f"{fwd / 1e12:.3f} TFLOP ({tail:.3f} of it in the last two transposed convs), step "
+          f"{flops / 1e12:.3f} TFLOP, bound {bnd['bound_ms']:.2f} ms at the float32 peak, step "
+          f"/ bound {step_ms / bnd['bound_ms']:.2f}; peak memory {peak:.2f} GB ({smi})")
+    kinds = ", ".join(f"{k} {v:.2f}" for k, v in split["kinds_ms"].items())
+    print(f"[{label}] one step under torch.profiler: {split['wall_ms']:.2f} ms wall, "
+          f"{split['launches']} device operations, device busy {split['busy_ms']:.2f} ms (busy "
+          f"share {busy:.3f}); device ms by kind: {kinds} ({smi})")
+    baseline_parity_phase(dev)
+    return logdir
+
+
+def baseline_embeddings_phase(dev, smi: str, tmp: str, logdir: str) -> None:
+    """cli/baseline_save_embeddings.py from the training CLI's checkpoint over
+    the same TFRecord (eval crops, 2 batches of 8): each z is [1, 1, 1984]
+    and equals this process's eval-mode encode of the same batch."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.data import NSynthDataset
+    from audio_style_transfer_tpu_torch.models import baseline_ae as tb
+
+    label = "baseline save_embeddings"
+    path = os.path.join(tmp, "baseline.tfrecord")
+    savedir = os.path.join(tmp, "baseline_z")
+    out, wall = run_cli(label, "audio_style_transfer_tpu_torch.cli.baseline_save_embeddings",
+                        ["--tfrecord_path", path, "--checkpoint_dir", logdir, "--savedir",
+                         savedir, "--batch_size", str(BASELINE_BATCH), "--max_batches", "2",
+                         "--device", str(dev)])
+    if out.count(f"saved {BASELINE_BATCH} latents") != 2:
+        raise AssertionError(f"[{label}] unexpected output:\n{out}")
+    saved = torch.load(os.path.join(logdir, f"ckpt-{BASELINE_CLI_ITERS}"), map_location="cpu",
+                       weights_only=True)
+    hp = tb.BaselineHParams(batch_size=BASELINE_BATCH)
+    model = tb.BaselineAE(hp)
+    model.load_state_dict(saved["model"])
+    model.to(dev)
+    worst, n = 0.0, 0
+    batches = NSynthDataset(path, is_training=False).get_baseline_batch(hp, device=dev)
+    for _, batch in zip(range(2), batches):
+        with torch.no_grad():
+            z = model.encode(torch.from_numpy(batch["spectrogram"]).to(dev),
+                             is_training=False).cpu()
+        for i, key in enumerate(batch["key"]):
+            got = np.load(os.path.join(savedir, f"{key.decode()}_baseline_z.npz"))
+            if got["z"].shape != (1, 1, 1984) or int(got["pitch"]) != int(batch["pitch"][i]):
+                raise AssertionError(f"[{label}] {key}: z {got['z'].shape}, pitch {got['pitch']}")
+            worst = max(worst, rel_err(torch.from_numpy(got["z"]), z[i])[1])
+            n += 1
+    print(f"[{label}] {n} latents of [1, 1, 1984] from ckpt-{BASELINE_CLI_ITERS} in {wall:.1f} s "
+          f"(process start included); against this process's eval encode: worst max|d| / max "
+          f"{worst:.2e} (tol {BASELINE_Z_TOL:.0e}) ({smi})")
+    if not worst <= BASELINE_Z_TOL:
+        raise AssertionError(f"[{label}] the CLI's z differ from the encode")
+
+
+def spectral_convergence(mag, audio, n_fft: int, hop: int) -> float:
+    """|| |S| / ||S|| - |Y| / ||Y|| || of the target magnitude S and the
+    audio's spectrum Y (scale-free: ispecgram returns peak-normalised audio)."""
+    from audio_style_transfer_tpu_torch.signal.stft import centered_stft
+
+    y = centered_stft(audio, n_fft, hop).abs()
+    return float((mag / mag.norm() - y / y.norm()).norm())
+
+
+def specgram_phase(dev, smi: str, tmp: str) -> None:
+    """``get_baseline_batch``'s features for 8 x 64000 samples on the card
+    against the port on the CPU (per-clip maxima), their ms per batch; then
+    ``ispecgram(mag_only=True)`` with the reference's 1000 Griffin-Lim
+    iterations (n_fft 1024, hop 256) on one clip, its ms and spectral
+    convergence; the card's Griffin-Lim against the CPU's over 20 iterations
+    from one start phase."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.data import NSynthDataset
+    from audio_style_transfer_tpu_torch.models.baseline_ae import BaselineHParams
+    from audio_style_transfer_tpu_torch.signal import specgram as sg
+
+    label = "specgram"
+    hp = BaselineHParams(batch_size=BASELINE_BATCH)
+    path = os.path.join(tmp, "baseline.tfrecord")
+    card = next(NSynthDataset(path, is_training=False).get_baseline_batch(hp, device=dev))
+    host = next(NSynthDataset(path, is_training=False).get_baseline_batch(hp, device="cpu"))
+    diff = np.abs(card["spectrogram"] - host["spectrogram"])
+    loud = host["spectrogram"] >= 0.5
+    d, d_floor = float(diff[loud].max()), float(diff[~loud].max(initial=0.0))
+    audio = torch.from_numpy(card["audio"]).to(dev)
+    feat_ms = cuda_ms(lambda: sg.specgram(audio, n_fft=hp.n_fft, hop_length=hp.hop_length,
+                                          mag_only=True))
+    print(f"[{label}] get_baseline_batch, {BASELINE_BATCH} x 64000 samples -> {card['spectrogram'].shape}: "
+          f"card vs CPU max|d| {d:.2e} within 60 dB of each clip's peak (tol {SPEC_TOL:.0e}; "
+          f"{loud.mean():.3f} of the bins), {d_floor:.2e} below (tol {SPEC_FLOOR_TOL:.0e}); "
+          f"specgram on the card {feat_ms:.3f} ms per batch ({smi})")
+    if not (d <= SPEC_TOL and d_floor <= SPEC_FLOOR_TOL):
+        raise AssertionError(f"[{label}] features: card and CPU disagree")
+
+    clip = audio[0]
+    spec = sg.specgram(clip, n_fft=1024, hop_length=256, mag_only=True)  # [513, 251, 1]
+    mag = 10.0 ** ((spec[..., 0] - 1.0) * 120.0 / 20.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wav = sg.ispecgram(spec, n_fft=1024, hop_length=256, num_iters=GL_ITERS)
+    torch.cuda.synchronize()
+    gl_ms = (time.perf_counter() - t0) * 1e3
+    conv = spectral_convergence(mag, wav, 1024, 256)
+    start = math.pi * torch.rand(mag.shape, generator=torch.Generator().manual_seed(0))
+    conv0 = spectral_convergence(mag, sg.griffin_lim(mag, start.to(dev), 1024, 256, 1), 1024, 256)
+    got = sg.griffin_lim(mag, start.to(dev), 1024, 256, GL_CHECK_ITERS).cpu()
+    want = sg.griffin_lim(mag.cpu(), start, 1024, 256, GL_CHECK_ITERS)
+    err = rel_err(got, want)[1]
+    print(f"[{label}] ispecgram(mag_only=True), {GL_ITERS} Griffin-Lim iterations, n_fft 1024, "
+          f"hop 256, one clip of 64000 samples: {gl_ms:.1f} ms ({gl_ms / GL_ITERS:.3f} ms per "
+          f"iteration, host clock); spectral convergence {conv:.4f} (from {conv0:.4f} at the "
+          f"start phase); {GL_CHECK_ITERS} iterations card vs CPU from one phase: max|d| / max "
+          f"{err:.2e} (tol {GL_TOL:.0e}) ({smi})")
+    if not (err <= GL_TOL and conv < conv0 and wav.shape == (64000,)
+            and bool(torch.isfinite(wav).all())):
+        raise AssertionError(f"[{label}] Griffin-Lim failed its checks")
+
+
+def cqt_phase(dev, smi: str) -> None:
+    """The card's CQT of a 4 s clip against the host multirate oracle (the
+    bound of tests/test_cqt_fidelity.py: 3% of an interior frame's peak at
+    most, 0.3% on average) and against the port's CPU CQT; its ms."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.signal.cqt import cqt
+    from audio_style_transfer_tpu_torch.signal.cqt_multirate import multirate_cqt
+
+    label = "cqt"
+    x = synth_audio(CQT_SECONDS, kind="style")
+    xd = torch.from_numpy(x).to(dev)
+    got = cqt(xd)
+    host = cqt(torch.from_numpy(x))
+    err = rel_err(torch.view_as_real(got.cpu()), torch.view_as_real(host))[1]
+    t0 = time.perf_counter()
+    oracle = multirate_cqt(x)
+    host_s = time.perf_counter() - t0
+    m_dev = got.abs().cpu().numpy()[:, 8:-8]
+    m_orc = np.abs(oracle)[:, 8:-8]
+    dev_frac = np.abs(m_dev - m_orc) / np.maximum(m_orc.max(axis=0, keepdims=True), 1e-12)
+    ms = cuda_ms(lambda: cqt(xd))
+    print(f"[{label}] {CQT_SECONDS:.0f} s clip, 240 bins x {got.shape[-1]} frames: card vs CPU "
+          f"max|d| / max {err:.2e} (tol {CQT_TOL:.0e}); against the multirate oracle per frame "
+          f"peak max {dev_frac.max():.4f} mean {dev_frac.mean():.5f} (bound 0.03 / 0.003); card "
+          f"{ms:.3f} ms, the host oracle {host_s:.2f} s ({smi})")
+    if not (err <= CQT_TOL and dev_frac.max() < 0.03 and dev_frac.mean() < 0.003):
+        raise AssertionError(f"[{label}] the card's CQT failed its checks")
+
+
+def output_grams_phase(dev, smi: str) -> dict:
+    """cli/output_grams.py's per-window function (``window_grams``; ``main``
+    draws figures and needs matplotlib) at length 16384, the full stack (L =
+    30), float32, over a 3-window synthetic clip: exactly K1 30 and K5 1 per
+    window; each window's grams against the plain trunk (ops.conv) and the
+    plain gram (einsum) on the card."""
+    import argparse
+
+    import torch
+
+    from audio_style_transfer_tpu_torch.cli import output_grams
+    from audio_style_transfer_tpu_torch.ops import _build
+    from audio_style_transfer_tpu_torch.ops.chain import reference_trunk, stack_trunk_weights
+    from audio_style_transfer_tpu_torch.ops.conv import conv1d
+    from audio_style_transfer_tpu_torch.ops.gram import pair_gram_reference
+    from audio_style_transfer_tpu_torch.signal.mu_law import mu_law_numpy
+    from audio_style_transfer_tpu_torch.transfer.grams import l2_normalize
+
+    label = "output grams"
+    args = argparse.Namespace(random_init=True, stack=None, length=T, channels=C,
+                              device=str(dev), ckpt_path="")
+    engine = output_grams.make_engine(args)
+    audio = synth_audio(GRAMS_WINDOWS * T / 16000 + 0.01, kind="style")
+    windows = [audio[i * T : (i + 1) * T] for i in range(GRAMS_WINDOWS)]
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    grams = output_grams.window_grams(engine, windows)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    want = {k: 0 for k in KERNELS}
+    want.update(K1=LAYERS * GRAMS_WINDOWS, K5=GRAMS_WINDOWS)
+    if launches != want:
+        raise AssertionError(f"[{label}] launched {launches}, want K1 {LAYERS} and K5 1 a "
+                             "window and nothing else")
+    p = engine.params
+    wd, bd, wr, br = stack_trunk_weights(p, LAYERS)
+    dils = tuple(engine.cfg.ae_dilation(k) for k in range(LAYERS))
+    worst = 0.0
+    with torch.no_grad():
+        for aud, got in zip(windows, grams):
+            xq = torch.tensor(mu_law_numpy(aud[None]), dtype=torch.float32, device=dev)
+            enc = conv1d((xq / 128.0)[..., None], p["ae_startconv"]["w"], p["ae_startconv"]["b"],
+                         causal=False)
+            taps = reference_trunk(enc[0], wd, bd, wr, br, dils, tuple(range(LAYERS)))
+            g = pair_gram_reference(*[t[None] for t in taps])
+            ref = l2_normalize(g[0].permute(2, 0, 1), axes=(1, 2))
+            worst = max(worst, rel_err(torch.from_numpy(got), ref.cpu())[1])
+    # Steady state, after the counted run: one window a call (its launches
+    # are not the main path's and are not returned).
+    steady = cuda_ms(lambda: output_grams.window_grams(engine, windows[:1]), reps=5, warmup=1)
+    print(f"[{label}] window_grams, {GRAMS_WINDOWS} windows of {T} samples, full stack (L=30), "
+          f"float32: grams {grams[0].shape} each; launches {launches}: K1 {LAYERS} and K5 1 a "
+          f"window, the rest 0 ok; against the plain trunk and gram on the card worst max|d| / "
+          f"max {worst:.2e} (tol {GRAMS_TOL:.0e}); {wall * 1e3:.1f} ms for the {GRAMS_WINDOWS} "
+          f"windows (host clock, set-up included), {steady:.2f} ms a window steady (CUDA "
+          f"events, the copy to the host included) ({smi})")
+    if not worst <= GRAMS_TOL:
+        raise AssertionError(f"[{label}] grams disagree with the plain trunk and gram")
+    return launches
+
+
+def sidecar_phases(dev, smi: str) -> dict:
+    """Every M9 phase over one synthetic TFRecord; the kernel launches of the
+    output-grams path."""
+    with tempfile.TemporaryDirectory() as tmp:
+        write_baseline_records(os.path.join(tmp, "baseline.tfrecord"))
+        logdir = baseline_train_phase(dev, smi, tmp)
+        baseline_embeddings_phase(dev, smi, tmp, logdir)
+        specgram_phase(dev, smi, tmp)
+    cqt_phase(dev, smi)
+    return output_grams_phase(dev, smi)
+
+
 def main() -> int:
     import torch
 
@@ -3200,7 +3670,8 @@ def main() -> int:
     runs.update(exact_sharded_runs)
     gloo_runs, gloo_train_launches = gloo_phases(dev, smi)
     runs.update(gloo_runs)
-    for part in (dp_launches, gloo_train_launches):
+    grams_launches = sidecar_phases(dev, smi)
+    for part in (dp_launches, gloo_train_launches, grams_launches):
         for k, v in part.items():
             train_launches[k] += v
     for label, (_, evals, wall, *_) in runs.items():

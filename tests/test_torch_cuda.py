@@ -1097,3 +1097,90 @@ def test_bf16_conv_is_one_tensor_core_product_rounded_once(dev):
                 assert share > _one_rounding_share(f * cin)
     finally:
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+
+
+# The baseline spectral AE and the spectrogram / CQT chain on the card: cuDNN
+# convs and torch.fft / torch.matmul (no hand-written kernel), float32 with
+# TF32 off, held to the same functions on the CPU.
+BASELINE_SHALLOW = dict(
+    num_latent=8, pitch_embedding_dim=8, n_fft=64,
+    encoder_spec=(((5, 5), (2, 2), 16), ((4, 4), (2, 2), 16), ((4, 4), (2, 2), 32)),
+    decoder_spec=(((4, 4), (2, 2), 32), ((4, 4), (2, 2), 16), ((5, 5), (2, 2), 16)))
+
+
+def test_baseline_convs_turn_tf32_off_and_restore_it(dev):
+    from audio_style_transfer_tpu_torch.models import baseline_ae
+
+    cudnn = torch.backends.cudnn
+    before = cudnn.allow_tf32
+    try:
+        cudnn.allow_tf32 = True
+        with baseline_ae.f32_convs():
+            assert cudnn.allow_tf32 is False
+        assert cudnn.allow_tf32 is True
+    finally:
+        cudnn.allow_tf32 = before
+
+
+def test_baseline_step_on_the_card_matches_the_cpu(dev):
+    """One Adam step at the shallow geometry, TF32 on outside the model (the
+    model turns it off): the loss to 1e-5, every gradient to 1e-4 of its
+    largest entry (float32 sums of cuDNN's order) except the biases before a
+    training-mode BN, whose gradients are rounding noise (zero in exact
+    arithmetic); the updated BN statistics to 1e-5."""
+    from audio_style_transfer_tpu_torch.models import baseline_ae as tb
+
+    hp = tb.BaselineHParams(**BASELINE_SHALLOW)
+    rng = np.random.RandomState(0)
+    spec = torch.tensor(rng.rand(2, 32, 16, 1).astype(np.float32))
+    pitch = torch.tensor([60, 64])
+    out = {}
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        for where in ("cpu", dev):
+            model = tb.BaselineAE(hp, seed=1).to(where)
+            opt = tb.make_optimizer(model)
+            loss = tb.train_step(model, opt, spec.to(where), pitch.to(where))
+            out[str(where)] = (float(loss), {n: p.grad.cpu() for n, p in model.named_parameters()},
+                               {n: b.cpu() for n, b in model.named_buffers()})
+    finally:
+        torch.backends.cudnn.allow_tf32 = False
+    (lc, gc, bc), (lg, gg, bg) = out["cpu"], out[str(dev)]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for n in gc:
+        if n.endswith(".b") and not n.startswith("mag_out"):
+            continue
+        assert _rel(gg[n], gc[n]) <= 1e-4, n
+    for n in bc:
+        assert _rel(bg[n], bc[n]) <= 1e-5, n
+
+
+def test_spectrogram_chain_on_the_card_matches_the_cpu(dev):
+    """Batched specgram features (per-clip maxima), istft's overlap-add
+    (equal bits on two runs: F.fold sums without atomics) and 5 Griffin-Lim
+    iterations from one phase, card against CPU."""
+    from audio_style_transfer_tpu_torch.signal import specgram as sg
+    from audio_style_transfer_tpu_torch.signal.stft import centered_stft, istft
+
+    rng = np.random.RandomState(1)
+    x = torch.tensor((rng.randn(3, 16000) * [[1e-3], [0.5], [0.05]]).astype(np.float32))
+    want = sg.specgram(x, n_fft=1024, hop_length=256, mag_only=True)
+    got = sg.specgram(x.to(dev), n_fft=1024, hop_length=256, mag_only=True)
+    assert float((got.cpu() - want).abs().max()) <= 1e-4
+    spec = centered_stft(x.to(dev), 1024, 256)
+    a, b = istft(spec, 1024, 256), istft(spec, 1024, 256)
+    assert torch.equal(a, b)
+    assert _rel(a.cpu(), istft(spec.cpu(), 1024, 256)) <= 1e-5
+    mag = spec[1].abs()
+    phase = torch.rand(mag.shape, generator=torch.Generator().manual_seed(0)) * np.pi
+    gl = sg.griffin_lim(mag, phase.to(dev), 1024, 256, 5)
+    assert _rel(gl.cpu(), sg.griffin_lim(mag.cpu(), phase, 1024, 256, 5)) <= 1e-4
+
+
+def test_cqt_on_the_card_matches_the_cpu(dev):
+    from audio_style_transfer_tpu_torch.signal.cqt import cqt
+
+    x = torch.tensor(np.random.RandomState(2).randn(2, 32000).astype(np.float32))
+    got, want = cqt(x.to(dev)).cpu(), cqt(x)
+    assert got.shape == want.shape == (2, 240, 126)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5

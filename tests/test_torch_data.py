@@ -171,8 +171,15 @@ def test_native_midstream_error_propagates(tmp_path, monkeypatch):
 
 
 def test_baseline_batch_raises_naming_m9(nsynth_file):
-    with pytest.raises(NotImplementedError, match="M9"):
-        NSynthDataset(nsynth_file).get_baseline_batch(None)
+    """The call raised NotImplementedError naming M9 until the spectrogram
+    chain was ported; now it yields the baseline AE's batches (their parity
+    with JAX: tests/test_torch_specgram.py)."""
+    from audio_style_transfer_tpu_torch.models.baseline_ae import BaselineHParams
+
+    batch = next(NSynthDataset(nsynth_file, is_training=False).get_baseline_batch(
+        BaselineHParams(batch_size=2), device="cpu"))
+    assert batch["spectrogram"].shape == (2, 512, 256, 1)
+    assert np.isfinite(batch["spectrogram"]).all()
 
 
 def _records(n=20, payload=1000, seed=0):

@@ -19,18 +19,25 @@ MODULES = [
     "audio_style_transfer_tpu_torch",
     "audio_style_transfer_tpu_torch.utils.audio_io",
     "audio_style_transfer_tpu_torch.utils.paths",
+    "audio_style_transfer_tpu_torch.utils.profiling",
     "audio_style_transfer_tpu_torch.analysis.spectrogram",
     "audio_style_transfer_tpu_torch.analysis.viz",
     "audio_style_transfer_tpu_torch.analysis.nmf",
     "audio_style_transfer_tpu_torch.analysis.ot",
+    "audio_style_transfer_tpu_torch.analysis.summaries",
+    "audio_style_transfer_tpu_torch.analysis.rainbow",
     "audio_style_transfer_tpu_torch.signal.mu_law",
     "audio_style_transfer_tpu_torch.signal.stft",
+    "audio_style_transfer_tpu_torch.signal.specgram",
+    "audio_style_transfer_tpu_torch.signal.cqt",
+    "audio_style_transfer_tpu_torch.signal.cqt_multirate",
     "audio_style_transfer_tpu_torch.ops.conv",
     "audio_style_transfer_tpu_torch.ops._build",
     "audio_style_transfer_tpu_torch.ops.chain",
     "audio_style_transfer_tpu_torch.ops.encoder",
     "audio_style_transfer_tpu_torch.ops.gram",
     "audio_style_transfer_tpu_torch.models.wavenet_ae",
+    "audio_style_transfer_tpu_torch.models.baseline_ae",
     "audio_style_transfer_tpu_torch.ckpt.convert",
     "audio_style_transfer_tpu_torch.transfer.grams",
     "audio_style_transfer_tpu_torch.transfer.losses",
@@ -54,6 +61,9 @@ MODULES = [
     "audio_style_transfer_tpu_torch.train.optimizers",
     "audio_style_transfer_tpu_torch.train.trainer",
     "audio_style_transfer_tpu_torch.cli.train",
+    "audio_style_transfer_tpu_torch.cli.baseline_train",
+    "audio_style_transfer_tpu_torch.cli.baseline_save_embeddings",
+    "audio_style_transfer_tpu_torch.cli.output_grams",
     "chip_smoke",
 ]
 
