@@ -147,6 +147,19 @@ Phases (any failure raises and exits non-zero):
      windows of 16384 at the full stack, exactly K1 30 and K5 1 a window,
      the grams against the plain trunk and gram on the card (its launches go
      into the totals);
+     then the last modules: `[scipy parity]` transfer/scipy_parity.py's
+     ``run_parity`` at full geometry (T=16384, stack 0, float32, TF32 off,
+     maxiter 100, 2 seeds, the MT line search): each seed's record, each
+     leg's wall and ms per evaluation, every leg's launches exactly K1 30,
+     K2 30, K5 1, K6 1 per evaluation and the phase's K1 30 and K5 1 per
+     forward pass, each seed held to main()'s rule; `[examples]`
+     examples/how_to_use_torch.py and examples/interpolation_torch.py,
+     ``main(argv)`` in this process at --sample_length 8192 with random
+     weights on synthetic wavs: every wav they write finite and frames x 512
+     samples long (the stretched one round(frames x 1.5) x 512), exactly K1
+     30 per ``encode`` call, their walls; then one line on the composed
+     parity (its TensorFlow oracle is not installed on the card's machine;
+     tests/test_torch_composed_parity.py holds it on the CPU);
   6. print the per-kernel JSON line (time, plain time, bound, library time,
      FMA time, windowed time, the error at the exact runs' shapes and, for
      K1 and K2, at the training step's in both types), then the
@@ -3603,6 +3616,172 @@ def sidecar_phases(dev, smi: str) -> dict:
     return output_grams_phase(dev, smi)
 
 
+# ---------------------------------------------------------------------- #
+# The last modules (M9b): the SciPy parity harness and the NSynth examples.
+# ---------------------------------------------------------------------- #
+
+SCIPY_SEEDS = 2  # the JAX module's defaults and its slow test's full-size run
+SCIPY_MAXITER = 100
+EXAMPLE_SAMPLES = 8192  # --sample_length of both example runs
+EXAMPLE_STRETCH = 1.5  # interpolation's default --stretch
+
+
+def _leg_timer(legs: list, leg: str, fn):
+    """``fn`` wrapped so that each call appends (leg, seconds to the device's
+    end, the kernel launches it made) to ``legs``."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import _build
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        before = dict(_build.LAUNCHES)
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        legs.append((leg, time.perf_counter() - t0,
+                     {k: _build.LAUNCHES[k] - before[k] for k in KERNELS}))
+        return out
+
+    return timed
+
+
+def scipy_parity_phase(dev, smi: str) -> dict:
+    """``transfer/scipy_parity.py::run_parity`` at full geometry (30 layers of
+    128, T=16384, stack 0: style taps 0..9, content tap 29; float32, TF32
+    off), maxiter 100, 2 seeds, the MT line search: each seed's record, each
+    leg's wall and ms per evaluation, and its launches. Every gradient
+    evaluation of either leg is K1 30, K2 30, K5 1, K6 1; the two targets
+    and the start loss a seed are forward passes (K1 30, K5 1). Each seed
+    must pass ``main``'s rule."""
+    from unittest import mock
+
+    import scipy.optimize
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import _build
+    from audio_style_transfer_tpu_torch.transfer import lbfgs, scipy_parity
+
+    label = "scipy parity"
+    legs = []
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    with mock.patch.object(lbfgs, "lbfgs_minimize",
+                           _leg_timer(legs, "ours", lbfgs.lbfgs_minimize)), \
+            mock.patch.object(scipy.optimize, "minimize",
+                              _leg_timer(legs, "scipy", scipy.optimize.minimize)):
+        records = scipy_parity.run_parity(t=T, maxiter=SCIPY_MAXITER, seeds=SCIPY_SEEDS,
+                                          stack0=True, line_search="mt", device=str(dev))
+    wall = time.perf_counter() - t0
+    launches = dict(_build.LAUNCHES)
+    if len(records) != SCIPY_SEEDS or [leg for leg, *_ in legs] != ["ours", "scipy"] * SCIPY_SEEDS:
+        raise AssertionError(f"[{label}] {len(records)} records, legs {[g for g, *_ in legs]}")
+    for i, r in enumerate(records):
+        print(f"[{label}] {json.dumps(r)}")
+        for leg, secs, got in legs[2 * i : 2 * i + 2]:
+            evals = r[f"{leg}_evals"]
+            want = {k: 0 for k in KERNELS}
+            want.update(K1=LAYERS * evals, K2=LAYERS * evals, K5=evals, K6=evals)
+            print(f"[{label}] seed {r['seed']} {leg}: {evals} evaluations in {secs:.3f} s, "
+                  f"{secs / evals * 1e3:.3f} ms per evaluation (host clock, to the device's "
+                  f"end); launches {got} ({smi})")
+            if got != want:
+                raise AssertionError(f"[{label}] seed {r['seed']} {leg}: launched {got}, want "
+                                     f"{want}: K1/K2 {LAYERS} and K5/K6 1 per evaluation")
+    evals = sum(r["ours_evals"] + r["scipy_evals"] for r in records)
+    passes = evals + 3 * SCIPY_SEEDS  # + the two targets and the start loss a seed
+    want = {k: 0 for k in KERNELS}
+    want.update(K1=LAYERS * passes, K2=LAYERS * evals, K5=passes, K6=evals)
+    if launches != want:
+        raise AssertionError(f"[{label}] launched {launches}, want {want}")
+    print(f"[{label}] launches {launches}: K2 {LAYERS} and K6 1 per gradient evaluation "
+          f"({evals}), K1 {LAYERS} and K5 1 per pass ({passes}, the targets and start losses "
+          f"included), the rest 0 ok; {SCIPY_SEEDS} seeds in {wall:.1f} s ({smi})")
+    failed = [r["seed"] for r in records if not scipy_parity.passes(r)]
+    if failed:
+        raise AssertionError(f"[{label}] seeds {failed} fail main()'s rule: |rel| <= 1%, or "
+                             "SciPy stalled and ours <= 1.01 x SciPy's")
+    rels = ", ".join(f"{r['rel']:.2e}" for r in records)
+    print(f"[{label}] every seed passes main()'s rule (|rel| <= 1%, or SciPy stalled and ours "
+          f"<= 1.01 x SciPy's): rel {rels}, stalled {[r['scipy_stalled'] for r in records]} ok")
+    return launches
+
+
+def examples_phase(dev, smi: str) -> dict:
+    """examples/how_to_use_torch.py and examples/interpolation_torch.py, each
+    ``main(argv)`` in this process with ``--random_init --device <card>
+    --sample_length 8192`` on synthetic wavs, from a temporary working
+    directory (the scripts write there): every wav they write is finite and
+    frames x 512 samples long (the stretched one round(frames x 1.5) x 512),
+    and ``encode`` launched K1 30 times a call and nothing else."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import _build
+    from audio_style_transfer_tpu_torch.utils.audio_io import read_wav
+    from examples import how_to_use_torch, interpolation_torch
+
+    label = "examples"
+    frames = EXAMPLE_SAMPLES // 512
+    common = ["--random_init", "--device", str(dev), "--sample_length", str(EXAMPLE_SAMPLES)]
+    runs = (  # script, argv, encode calls, {wav written: frames}
+        ("how_to_use_torch.py", how_to_use_torch.main, ["content.wav", *common], 1,
+         {"gen_content.wav": frames}),
+        ("interpolation_torch.py", interpolation_torch.main, ["content.wav", "style.wav", *common],
+         2, {"interp.wav": frames, "stretched.wav": round(frames * EXAMPLE_STRETCH)}),
+    )
+    total = {k: 0 for k in KERNELS}
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, kind in (("content", "content"), ("style", "style")):
+            write_wav(os.path.join(tmp, f"{name}.wav"), synth_audio(1.0, kind=kind))
+        os.chdir(tmp)
+        try:
+            for script, main, argv, calls, wavs in runs:
+                torch.cuda.synchronize()
+                _build.reset_launches()
+                t0 = time.perf_counter()
+                out = io.StringIO()
+                with contextlib.redirect_stdout(out):
+                    main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = dict(_build.LAUNCHES)
+                want = {k: 0 for k in KERNELS}
+                want["K1"] = LAYERS * calls
+                if launches != want:
+                    raise AssertionError(f"[{label}] {script} launched {launches}, want K1 "
+                                         f"{LAYERS} a call of encode ({calls}) and nothing else")
+                lengths = {}
+                for wav, n in wavs.items():
+                    audio, sr = read_wav(os.path.join(tmp, wav))
+                    lengths[wav] = audio.shape[-1]
+                    if audio.shape != (1, n * 512) or sr != 16000 \
+                            or not np.all(np.isfinite(audio)):
+                        raise AssertionError(f"[{label}] {script}: {wav} {audio.shape} at {sr}, "
+                                             f"want (1, {n * 512})")
+                for k, v in launches.items():
+                    total[k] += v
+                print(f"[{label}] {script} {' '.join(argv)}: {wall:.1f} s (weights, encode and "
+                      f"synthesize, host clock); wrote {lengths} samples, finite ok; launches "
+                      f"{launches}: K1 {LAYERS} a call of encode, the rest 0 ok ({smi})")
+                print("\n".join(f"[{label}]   {line}" for line in out.getvalue().splitlines()))
+        finally:
+            os.chdir(cwd)
+    return total
+
+
+def composed_parity_note() -> None:
+    """The composed parity is not run here: its reference leg is a
+    TensorFlow graph, which the card's machine does not install."""
+    import importlib.util
+
+    print("[composed parity] not run on the card: its oracle is a TensorFlow graph "
+          "(transfer/composed_parity.py), and TensorFlow is importable here: "
+          f"{importlib.util.find_spec('tensorflow') is not None}; "
+          "tests/test_torch_composed_parity.py holds it on the CPU")
+
+
 def main() -> int:
     import torch
 
@@ -3671,7 +3850,11 @@ def main() -> int:
     gloo_runs, gloo_train_launches = gloo_phases(dev, smi)
     runs.update(gloo_runs)
     grams_launches = sidecar_phases(dev, smi)
-    for part in (dp_launches, gloo_train_launches, grams_launches):
+    parity_launches = scipy_parity_phase(dev, smi)
+    example_launches = examples_phase(dev, smi)
+    composed_parity_note()
+    for part in (dp_launches, gloo_train_launches, grams_launches, parity_launches,
+                 example_launches):
         for k, v in part.items():
             train_launches[k] += v
     for label, (_, evals, wall, *_) in runs.items():

@@ -1184,3 +1184,22 @@ def test_cqt_on_the_card_matches_the_cpu(dev):
     got, want = cqt(x.to(dev)).cpu(), cqt(x)
     assert got.shape == want.shape == (2, 240, 126)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_scipy_parity_at_width_128_on_the_card(dev):
+    """transfer/scipy_parity.py's run_parity at full width (30 layers of 128,
+    stack 0) on a T=4096 clip, one seed, maxiter 100 (the module's default:
+    the rule compares converged losses; cut at 30 iterations both legs stop
+    mid-descent at the cap): the record passes main()'s rule, and the run
+    launched K1, K2, K5 and K6 and nothing else."""
+    import json
+
+    from audio_style_transfer_tpu_torch.transfer import scipy_parity
+
+    _build.reset_launches()
+    (record,) = scipy_parity.run_parity(t=4096, maxiter=100, seeds=1, device=str(dev))
+    torch.cuda.synchronize()
+    launches = dict(_build.LAUNCHES)
+    assert scipy_parity.passes(record), json.dumps(record)
+    assert all(launches[k] > 0 for k in ("K1", "K2", "K5", "K6")), launches
+    assert all(launches[k] == 0 for k in ("K2wf", "K7f", "K7b")), launches

@@ -44,6 +44,8 @@ MODULES = [
     "audio_style_transfer_tpu_torch.transfer.lbfgs",
     "audio_style_transfer_tpu_torch.transfer.engine",
     "audio_style_transfer_tpu_torch.transfer.longform",
+    "audio_style_transfer_tpu_torch.transfer.scipy_parity",
+    "audio_style_transfer_tpu_torch.transfer.composed_parity",
     "audio_style_transfer_tpu_torch.parallel",
     "audio_style_transfer_tpu_torch.parallel.halo",
     "audio_style_transfer_tpu_torch.parallel.mesh",
@@ -89,6 +91,7 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
         "assert _build._lib is None, 'a kernel library was loaded at import'\n"
         "def foreign():\n"
         "    return [m for m in sys.modules if m in ('jax', 'jaxlib', 'triton', 'matplotlib',\n"
+        "            'tensorflow',\n"
         "            'audio_style_transfer_tpu') or m.startswith('audio_style_transfer_tpu.')]\n"
         "assert not foreign(), ('imported', foreign())\n"
         "tmp = sys.argv[1]\n"
@@ -131,15 +134,18 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
 
 
 def test_port_sources_name_no_module_of_the_jax_package():
-    """No source of the port and not chip_smoke.py holds an import of jax or
-    of the JAX package, in any of the three forms."""
+    """No source of the port, not chip_smoke.py and not the port's examples
+    (examples/*_torch.py) holds an import of jax or of the JAX package, in
+    any of the three forms."""
     forms = re.compile(
         r"^\s*(import\s+audio_style_transfer_tpu(\.|\s|$)"
         r"|from\s+audio_style_transfer_tpu(\.[\w.]*)?\s+import"
         r"|import\s+jax\b|from\s+jax\b)", re.M)
     files = glob.glob(os.path.join(REPO, "audio_style_transfer_tpu_torch", "**", "*.py"),
                       recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
-    assert len(files) > 20
+    examples = glob.glob(os.path.join(REPO, "examples", "*_torch.py"))
+    assert len(files) > 20 and len(examples) == 2
+    files += examples
     hits = []
     for path in files:
         with open(path) as f:

@@ -67,3 +67,27 @@ def n(x) -> np.ndarray:
     if isinstance(x, torch.Tensor):
         return x.detach().to(torch.float32).cpu().numpy()
     return np.asarray(x, np.float32)
+
+
+class _Parsed(Exception):
+    pass
+
+
+def parser_defaults(main, monkeypatch, *args) -> dict:
+    """{dest: default} of every flag of a CLI's argparse parser, read by
+    calling ``main(*args)`` with ``parse_args`` replaced so that it stops
+    there."""
+    import argparse
+
+    seen = {}
+
+    def parse_args(parser, argv=None):
+        seen.update({a.dest: a.default for a in parser._actions if a.dest != "help"})
+        raise _Parsed
+
+    with monkeypatch.context() as m:
+        m.setattr(argparse.ArgumentParser, "parse_args", parse_args)
+        with pytest.raises(_Parsed):
+            main(*args)
+    return seen
+
