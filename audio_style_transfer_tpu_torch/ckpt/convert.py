@@ -1,11 +1,23 @@
-"""Weights carried across from the JAX package (counterpart of
-audio_style_transfer_tpu/ckpt/convert.py).
+"""Weights for the port (counterpart of audio_style_transfer_tpu/ckpt/convert.py).
 
-The JAX ``save_params`` writes a flat ``.npz`` with keys ``<layer>/w``
-([F, Cin, Cout]) and ``<layer>/b``; this module reads it with numpy alone
-and returns torch tensors, and writes the same layout (``save_params``), so
-weights trained in the port load into the JAX package and the port's CLIs. Converting the pretrained TF1 bundle stays with
-the JAX package's converter, which writes that ``.npz``.
+The pretrained NSynth weights ship as a TF1 ``model.ckpt-200000`` bundle
+(reference nsynth/README.md:29-33) with variables named by scope:
+``ae_dilatedconv_5/W`` [1, 3, 128, 128], ``cond_map_out1/biases`` [256], ...
+``convert_tf1_checkpoint`` reads it with the port's own TF-free reader
+(``ckpt/bundle_reader.py``): ``<layer>/W [1,F,Cin,Cout]`` becomes
+``params[<layer>]['w'] [F,Cin,Cout]`` and ``<layer>/biases`` becomes
+``['b']``, float32 torch tensors. The model's layer names equal the TF
+scopes, so no mapping table can drift out of sync with the model code.
+
+Unlike the JAX converter, a failure of the reader is not retried through
+TensorFlow: the port runs where TensorFlow is not installed, and a retry
+would hide a fault of the reader. Its error propagates.
+
+``load_pretrained`` takes the reference's ``--ckpt_path`` unchanged: it
+converts the bundle on first use and caches ``<ckpt>.npz``, the flat layout
+of the JAX ``save_params`` (keys ``<layer>/w``, ``<layer>/b``), which this
+module reads and writes with numpy alone; so weights cross between the two
+packages either way.
 
 The baseline spectral AE's weights cross as the JAX pytree in numpy
 (``baseline_params_from_numpy`` / ``baseline_params_to_numpy``).
@@ -48,19 +60,66 @@ def load_params(path: str, device: torch.device | str = "cpu") -> dict:
     return params_from_numpy(flat, device)
 
 
+def convert_tf1_checkpoint(checkpoint_path: str, strict: bool = True,
+                           device: torch.device | str = "cpu") -> dict:
+    """Convert a TF1 NSynth WaveNet checkpoint to the port's params.
+
+    Args:
+      checkpoint_path: path prefix of the TF checkpoint
+        (e.g. ``.../wavenet-ckpt/model.ckpt-200000``).
+      strict: require every model parameter to be present in the checkpoint.
+      device: where the float32 tensors are put.
+
+    Returns:
+      params: {layer_name: {'w': [F, Cin, Cout], 'b': [Cout]}}
+    """
+    from audio_style_transfer_tpu_torch.ckpt.bundle_reader import BundleReader
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, _conv_shapes
+
+    reader = BundleReader(checkpoint_path)
+    var_shapes = reader.get_variable_to_shape_map()
+    params_np: dict = {}
+    missing = []
+    for name, (f, cin, cout) in _conv_shapes(WaveNetAEConfig()).items():
+        w_key, b_key = f"{name}/W", f"{name}/biases"
+        if w_key not in var_shapes or b_key not in var_shapes:
+            missing.append(name)
+            continue
+        w = reader.get_tensor(w_key)
+        b = reader.get_tensor(b_key)
+        # TF stores conv1d kernels as [1, filter, in, out] (masked.py:136).
+        if w.ndim == 4:
+            assert w.shape[0] == 1, f"{w_key}: unexpected shape {w.shape}"
+            w = w[0]
+        assert w.shape == (f, cin, cout), (
+            f"{w_key}: got {w.shape}, expected {(f, cin, cout)}"
+        )
+        assert b.shape == (cout,), f"{b_key}: got {b.shape}, expected ({cout},)"
+        params_np[name] = {"w": w, "b": b}
+    if missing and strict:
+        raise KeyError(
+            f"checkpoint {checkpoint_path} is missing variables for layers: "
+            f"{missing[:8]}{'...' if len(missing) > 8 else ''}"
+        )
+    return params_from_numpy(params_np, device)
+
+
 def load_pretrained(checkpoint_path: str, device: torch.device | str = "cpu") -> dict:
-    """Pretrained weights from ``<ckpt>.npz`` or a path ending in ``.npz``."""
+    """Pretrained weights from the reference's ``--ckpt_path`` argument:
+    the sibling ``<ckpt>.npz`` if it exists, else a path ending in ``.npz``,
+    else the TF1 bundle, converted and cached as ``<ckpt>.npz`` (the cache
+    is skipped where the directory is read-only)."""
     npz_path = checkpoint_path + ".npz"
     if os.path.exists(npz_path):
         return load_params(npz_path, device)
-    if checkpoint_path.endswith(".npz") and os.path.exists(checkpoint_path):
+    if os.path.exists(checkpoint_path) and checkpoint_path.endswith(".npz"):
         return load_params(checkpoint_path, device)
-    raise FileNotFoundError(
-        f"no converted weights at {npz_path}: TF1 checkpoint bundles are read "
-        "by the JAX package's converter. Run "
-        "audio_style_transfer_tpu.ckpt.convert.load_pretrained(path) once (it "
-        "caches <ckpt>.npz), or convert_tf1_checkpoint + save_params, then "
-        "point --ckpt_path here again.")
+    params = convert_tf1_checkpoint(checkpoint_path, device=device)
+    try:
+        save_params(npz_path, params)
+    except OSError:  # read-only checkpoint dir: skip the cache
+        pass
+    return params
 
 
 def _baseline_w_to_torch(w: np.ndarray, transpose: bool) -> np.ndarray:

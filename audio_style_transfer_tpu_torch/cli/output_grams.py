@@ -67,7 +67,8 @@ def window_grams(engine, audios) -> list[np.ndarray]:
 
 def make_engine(args):
     """The transfer engine of the run: seed-0 weights with ``--random_init``,
-    else the converted ``.npz`` beside ``--ckpt_path``."""
+    else ``--ckpt_path``'s (the TF1 bundle, converted on first use, or its
+    ``.npz``), loaded onto ``--device``."""
     from audio_style_transfer_tpu_torch.transfer import StyleTransfer, TransferSpec
 
     if args.random_init:
@@ -77,7 +78,7 @@ def make_engine(args):
     else:
         from audio_style_transfer_tpu_torch.ckpt import load_pretrained
 
-        params = load_pretrained(args.ckpt_path)
+        params = load_pretrained(args.ckpt_path, device=args.device)
     spec = TransferSpec(
         stack=args.stack,
         batch_size=args.length,

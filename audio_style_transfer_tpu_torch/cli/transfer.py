@@ -166,7 +166,7 @@ def piece_work(args):
     else:
         from audio_style_transfer_tpu_torch.ckpt.convert import load_pretrained
 
-        params = load_pretrained(args.ckpt_path)
+        params = load_pretrained(args.ckpt_path, device=args.device)
 
     spec = TransferSpec(
         savepath=savepath,

@@ -64,7 +64,15 @@ Phases (any failure raises and exits non-zero):
      per evaluation that took a gradient, and K5 at least as often; the
      stack-0 and full-stack CLI runs again in float32 (the full-stack final
      loss held to a band) and the --gatys CLI in both types {K1, K2}, with
-     the bf16 / f32 ratio of final losses printed per path; then the exact
+     the bf16 / f32 ratio of final losses printed per path; `[tf1
+     checkpoint]` a full-size NSynth TF1 bundle of init_params(0) written
+     without TensorFlow (tools/tf1_bundle.py, with global_step and optimizer
+     slots the converter skips), its read, convert_tf1_checkpoint and both
+     load_pretrained calls (converting and caching, then the .npz) timed and
+     each bit for bit init_params(0), then the stack-0 CLI from
+     --ckpt_path <prefix> in bf16 (converting) and f32 (the cache): K1 30, K2
+     30, K5 1, K6 1 per evaluation, the f32 losses and launches exactly the
+     --random_init run's; then the exact
      long-form CLI (--exact, bf16, --stack 0 --gamma 1e-3) on a 15 s clip as
      one window and as a scan of 32768-sample windows, launches per
      evaluation checked, with evals/s, ms per evaluation and peak memory;
@@ -1305,9 +1313,10 @@ def check_losses(label: str, losses, audio_or_x, samples: int = T, band=None) ->
 
 
 def cli_phase(dev, label: str, path_args: list, expected: set, precision: str = "bfloat16",
-              band=None):
-    """The port's CLI, 3 epochs of transfer in ``precision``; returns
-    (launches, evals, wall seconds, final loss)."""
+              band=None, weights=("--random_init",)):
+    """The port's CLI, 3 epochs of transfer in ``precision`` on ``weights``
+    (its arguments: seed-0 weights, or ``--ckpt_path <prefix>``); returns
+    (launches, evals, wall seconds, final loss, the losses by epoch)."""
     import torch
 
     from audio_style_transfer_tpu_torch.cli.transfer import main
@@ -1320,7 +1329,7 @@ def cli_phase(dev, label: str, path_args: list, expected: set, precision: str = 
         write_wav(os.path.join(src, "style.wav"), synth_audio(3.0, kind="style"), 16000)
         argv = ["content", "style", "--dir", src, "--outdir", os.path.join(tmp, "out"),
                 "--logdir", os.path.join(tmp, "log"), *path_args,
-                "--precision", precision, "--fused", "--random_init", "--no_artifacts",
+                "--precision", precision, "--fused", *weights, "--no_artifacts",
                 "--epochs", "3", "--device", str(dev)]
         print(f"[{label}] {' '.join(argv[:2])} {' '.join(argv[8:])}")
         buf = io.StringIO()
@@ -1343,7 +1352,142 @@ def cli_phase(dev, label: str, path_args: list, expected: set, precision: str = 
     check_launches(label, launches, expected, evals)
     print(f"[{label}] {len(rows)} epochs, losses {losses}, {evals} L-BFGS evals in "
           f"{wall:.2f} s wall ({evals / wall:.2f} evals/s, setup included)")
-    return launches, evals, wall, losses[-1]
+    return launches, evals, wall, losses[-1], losses
+
+
+TF1_SLOT_LAYERS = ("ae_startconv", "ae_res_1")  # layers given optimizer slots in the bundle
+
+
+def tf1_checkpoint_phase(dev, smi: str, ref: dict) -> dict:
+    """`[tf1 checkpoint]`: the pretrained-weights path on a machine without
+    TensorFlow. A full-size NSynth bundle in TF's layout (all 187 layers of
+    ``init_params(0)``, ``<layer>/W`` as [1, F, Cin, Cout] and
+    ``<layer>/biases``, with ``global_step`` and the Adam and EMA slots of
+    two layers, which the converter skips), written by
+    tools/tf1_bundle.py; the bundle read, ``convert_tf1_checkpoint``, the
+    first ``load_pretrained`` (it converts and caches ``<ckpt>.npz``), the
+    ``.npz`` write alone and the second ``load_pretrained`` (the cache),
+    timed, each result bit for bit ``init_params(0)``; then the transfer CLI
+    at stack 0 from ``--ckpt_path <prefix>`` (the cache removed, so its first
+    run converts) in bf16 and f32: the launches of the ``--random_init`` run
+    (``ref``), and in f32 its losses exactly. Returns the two CLI runs."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ckpt import bundle_reader, convert
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig, init_params
+    from audio_style_transfer_tpu_torch.tools.tf1_bundle import nsynth_variables, write_bundle
+
+    label = "tf1 checkpoint"
+    want = init_params(0, WaveNetAEConfig())
+    variables = nsynth_variables(want)
+    rng = np.random.RandomState(0)
+    variables["global_step"] = np.array(200000, np.int64)
+    for name in TF1_SLOT_LAYERS:
+        shape = variables[f"{name}/W"].shape
+        for slot in ("Adam", "ExponentialMovingAverage"):
+            variables[f"{name}/W/{slot}"] = rng.standard_normal(shape).astype(np.float32)
+    n_bytes = sum(v.nbytes for v in variables.values())
+
+    def check_bits(what: str, got: dict) -> None:
+        if got.keys() != want.keys():
+            raise AssertionError(f"[{label}] {what}: layers {sorted(set(got) ^ set(want))} "
+                                 "differ from init_params(0)'s")
+        for name, entry in want.items():
+            for k, v in entry.items():
+                g = got[name][k]
+                if g.device != dev or g.dtype != torch.float32 or not torch.equal(g.cpu(), v):
+                    raise AssertionError(f"[{label}] {what}: {name}/{k} is not init_params(0)'s "
+                                         f"bits on {dev} ({g.dtype}, {g.device})")
+
+    def timed(fn, *args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    runs, times = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        prefix = os.path.join(tmp, "model.ckpt-200000")
+        npz = prefix + ".npz"
+        _, times["bundle write (crc off)"] = timed(write_bundle, prefix, variables, crc=False)
+
+        def read_all():
+            reader = bundle_reader.BundleReader(prefix)
+            return {k: reader.get_tensor(k) for k in reader.get_variable_to_shape_map()}
+
+        read, times["bundle read"] = timed(read_all)
+        if read.keys() != variables.keys() or any(
+                read[k].dtype != v.dtype or read[k].tobytes() != v.tobytes()
+                for k, v in variables.items()):
+            raise AssertionError(f"[{label}] the bundle read back differs from what was written")
+        got, times["convert_tf1_checkpoint"] = timed(convert.convert_tf1_checkpoint, prefix,
+                                                     device=dev)
+        check_bits("convert_tf1_checkpoint", got)
+        if os.path.exists(npz):
+            raise AssertionError(f"[{label}] convert_tf1_checkpoint wrote {npz}")
+        got, times["load_pretrained, converting"] = timed(convert.load_pretrained, prefix,
+                                                          device=dev)
+        check_bits("first load_pretrained", got)
+        if not os.path.exists(npz):
+            raise AssertionError(f"[{label}] the first load_pretrained cached no {npz}")
+        _, times[".npz write alone"] = timed(convert.save_params, os.path.join(tmp, "w.npz"),
+                                             got)
+        converter = convert.convert_tf1_checkpoint
+
+        def refuse(*args, **kwargs):
+            raise AssertionError(f"[{label}] the second load_pretrained converted again")
+
+        convert.convert_tf1_checkpoint = refuse
+        try:
+            got, times["load_pretrained, .npz"] = timed(convert.load_pretrained, prefix,
+                                                        device=dev)
+        finally:
+            convert.convert_tf1_checkpoint = converter
+        check_bits("second load_pretrained", got)
+        del got, read
+        print(f"[{label}] {len(want)} layers and {len(variables) - 2 * len(want)} other "
+              f"variables, {n_bytes / 1e6:.1f} MB; "
+              + ", ".join(f"{k} {v:.3f} s" for k, v in times.items())
+              + f"; every result init_params(0)'s bits on {dev} ok ({smi})")
+
+        os.remove(npz)  # the CLI's first run converts on first use
+        loader = convert.load_pretrained
+        load_s = []
+
+        def timed_load(*args, **kwargs):
+            out, seconds = timed(loader, *args, **kwargs)
+            load_s.append(seconds)
+            return out
+
+        for precision, suffix in (("bfloat16", ""), ("float32", ", float32")):
+            run_label = f"{label}, cli stack 0{suffix}"
+            convert.load_pretrained = timed_load
+            try:
+                runs[run_label] = cli_phase(dev, run_label, ["--stack", "0"],
+                                            {"K1", "K2", "K5", "K6"}, precision=precision,
+                                            weights=("--ckpt_path", prefix))
+            finally:
+                convert.load_pretrained = loader
+            if not os.path.exists(npz):
+                raise AssertionError(f"[{label}] the CLI from --ckpt_path cached no {npz}")
+            launches, evals, wall, _, losses = runs[run_label]
+            r_launches, r_evals, r_wall, _, r_losses = ref[f"cli stack 0{suffix}"]
+            if launches["K2"] != LAYERS * evals or launches["K1"] % LAYERS \
+                    or launches["K1"] < LAYERS * evals:
+                raise AssertionError(f"[{run_label}] launches {launches} for {evals} evals: "
+                                     f"want K2 {LAYERS} and K1 at least {LAYERS} an evaluation")
+            same = losses == r_losses and launches == r_launches
+            print(f"[{run_label}] weights loaded in {load_s[-1]:.3f} s "
+                  f"({'converting the bundle' if precision == 'bfloat16' else 'the .npz cache'}) "
+                  f"of a {wall:.2f} s CLI wall ({100 * load_s[-1] / wall:.1f}%); the "
+                  f"--random_init run: {r_evals} evals in {r_wall:.2f} s, losses {r_losses}; "
+                  f"the same losses and launches: {same} ({smi})")
+            if precision == "float32" and not same:
+                raise AssertionError(f"[{run_label}] losses {losses} and launches {launches} "
+                                     f"differ from the --random_init run's {r_losses} and "
+                                     f"{r_launches} on the same weights")
+    return runs
 
 
 def exact_first_eval(engine, t_total: int, window: int, t_valid: int) -> tuple:
@@ -3830,6 +3974,7 @@ def main() -> int:
         runs[label] = cli_phase(dev, label, path_args, expected)
         runs[f"{label}, float32"] = cli_phase(dev, f"{label}, float32", path_args, expected,
                                               precision="float32", band=band)
+    runs.update(tf1_checkpoint_phase(dev, smi, runs))
     runs.update({
         "per-layer engine": per_layer_phase(params, dev),
         "per-layer exact scan": per_layer_window_phase(params, dev),

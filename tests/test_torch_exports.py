@@ -1,8 +1,7 @@
 """Each subpackage of the port exports the public names its JAX
 counterpart's ``__init__.py`` re-exports (so ``from
 audio_style_transfer_tpu_torch.models import init_params`` works as the JAX
-form does), except the names written below with the roadmap item that
-keeps them out; and ``encoder_features``, one of those names, against JAX.
+form does); and ``encoder_features``, one of those names, against JAX.
 """
 
 import ast
@@ -23,10 +22,6 @@ JAX_PKG = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
                        "audio_style_transfer_tpu")
 SUBPACKAGES = ("analysis", "ckpt", "data", "generate", "models", "ops", "parallel", "signal",
                "train", "transfer", "utils")
-# Names the port leaves out, and the roadmap item (ROADMAP.md) that says why.
-LEFT_OUT = {
-    ("ckpt", "convert_tf1_checkpoint"): "queue 1: the TF1 reader stays with the JAX converter",
-}
 
 
 def _jax_exports(sub: str) -> list[str]:
@@ -43,11 +38,8 @@ def test_port_subpackage_exports_what_jax_does(sub):
     port = importlib.import_module(f"audio_style_transfer_tpu_torch.{sub}")
     names = _jax_exports(sub)
     assert names, sub
-    missing = [n for n in names if not hasattr(port, n) and (sub, n) not in LEFT_OUT]
+    missing = [n for n in names if not hasattr(port, n)]
     assert not missing, f"{sub} lacks {missing}"
-    for n in names:
-        if (sub, n) in LEFT_OUT:
-            assert not hasattr(port, n), f"{sub}.{n} exists: drop it from LEFT_OUT"
 
 
 def test_encoder_features_matches_jax():

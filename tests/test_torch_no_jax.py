@@ -38,7 +38,10 @@ MODULES = [
     "audio_style_transfer_tpu_torch.ops.gram",
     "audio_style_transfer_tpu_torch.models.wavenet_ae",
     "audio_style_transfer_tpu_torch.models.baseline_ae",
+    "audio_style_transfer_tpu_torch.ckpt",
+    "audio_style_transfer_tpu_torch.ckpt.bundle_reader",
     "audio_style_transfer_tpu_torch.ckpt.convert",
+    "audio_style_transfer_tpu_torch.tools.tf1_bundle",
     "audio_style_transfer_tpu_torch.transfer.grams",
     "audio_style_transfer_tpu_torch.transfer.losses",
     "audio_style_transfer_tpu_torch.transfer.lbfgs",
@@ -79,9 +82,10 @@ def _run(code, cwd=REPO, args=()):
 
 def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     """Every module of the port, then a one-epoch CPU run of its CLI, one
-    of its ``--exact`` mode, a run of the generate CLI on one frame and one
-    step of the train CLI on a synthetic TFRecord, in one subprocess: no
-    JAX, no module of the JAX package, no kernel library."""
+    of its ``--exact`` mode, a run of the generate CLI on one frame, one
+    step of the train CLI on a synthetic TFRecord and ``load_pretrained``
+    converting a TF1 bundle, in one subprocess: no JAX, no TensorFlow, no
+    module of the JAX package, no kernel library."""
     code = (
         "import importlib, sys, wave\n"
         "import numpy as np, torch\n"
@@ -108,7 +112,8 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
         "      tmp + '/log', '--device', 'cpu', '--random_init', '--no_artifacts', '--stack',\n"
         "      '0', '--batch_size', '4096', '--epochs', '1', '--maxiter', '1', '--exact'])\n"
         "from audio_style_transfer_tpu_torch.models.wavenet_ae import init_params\n"
-        "np.savez(tmp + '/w.npz', **{f'{k}/{m}': v.numpy() for k, e in init_params(0).items()\n"
+        "params = init_params(0)\n"
+        "np.savez(tmp + '/w.npz', **{f'{k}/{m}': v.numpy() for k, e in params.items()\n"
         "                            for m, v in e.items()})\n"
         "from audio_style_transfer_tpu_torch.cli import generate\n"
         "generate.main(['--source_path', tmp + '/tone.wav', '--save_path', tmp + '/gen',\n"
@@ -121,6 +126,13 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
         "train.main(['--train_path', tmp + '/t.tfrecord', '--logdir', tmp + '/tlog',\n"
         "            '--total_batch_size', '1', '--sample_length', '512', '--num_iters', '1',\n"
         "            '--device', 'cpu'])\n"
+        "from audio_style_transfer_tpu_torch.ckpt import load_pretrained\n"
+        "from audio_style_transfer_tpu_torch.tools import tf1_bundle\n"
+        "tf1_bundle.write_bundle(tmp + '/model.ckpt', tf1_bundle.nsynth_variables(params),\n"
+        "                        crc=False)\n"
+        "got = load_pretrained(tmp + '/model.ckpt')\n"
+        "assert all(torch.equal(got[k][m], v) for k, e in params.items() for m, v in e.items())\n"
+        "print('converted', len(got), 'layers from the TF1 bundle')\n"
         "bad = [m for m in foreign() if m != 'matplotlib']\n"
         "print('imported:', bad)\n"
         "sys.exit(1 if bad or _build._lib is not None else 0)\n"
@@ -131,6 +143,7 @@ def test_port_imports_no_jax_and_builds_nothing(tmp_path):
     assert "optimized 0.5s of audio" in r.stdout
     assert "generated 1 file(s)" in r.stdout
     assert "ckpt-1 at step 1" in r.stdout
+    assert "converted 187 layers from the TF1 bundle" in r.stdout
 
 
 def test_port_sources_name_no_module_of_the_jax_package():

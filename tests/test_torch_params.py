@@ -1,6 +1,9 @@
 """Weights carried across: JAX init/save_params -> the port's converter, and
 the port's own init_params."""
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -68,9 +71,13 @@ def test_port_save_params_round_trips_through_jax_bit_for_bit(tmp_path):
     assert float(got) == pytest.approx(float(want), rel=1e-6)
 
 
-def test_tf1_bundle_error_names_the_jax_converter(tmp_path):
-    with pytest.raises(FileNotFoundError, match="convert_tf1_checkpoint"):
-        convert.load_pretrained(str(tmp_path / "model.ckpt-200000"))
+def test_missing_bundle_raises_file_not_found(tmp_path):
+    """No ``<ckpt>.npz`` and no bundle: the port's own reader names the
+    missing ``.index`` (no TensorFlow, no JAX converter behind it)."""
+    prefix = str(tmp_path / "model.ckpt-200000")
+    with pytest.raises(FileNotFoundError, match=re.escape(prefix + ".index")):
+        convert.load_pretrained(prefix)
+    assert not os.path.exists(prefix + ".npz")
 
 
 def test_port_init_params_same_keys_shapes_and_bound():
