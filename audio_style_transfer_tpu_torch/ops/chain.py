@@ -46,6 +46,7 @@ import torch
 
 from audio_style_transfer_tpu_torch.ops import _build
 from audio_style_transfer_tpu_torch.ops.conv import conv1d
+from audio_style_transfer_tpu_torch.utils.profiling import span
 
 WIDTH = 128  # the kernels' compiled channel count
 _F32 = torch.float32
@@ -737,7 +738,7 @@ class TrunkFunction(torch.autograd.Function):
         if any(ctx.needs_input_grad[1:5]):
             # A named range for torch.profiler: the recompute's share of a
             # training step (chip_smoke.py [train ...] split).
-            with torch.enable_grad(), torch.profiler.record_function("trunk weight recompute"):
+            with torch.enable_grad(), span("trunk weight recompute"):
                 ws = [w.detach().requires_grad_(True) for w in (wd, bd, wr, br)]
                 taps = reference_trunk(x.detach(), *ws, dils, emit, valid_window)
                 pairs = [(tp, g) for tp, g in zip(taps, dtaps) if g is not None]

@@ -45,6 +45,7 @@ from audio_style_transfer_tpu_torch.models.wavenet_ae import (
 from audio_style_transfer_tpu_torch.parallel.mesh import rank_device, replicate, shard_rows
 from audio_style_transfer_tpu_torch.signal.mu_law import mu_law
 from audio_style_transfer_tpu_torch.train.optimizers import scheduled_step
+from audio_style_transfer_tpu_torch.utils.profiling import span
 
 
 def learning_rate(step: int, schedule: dict[int, float] | None = None) -> float:
@@ -210,7 +211,7 @@ class Trainer:
         loss = self._value_and_grads(params, wav)
         step = state["step"]
         opt = state["opt_state"]
-        with torch.profiler.record_function("adam and ema"):
+        with span("adam and ema"):
             scheduled_step(opt, learning_rate, step)
             # TF-style EMA with the num_updates ramp (tf.train.ExponentialMovingAverage,
             # train.py:101-102), in float32 as the JAX step computes it.

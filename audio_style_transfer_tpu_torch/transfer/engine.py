@@ -31,6 +31,7 @@ from audio_style_transfer_tpu_torch.transfer.losses import (
     transfer_loss,
 )
 from audio_style_transfer_tpu_torch.utils.audio_io import load_audio, write_wav
+from audio_style_transfer_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -291,10 +292,6 @@ class StyleTransfer:
 
         style_audio_full, _ = load_audio(target, sr=spec.sr, audio_channel=audio_channel)
         source_audio_full, _ = load_audio(source, sr=spec.sr, audio_channel=audio_channel)
-        phi_t = self.get_style_phi(style_audio_full, show_mat=spec.write_artifacts,
-                                   figdir=spec.figdir)
-        phi_s = self.get_style_phi(source_audio_full)
-
         aud, _ = load_audio(cont_file, sr=spec.sr, audio_channel=audio_channel)
         st = max(int(start * spec.sr - late), 0)
         if st + spec.batch_size > len(aud):
@@ -314,15 +311,19 @@ class StyleTransfer:
             write_wav(saves, style_aud[late:-late], sr=spec.sr)
             plotstft(saves, plotpath=os.path.join(spec.figdir, "style-spec.png"))
 
-        phi_c = self.get_embeds(aud)
-        phi = self.get_embeds(aud, is_content=False)
-        if spec.write_artifacts:
-            from audio_style_transfer_tpu_torch.analysis.viz import show_gram
+        with span("transfer.targets"):
+            phi_t = self.get_style_phi(style_audio_full, show_mat=spec.write_artifacts,
+                                       figdir=spec.figdir)
+            phi_s = self.get_style_phi(source_audio_full)
+            phi_c = self.get_embeds(aud)
+            phi = self.get_embeds(aud, is_content=False)
+            if spec.write_artifacts:
+                from audio_style_transfer_tpu_torch.analysis.viz import show_gram
 
-            show_gram(phi, ep=0, figdir=spec.figdir, gatys=spec.gatys)
+                show_gram(phi, ep=0, figdir=spec.figdir, gatys=spec.gatys)
 
-        # The gram-translation trick (methods.py:211-212).
-        phi = l2_normalize(torch.as_tensor(phi + phi_t - phi_s), axes=(1, 2)).numpy()
+            # The gram-translation trick (methods.py:211-212).
+            phi = l2_normalize(torch.as_tensor(phi + phi_t - phi_s), axes=(1, 2)).numpy()
 
         result = self.optimize(phi_c, phi, epochs=epochs)
         for ep in range(result["epochs_done"]):

@@ -9,6 +9,12 @@ the control flow (f, the directional derivatives, the step) are float32
 ones do. Each evaluation therefore synchronises with the device once or
 twice; removing those syncs is later work.
 
+Every read of a device value on the host goes through ``_host``. Under a
+``torch.profiler`` capture the call is one ``lbfgs.minimize`` span, each
+call of the objective one ``lbfgs.eval`` span and each host read one
+``lbfgs.host_read`` span (``utils/profiling.py::span``), so the count of
+host reads is the count of the optimizer's syncs with the device.
+
 ``line_search="mt"`` (the default, as in JAX) is MINPACK's dcsrch/dcstep, the
 search inside SciPy's L-BFGS-B; ``"zoom"`` is the plainer bracketing search
 the transfer engine runs. The JAX versions compute every branch and select;
@@ -27,6 +33,8 @@ from typing import Callable, NamedTuple
 
 import torch
 import torch.distributed as dist
+
+from audio_style_transfer_tpu_torch.utils.profiling import span
 
 _F32 = torch.float32
 
@@ -73,9 +81,10 @@ class LBFGSResult(NamedTuple):
     aux: object = None  # has_aux=True: the objective's aux at x0
 
 
-def _host(v: torch.Tensor) -> torch.Tensor:
-    """A float32 0-d host copy of a scalar tensor (one device sync)."""
-    return v.detach().to("cpu", _F32).reshape(())
+def _host(v: torch.Tensor, dtype: torch.dtype = _F32) -> torch.Tensor:
+    """A 0-d host copy of a scalar tensor in ``dtype`` (one device sync)."""
+    with span("lbfgs.host_read"):
+        return v.detach().to("cpu", dtype).reshape(())
 
 
 def _scalar(v: float) -> torch.Tensor:
@@ -375,23 +384,24 @@ def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
     """
     if opts.line_search not in ("mt", "zoom"):
         raise ValueError(f"line_search must be 'mt' or 'zoom', got {opts.line_search!r}")
+    with span("lbfgs.minimize"):
+        return _minimize(value_and_grad, x0, opts, history, return_history, has_aux, group)
+
+
+def _minimize(value_and_grad, x0, opts, history, return_history, has_aux, group):
+    """``lbfgs_minimize``'s body, inside its ``lbfgs.minimize`` span."""
     search = _mt_line_search if opts.line_search == "mt" else _wolfe_line_search
     m = opts.memory
     dtype, dev = x0.dtype, x0.device
 
     def vg(x):
-        if has_aux:
-            (f, _), g = value_and_grad(x)
-        else:
-            f, g = value_and_grad(x)
-        return _host(f), g.to(dtype)
+        """(f on the host, g, aux or None) at x."""
+        with span("lbfgs.eval"):
+            out = value_and_grad(x)
+        (f, aux), g = out if has_aux else ((out[0], None), out[1])
+        return _host(f), g.to(dtype), aux
 
-    if has_aux:
-        (f0, aux0), g0 = value_and_grad(x0)
-        f0, g0 = _host(f0), g0.to(dtype)
-    else:
-        f0, g0 = vg(x0)
-        aux0 = None
+    f0, g0, aux0 = vg(x0)
 
     if history is None:
         s_hist = torch.zeros((m,) + tuple(x0.shape), dtype=dtype, device=dev)
@@ -423,7 +433,7 @@ def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
                 _scalar(1.0), 1.0 / _host(_over_ranks(torch.sum(torch.abs(g)), group)))
 
         def vg_1d(a, x=x, d=d):
-            fa, ga = vg(x + a * d)
+            fa, ga, _ = vg(x + a * d)
             return fa, _host(_ip(ga, d, group)), ga
 
         a, f_new, g_new, ls_evals, ok = search(vg_1d, f, g, dphi0, a_init, opts)
@@ -447,8 +457,8 @@ def lbfgs_minimize(value_and_grad: Callable, x0: torch.Tensor,
             rho = torch.zeros_like(rho)
             count, gamma = 0, _scalar(1.0)
 
-        gtol_hit = bool(_over_ranks(torch.max(torch.abs(g_new)), group, dist.ReduceOp.MAX)
-                        <= opts.gtol)
+        g_max = _over_ranks(torch.max(torch.abs(g_new)), group, dist.ReduceOp.MAX)
+        gtol_hit = bool(_host(g_max <= opts.gtol, torch.bool))
         ftol_tick = bool((f - f_new) <= opts.ftol * torch.clamp(
             torch.maximum(torch.abs(f), torch.abs(f_new)), min=1.0))
         ftol_strikes = ftol_strikes + 1 if (ftol_tick and ok) else 0

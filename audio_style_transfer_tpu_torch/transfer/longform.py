@@ -35,6 +35,7 @@ from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law_numpy, mu_la
 from audio_style_transfer_tpu_torch.transfer.engine import StyleTransfer
 from audio_style_transfer_tpu_torch.transfer.grams import l2_normalize, style_gram
 from audio_style_transfer_tpu_torch.transfer.losses import transfer_embeds
+from audio_style_transfer_tpu_torch.utils.profiling import span
 
 
 @torch.no_grad()
@@ -96,21 +97,17 @@ def transfer_longform(
     window = engine.spec.batch_size
     windows = chunk_audio(content_audio, window)
     k = windows.shape[0]
-
-    # Shared style statistics (chunk-averaged, methods.py:97-111).
-    phi_t = engine.get_style_phi(style_audio, max_examples=max_style_examples)
-    phi_s = engine.get_style_phi(content_audio, max_examples=max_style_examples)
-
-    if ot_components is not None:
-        phi_t = _ot_transform_gram(engine, style_audio, content_audio,
-                                   phi_t, ot_components, blend=ot_blend)
-
-    # Per-window content embeds and translated style targets stay on the
-    # device between here and the optimizer.
     to_dev = engine._tensor
-    phi_cs, phis = _window_targets(engine.params, to_dev(mu_law_numpy(windows)),
-                                   to_dev(phi_t), to_dev(phi_s), engine.cfg,
-                                   engine.loss_spec)
+    with span("transfer.targets"):
+        # Shared style statistics (chunk-averaged, methods.py:97-111),
+        # OT-corrected when asked.
+        phi_t, phi_s = _style_phi(engine, content_audio, style_audio, max_style_examples,
+                                  ot_components, ot_blend)
+        # Per-window content embeds and translated style targets stay on the
+        # device between here and the optimizer.
+        phi_cs, phis = _window_targets(engine.params, to_dev(mu_law_numpy(windows)),
+                                       to_dev(phi_t), to_dev(phi_s), engine.cfg,
+                                       engine.loss_spec)
     if mesh is None:
         result = engine.optimize_batch(phi_cs, phis, epochs=epochs)
     else:
@@ -290,19 +287,19 @@ def transfer_exact(
         t_total = t_valid
     content = np.pad(content_audio[:t_valid], (0, t_total - t_valid))
 
-    phi_t, phi_s = _exact_style_phi(engine, content_audio, style_audio, max_style_examples,
-                                    ot_components, ot_blend)
     geometry = (engine.cfg, engine.loss_spec, t_total, scan_window, t_valid)
     embeds_fn = make_scan_exact_embeds_fn(*geometry)
     value_and_grad = make_scan_exact_value_and_grad_fn(*geometry)
-
-    # Full-sequence content targets through one exact encoder pass.
     to_dev = engine._tensor
-    with torch.no_grad():
-        phi_c, phi_full = embeds_fn(engine.params, to_dev(mu_law_numpy(content[None])))
-        phi_c = phi_c.to(torch.float32)
-        phi = l2_normalize(phi_full.to(torch.float32) + to_dev(phi_t) - to_dev(phi_s),
-                           axes=(1, 2))
+    with span("transfer.targets"):
+        phi_t, phi_s = _style_phi(engine, content_audio, style_audio, max_style_examples,
+                                  ot_components, ot_blend)
+        # Full-sequence content targets through one exact encoder pass.
+        with torch.no_grad():
+            phi_c, phi_full = embeds_fn(engine.params, to_dev(mu_law_numpy(content[None])))
+            phi_c = phi_c.to(torch.float32)
+            phi = l2_normalize(phi_full.to(torch.float32) + to_dev(phi_t) - to_dev(phi_s),
+                               axes=(1, 2))
 
     def vg(x):
         loss, g = value_and_grad(engine.params, x[None, :], phi_c, phi)
@@ -344,8 +341,8 @@ def _exact_result(x_np, t_valid: int, metrics, evals) -> LongformResult:
     )
 
 
-def _exact_style_phi(engine, content_audio, style_audio, max_style_examples, ot_components,
-                     ot_blend):
+def _style_phi(engine, content_audio, style_audio, max_style_examples, ot_components,
+               ot_blend):
     """(phi_t, phi_s): the chunk-averaged style statistics of the style and
     the content clip (reference methods.py:97-111), phi_t OT-corrected when
     asked."""
@@ -374,20 +371,20 @@ def _transfer_exact_sharded(engine, content_audio, style_audio, mesh, epochs: in
     if t_total == 0:
         raise ValueError(f"content ({len(content_audio)} samples) shorter than one "
                          f"{quantum}-sample quantum")
-    phi_t, phi_s = _exact_style_phi(engine, content_audio, style_audio, max_style_examples,
-                                    ot_components, ot_blend)
     embeds_fn = make_sharded_embeds_fn(engine.cfg, engine.loss_spec, mesh, axis)
     loss_fn = make_sharded_loss_fn(engine.cfg, engine.loss_spec, mesh, axis)
-
-    # The rank's content targets and the global gram through one sharded pass.
     to_dev = engine._tensor
     chunk = shard_rows(mesh, mu_law_numpy(content_audio[None, :t_total]), axis, dim=1)
-    with torch.no_grad():
-        phi_c, phi_full = embeds_fn(engine.params, to_dev(chunk))
-        phi_c = phi_c.to(torch.float32)
-        phi = l2_normalize(phi_full.to(torch.float32) + to_dev(phi_t) - to_dev(phi_s),
-                           axes=(1, 2))
-    replicate(mesh, [phi], axis)
+    with span("transfer.targets"):
+        phi_t, phi_s = _style_phi(engine, content_audio, style_audio, max_style_examples,
+                                  ot_components, ot_blend)
+        # The rank's content targets and the global gram through one sharded pass.
+        with torch.no_grad():
+            phi_c, phi_full = embeds_fn(engine.params, to_dev(chunk))
+            phi_c = phi_c.to(torch.float32)
+            phi = l2_normalize(phi_full.to(torch.float32) + to_dev(phi_t) - to_dev(phi_s),
+                               axes=(1, 2))
+        replicate(mesh, [phi], axis)
 
     def vg(x):
         xv = x[None, :].detach().requires_grad_(True)

@@ -1,11 +1,13 @@
-"""Phase timing, device traces and scalar metrics (counterpart of
+"""Spans, device traces and scalar metrics (counterpart of
 audio_style_transfer_tpu/utils/profiling.py).
 
 The reference has no tracing at all: wall-clock prints in the L-BFGS
 callback (reference methods.py:151-155) and TensorBoard scalars
 (methods.py:127-130). This module provides:
 
-* ``phase(name)``: nested wall-clock phase timing with a report;
+* ``span(name)``: a named range of the program, recorded on the
+  profiler's clock while a capture runs and free of cost otherwise (the
+  names and the metrics that read them: PERF.md, section 3);
 * ``device_trace(logdir)``: a ``torch.profiler`` capture of the host and,
   where a CUDA device is present, the device, written to ``logdir`` as a
   Chrome trace (chrome://tracing, Perfetto, TensorBoard's profile plugin);
@@ -24,48 +26,28 @@ import contextlib
 import json
 import os
 import time
-from collections import defaultdict
+
+from torch._C._autograd import _profiler_enabled
+from torch.profiler import record_function
+
+# One object for every span while no capture is running: entering it does
+# nothing and allocates nothing.
+_OFF = contextlib.nullcontext()
 
 
-class PhaseTimer:
-    """Nested wall-clock phase accounting."""
+def span(name: str):
+    """A named range of the program on the ``torch.profiler`` clock.
 
-    def __init__(self):
-        self.totals: dict[str, float] = defaultdict(float)
-        self.counts: dict[str, int] = defaultdict(int)
-        self._stack: list[str] = []
+    Inside a capture (``device_trace``, or any ``torch.profiler.profile``)
+    this is ``record_function(name)``: the range lands in the trace as a
+    ``user_annotation`` event on the clock of the CUDA kernels and runtime
+    calls, so device time and idle gaps can be put down to it. Outside one
+    it costs one check of the profiler's state and nothing else::
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        full = "/".join(self._stack + [name])
-        self._stack.append(name)
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self._stack.pop()
-            self.totals[full] += time.perf_counter() - t0
-            self.counts[full] += 1
-
-    def report(self) -> str:
-        lines = ["phase timings:"]
-        for name in sorted(self.totals):
-            lines.append(
-                f"  {name}: {self.totals[name]:.3f}s over {self.counts[name]} call(s)"
-            )
-        return "\n".join(lines)
-
-
-_GLOBAL_TIMER = PhaseTimer()
-
-
-def phase(name: str):
-    """Global convenience: ``with profiling.phase('style_phi'): ...``."""
-    return _GLOBAL_TIMER.phase(name)
-
-
-def report() -> str:
-    return _GLOBAL_TIMER.report()
+        with span("lbfgs.eval"):
+            f, g = value_and_grad(x)
+    """
+    return record_function(name) if _profiler_enabled() else _OFF
 
 
 @contextlib.contextmanager

@@ -13,7 +13,6 @@ rows in another order, then an l2 normalisation); inverse-specgram audio to
 import glob
 import json
 import os
-import time
 
 import jax
 import jax.numpy as jnp
@@ -26,19 +25,6 @@ from audio_style_transfer_tpu.analysis import summaries as jsum
 from audio_style_transfer_tpu.utils import profiling as jprof
 from audio_style_transfer_tpu_torch.analysis import summaries as tsum
 from audio_style_transfer_tpu_torch.utils import profiling as tprof
-
-
-def test_phase_timer_nesting_and_global_report():
-    t = tprof.PhaseTimer()
-    with t.phase("outer"):
-        with t.phase("inner"):
-            time.sleep(0.01)
-    assert set(t.totals) == {"outer", "outer/inner"}
-    assert t.totals["outer"] >= t.totals["outer/inner"] >= 0.01
-    assert t.counts["outer/inner"] == 1 and "outer/inner" in t.report()
-    with tprof.phase("sidecar-test"):
-        pass
-    assert "sidecar-test" in tprof.report()
 
 
 def test_metrics_logger_writes_what_jax_s_does(tmp_path):
