@@ -9,9 +9,12 @@ with the TF scope names of the JAX package, so weights cross over unchanged
   [30]     ``enc_``, an alias of extracts[29],
   [31]     the bottleneck conv output before hop pooling.
 
-``decode_logits`` is plain torch (the JAX package leaves the decoder to XLA):
-the causal dilated convs of ``ops.conv.conv1d``. It is the oracle of the
-incremental decoder in generate/fastgen.py and the decoder of training. With
+``decode_logits`` runs the causal dilated convs of ``ops.conv.conv1d`` (the
+JAX package leaves the decoder to XLA); on CUDA tensors each block's
+elementwise epilogues (biases, conditioning, gate, residual and skip adds)
+are the fused kernels of ``ops.decoder``, on CPU tensors plain torch. It is
+the oracle of the incremental decoder in generate/fastgen.py and the decoder
+of training. With
 ``cfg.remat`` each decoder block runs under ``torch.utils.checkpoint``, so a
 backward keeps only each block's inputs ``(l, s)`` and recomputes the gated
 [B, T, 2 * width] internals (JAX: ``jax.checkpoint``). The encoder needs no
@@ -42,6 +45,7 @@ from audio_style_transfer_tpu_torch.ops.chain import (
     window_rows,
 )
 from audio_style_transfer_tpu_torch.ops.conv import condition, conv1d, pool1d, shift_right
+from audio_style_transfer_tpu_torch.ops.decoder import decoder_gate, decoder_residual
 from audio_style_transfer_tpu_torch.ops.encoder import fused_encoder_block
 from audio_style_transfer_tpu_torch.signal.mu_law import mu_law
 
@@ -227,9 +231,9 @@ def encoder_features(params: Params, x_quantized: torch.Tensor,
     return {"extracts": extracts, "encoding": encoding, "before_enc": extracts[-2]}
 
 
-def _decoder_block(cfg: WaveNetAEConfig, i: int, l, s, p_dil, p_cond, p_res, p_skip,
-                   encoding):
-    """Decoder block i (1-based, reference model.py:148-177): (l, s) -> (l, s)."""
+def _plain_decoder_block(cfg: WaveNetAEConfig, i: int, l, s, p_dil, p_cond, p_res, p_skip,
+                         encoding):
+    """Decoder block i in plain torch, the block of CPU tensors."""
     dtype = cfg.compute_dtype
 
     def apply(p, x, dilation=1):
@@ -240,6 +244,34 @@ def _decoder_block(cfg: WaveNetAEConfig, i: int, l, s, p_dil, p_cond, p_res, p_s
     m = d.shape[2] // 2
     d = torch.sigmoid(d[:, :, :m]) * torch.tanh(d[:, :, m:])
     return l + apply(p_res, d), s + apply(p_skip, d)
+
+
+def _fused_decoder_block(cfg: WaveNetAEConfig, i: int, l, s, p_dil, p_cond, p_res, p_skip,
+                         encoding):
+    """Decoder block i with its elementwise epilogues fused (ops/decoder.py):
+    the same four products, without their biases, which the gate and the
+    residual add. The same values as the plain block, bit for bit in the
+    forward."""
+    dtype = cfg.compute_dtype
+
+    def w(p):
+        return p["w"].to(dtype)
+
+    def b(p):
+        return p["b"].to(dtype)
+
+    y = conv1d(l, w(p_dil), dilation=cfg.dilation(i - 1), causal=True)
+    gated = decoder_gate(y, conv1d(encoding, w(p_cond)), b(p_dil), b(p_cond))
+    return decoder_residual(l, s, conv1d(gated, w(p_res)), conv1d(gated, w(p_skip)), b(p_res),
+                            b(p_skip))
+
+
+def _decoder_block(cfg: WaveNetAEConfig, i: int, l, s, p_dil, p_cond, p_res, p_skip,
+                   encoding):
+    """Decoder block i (1-based, reference model.py:148-177): (l, s) -> (l, s).
+    CUDA tensors take the fused kernels, CPU tensors the plain block."""
+    block = _fused_decoder_block if l.is_cuda else _plain_decoder_block
+    return block(cfg, i, l, s, p_dil, p_cond, p_res, p_skip, encoding)
 
 
 def decode_logits(params: Params, x_quantized: torch.Tensor, encoding: torch.Tensor,

@@ -63,18 +63,23 @@ class _MergedTapsConv(torch.autograd.Function):
     by side, [B*T, F*Cin] @ [F*Cin, Cout]. Each gradient is one product too:
     dw = xs^T @ g, and dx[t] = sum_k g[t - o_k] @ w[k]^T as
     [B*T, F*Cout] @ [F*Cout, Cin]. Every product sums in float32 and rounds
-    once to the operands' type (reduced-precision split-K off)."""
+    once to the operands' type (reduced-precision split-K off). An output
+    that reaches no loss (the last decoder block's residual) gets no
+    gradient and runs no product."""
 
     @staticmethod
     def forward(ctx, x, w, offsets):
         xs = _side_by_side(x, offsets)
         ctx.save_for_backward(xs, w)  # as autograd would keep it for xs @ w
         ctx.offsets = offsets
+        ctx.set_materialize_grads(False)
         with _float32_reduction():
             return xs @ w.reshape(-1, w.shape[-1])
 
     @staticmethod
     def backward(ctx, g):
+        if g is None:
+            return None, None, None
         xs, w = ctx.saved_tensors
         f, cin, cout = w.shape
         dx = dw = None

@@ -23,7 +23,6 @@ partial sum and K6's time rows per block.
 from __future__ import annotations
 
 import ctypes
-import functools
 
 import torch
 
@@ -70,11 +69,6 @@ def bwd_block_rows(b: int, t: int, c: int, nl: int, sms: int) -> int:
     return max(-(-rows // BWD_STEP) * BWD_STEP, MIN_ROWS)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def pair_gram_reference(*taps: torch.Tensor) -> torch.Tensor:
     """Plain version: float32 einsum over the stacked taps -> [B, L, L, C]."""
     stacked = torch.stack([t.to(torch.float32) for t in taps], dim=1)
@@ -110,7 +104,7 @@ def pair_gram_fwd(*taps: torch.Tensor) -> torch.Tensor:
     nl = len(taps)
     b, t, c = taps[0].shape
     dev = taps[0].device
-    rows = fwd_chunk_rows(b, t, c, _sm_count(dev.index))
+    rows = fwd_chunk_rows(b, t, c, _build.sm_count(dev.index))
     partial = torch.empty(fwd_scratch_shape(b, t, c, nl, rows), dtype=torch.float32, device=dev)
     out = torch.empty((b, nl, nl, c), dtype=torch.float32, device=dev)
     ptrs = (ctypes.c_void_p * nl)(*[tp.data_ptr() for tp in taps])
@@ -157,7 +151,7 @@ def pair_gram_bwd(taps, h: torch.Tensor):
     tap_ptrs = (ctypes.c_void_p * nl)(*[tp.data_ptr() for tp in taps])
     out_ptrs = (ctypes.c_void_p * nl)(*[o.data_ptr() for o in outs])
     status = _build.lib().ast_pair_gram_bwd(
-        tap_ptrs, out_ptrs, nl, b, t, c, bwd_block_rows(b, t, c, nl, _sm_count(dev.index)),
+        tap_ptrs, out_ptrs, nl, b, t, c, bwd_block_rows(b, t, c, nl, _build.sm_count(dev.index)),
         int(taps[0].dtype == torch.bfloat16), h.data_ptr(), _build.stream_ptr(dev))
     _build.check(status, "ast_pair_gram_bwd")
     _build.LAUNCHES["K6"] += 1

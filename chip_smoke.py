@@ -33,7 +33,10 @@ Phases (any failure raises and exits non-zero):
      edge windows and with none and on the single window's 237568 rows, K5
      and K6 on the scan's cropped 32768-row gram and the single window's,
      K7f and K7b on the per-layer scan's 24576-row window with its two edge
-     windows and with none;
+     windows and with none; the decoder block's four epilogue kernels
+     (ops/decoder.py) at the training step's 32 x 6144 rows against their
+     plain versions (the forwards bit for bit), each timed beside its plain
+     version and its bound by bytes;
      then a bare bfloat16 loss+gradient evaluation at stack 0 and at the
      full stack, CUDA events beside the host clock, with the kernel
      launches of one evaluation;
@@ -98,13 +101,15 @@ Phases (any failure raises and exits non-zero):
      and the recompute against plain autograd, each path's time and peak
      memory, and `[train step float32|bfloat16]` TrainConfig()'s
      step (32 x 6144, remat on): 10 steps on one batch, the loss falling,
-     exactly {K1: 30, K2: 30} launches per step, ms per step against the
+     exactly STEP_LAUNCHES per step (K1 and K2 30 each, the decoder's gate
+     forward 60, the rest of its epilogue kernels 30), ms per step against the
      bound of its operations, samples/s, peak memory, and one step's split
      under torch.profiler (device time by kind, the trunk's weight
      recompute, Adam and the EMA; the busy share); `[train fit]` ``fit``
      over a synthetic TFRecord of 64000-sample examples through the native
      reader (a full group of steps and a partial one), save -> restore bit
-     for bit, an EMA ``evaluate`` {K1: 30, K2: 0}; `[train cli]`
+     for bit, an EMA ``evaluate`` {K1: 30, gate_fwd: 30, residual_fwd: 30,
+     the rest 0}; `[train cli]`
      cli/train.py as a subprocess for 3 iterations, its launches counted;
      then data parallelism and clip sharding (parallel/mesh.py):
      `[dp train nccl, world 1]` ``Trainer(mesh=make_mesh(1))`` over NCCL,
@@ -117,12 +122,13 @@ Phases (any failure raises and exits non-zero):
      ms per evaluation, peak memory, every launch accounted for), and `[tp
      decoder nccl, world 1]` ``tp_decode_logits`` at full width on 4 x 6144
      f32 against ``decode_logits`` (logits, NLL, every weight's gradient,
-     ms; no hand-written kernel launched); then one
+     ms; the reference launches the decoder's epilogue kernels, the tensor-
+     parallel pass no hand-written kernel); then one
      spawned group of 2 ranks sharing the card over gloo (NCCL takes one
      card per rank), each phase against this process's single-rank run:
      `[dp train gloo, 2 ranks on one card]` 3 f32 steps at full width on a
      global batch of 4 x 2048 (losses, the weights after step 1, both ranks
-     bit for bit, {K1: 30, K2: 30} per rank per step), `[clip sharded]`
+     bit for bit, STEP_LAUNCHES per rank per step), `[clip sharded]`
      ``optimize_batch(mesh=)`` of 8 clips at T=16384 (stack 0, bf16, 2
      epochs of maxiter 20; aggregate evals/s both ways), `[longform
      sharded]` ``transfer_longform(mesh=, windows_per_device=1)`` on the
@@ -207,7 +213,16 @@ TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # Mask bytes can differ only where a value within rounding of zero changes
 # sign; allowed share of differing bytes per layer.
 MASK_TOL = 1e-4
-KERNELS = ("K1", "K2", "K2wf", "K5", "K6", "K7f", "K7b")
+KERNELS = ("K1", "K2", "K2wf", "K5", "K6", "K7f", "K7b",
+           "gate_fwd", "gate_bwd", "residual_fwd", "residual_bwd")
+# The decoder's fused epilogues (ops/decoder.py) in one remat training step of
+# its 30 blocks: the gate in the forward and the re-forward, the residual in
+# the forward alone (the re-forward stops at the last tensor the backward
+# keeps, the gated input of the res and skip products), each backward once.
+DECODER_LAYERS = 30
+STEP_LAUNCHES = {"K1": LAYERS, "K2": LAYERS, "gate_fwd": 2 * DECODER_LAYERS,
+                 "gate_bwd": DECODER_LAYERS, "residual_fwd": DECODER_LAYERS,
+                 "residual_bwd": DECODER_LAYERS}
 # Published peaks of one H100 SXM: device memory rate, and dense operation
 # rates by the type of the inputs (float32 outside the tensor cores).
 PEAK_BYTES_S = 3.35e12
@@ -956,6 +971,104 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
                     **windowed.get(k, {})) for k in errs}
 
 
+# The decoder block's epilogues at the training step's shape: 32 x 6144 rows,
+# 12 hop frames a clip, width 512 (the gate's y is [rows, 1024]), skip 256.
+DECODER_SHAPE = (32, 6144, 12)
+DECODER_M, DECODER_SKIP = 512, 256
+# Gate backward's float32 sums (dc, the biases' gradients) against the plain
+# version's: the same rounded dz summed in another order; over the largest.
+DECODER_SUM_TOL = 1e-4
+
+
+def decoder_kernel_phase(dtype_name: str, dev) -> dict:
+    """The decoder block's four epilogue kernels (ops/decoder.py) at the
+    training step's shape against their plain versions on the card: the
+    forwards bit for bit, the gate backward's dz within one rounding of the
+    tensors' type, its dc and the biases' column sums within
+    DECODER_SUM_TOL; each kernel and its plain version timed as a replayed
+    CUDA graph. Bound: the bytes each must move (its arithmetic is a few
+    operations an element) over the memory rate. dz: the kernel's 1 - tanh^2
+    is one fused multiply-add where the plain version rounds twice, so bf16
+    holds element by element and float32 by TOL over the largest entry."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import decoder
+
+    dt = getattr(torch, dtype_name)
+    b, t, frames = DECODER_SHAPE
+    m, sk, rows = DECODER_M, DECODER_SKIP, b * t
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dt)
+
+    y, c, dg = rand(b, t, 2 * m, scale=2.0), rand(b, frames, 2 * m), rand(b, t, m)
+    bd, bc = rand(2 * m, scale=0.3), rand(2 * m, scale=0.3)
+    l, r, s, k = rand(b, t, m), rand(b, t, m), rand(b, t, sk), rand(b, t, sk)
+    br, bs = rand(m, scale=0.3), rand(sk, scale=0.3)
+    item = y.element_size()
+    cases = {  # name: (kernel, plain version, bytes it must move)
+        "gate_fwd": (lambda: decoder.gate_fwd(y, c, bd, bc),
+                     lambda: decoder.gate_fwd_plain(y, c, bd, bc),
+                     item * (rows * 3 * m + b * frames * 2 * m + 4 * m)),
+        "gate_bwd": (lambda: decoder.gate_bwd(y, c, bd, bc, dg),
+                     lambda: decoder.gate_bwd_plain(y, c, bd, bc, dg),
+                     item * (rows * 5 * m + b * frames * 2 * m + 4 * m) + 4 * b * frames * 2 * m),
+        "residual_fwd": (lambda: decoder.residual_fwd(l, s, r, k, br, bs),
+                         lambda: decoder.residual_fwd_plain(l, s, r, k, br, bs),
+                         item * (rows * 3 * (m + sk) + m + sk)),
+        "residual_bwd": (lambda: decoder.residual_bwd(l, s),
+                         lambda: decoder.residual_bwd_plain(l, s),
+                         item * rows * (m + sk) + 4 * (m + sk)),
+    }
+    out = {}
+    print(f"[decoder kernels {dtype_name}] {b} x {t} rows, {frames} frames a clip, m {m}, "
+          f"skip {sk}")
+    for name, (kernel, plain, nbytes) in cases.items():
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if name.endswith("_fwd"):
+            pairs = [(got, want)] if name == "gate_fwd" else list(zip(got, want))
+            if not all(torch.equal(a, w) for a, w in pairs):
+                diff = [float((a.float() - w.float()).abs().max()) for a, w in pairs]
+                raise AssertionError(f"[decoder kernels {dtype_name}] {name}: not bit for bit "
+                                     f"its plain version (max|d| {diff})")
+            err, note = 0.0, "bit for bit"
+        elif name == "gate_bwd":
+            (dz, dc), (dz_p, dc_p) = got, want
+            # One bf16 step is at most 2^-7 of the value; float32: a few of its steps.
+            dz_err, dz_rel = rel_err(dz, dz_p)
+            dz_share = float((dz != dz_p).float().mean())
+            far = 0
+            if dt == torch.bfloat16:  # beyond one bf16 step, at most 2^-7 of the value
+                far = int(((dz.float() - dz_p.float()).abs() > 2.0 ** -7 * dz_p.float().abs())
+                          .sum())
+            sums = [rel_err(dc, dc_p)[1], rel_err(dc.sum((0, 1)), dc_p.sum((0, 1)))[1]]
+            if far or dz_rel > TOL[dtype_name] or max(sums) > DECODER_SUM_TOL:
+                raise AssertionError(f"[decoder kernels {dtype_name}] gate_bwd: dz rel {dz_rel}, "
+                                     f"{far} beyond one bf16 step; dc / db rel {sums}")
+            err = dz_err
+            note = (f"dz {dz_share:.2e} of elements differ (max|d| {dz_err:.3e}, rel "
+                    f"{dz_rel:.2e}, tol {TOL[dtype_name]:.0e}; bf16: none beyond one step); dc "
+                    f"rel {sums[0]:.2e}, db rel {sums[1]:.2e} (tol {DECODER_SUM_TOL:.0e})")
+        else:
+            sums = [rel_err(a, w)[1] for a, w in zip(got, want)]
+            if max(sums) > DECODER_SUM_TOL:
+                raise AssertionError(f"[decoder kernels {dtype_name}] residual_bwd: rel {sums}")
+            err = max(rel_err(a, w)[0] for a, w in zip(got, want))
+            note = f"db_res rel {sums[0]:.2e}, db_skip rel {sums[1]:.2e}"
+        del got, want
+        ms = cuda_ms(kernel, graph=True)
+        plain_ms = cuda_ms(plain, graph=True)
+        bnd = bound(nbytes, 0.0, dtype_name)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, fma_ms=None,
+                         library_ms=None, **bnd)
+        print(f"  {name}: {note} ok; kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
+              f"({nbytes / 1e6:.0f} MB, {bnd['bound_ms'] / ms:.1%} of it), plain {plain_ms:.4f} ms")
+        torch.cuda.empty_cache()
+    return out
+
+
 def slice_phase(params, dev, style_ids, cont_ids) -> None:
     """One float32 loss + waveform gradient at full geometry: kernels on the
     card against the plain versions on the CPU."""
@@ -1639,9 +1752,9 @@ def exact_phase(dev, label: str, scan_window):
     # statistics of the style clip (2 engine windows) and the content clip
     # (5), and the exact targets (every window once).
     passes = 2 if scan else 1
-    want = {"K1": LAYERS * (passes * n_win * evals + 7 + n_win),
-            "K2": LAYERS * n_win * evals, "K2wf": 0,
-            "K5": passes * n_win * evals + 7 + n_win, "K6": n_win * evals, "K7f": 0, "K7b": 0}
+    want = {k: 0 for k in KERNELS}
+    want.update(K1=LAYERS * (passes * n_win * evals + 7 + n_win), K2=LAYERS * n_win * evals,
+                K5=passes * n_win * evals + 7 + n_win, K6=n_win * evals)
     if launches != want:
         raise AssertionError(f"{label}: launches {launches} for {evals} evaluations over "
                              f"{n_win} windows, expected {want}")
@@ -2399,9 +2512,9 @@ def train_trunk_phase(dev, dtype_name: str) -> dict:
 def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
     """(b) TrainConfig()'s step, 32 x 6144 samples, remat on, in float32 (the
     JAX default) or bfloat16 (compute_dtype: the tensor-core K1/K2, the
-    decoder's bf16 products): one warm-up step, then steps timed by the host
-    clock around each with a synchronize; exactly {K1: 30, K2: 30} launches
-    per step; the loss falling over TRAIN_STEPS steps on one batch; peak
+    decoder's bf16 products, its fused epilogues): one warm-up step, then
+    steps timed by the host clock around each with a synchronize; exactly
+    STEP_LAUNCHES per step; the loss falling over TRAIN_STEPS steps on one batch; peak
     memory; the split of one more step by torch.profiler."""
     import torch
 
@@ -2417,8 +2530,7 @@ def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
     st = tr.init_state()
     wav = torch.from_numpy(train_batch(TRAIN_SHAPE, 2)).to(dev)
     losses, ms, peaks = [], [], []
-    want = {k: 0 for k in KERNELS}
-    want.update(K1=LAYERS, K2=LAYERS)
+    want = {k: STEP_LAUNCHES.get(k, 0) for k in KERNELS}
     totals = {k: 0 for k in KERNELS}
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2431,7 +2543,7 @@ def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
         peaks.append(torch.cuda.max_memory_allocated(dev) / 1e9)
         if dict(_build.LAUNCHES) != want:
             raise AssertionError(f"[{label}] step {i} launched {dict(_build.LAUNCHES)}, want "
-                                 "K1 30, K2 30 and nothing else")
+                                 f"{STEP_LAUNCHES} and nothing else")
         for k, v in _build.LAUNCHES.items():
             totals[k] += v
         losses.append(float(loss))
@@ -2445,7 +2557,7 @@ def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
     busy = split["busy_ms"] / split["wall_ms"]
     print(f"[{label}] {b} x {t} samples, remat on, full width: {TRAIN_STEPS} steps on one "
           f"batch, losses {[round(v, 4) for v in losses]} (falling ok); launches per step "
-          f"{{K1: {LAYERS}, K2: {LAYERS}}}, the rest 0, every step ok")
+          f"{STEP_LAUNCHES}, the rest 0, every step ok")
     print(f"[{label}] step ms {[round(v, 1) for v in timed]} (median {step_ms:.1f}; the first, "
           f"with warm-up, {ms[0]:.1f}); {b * t / step_ms * 1e3:.0f} samples/s; bound "
           f"{bnd['bound_ms']:.1f} ms ({flops / 1e12:.2f} TFLOP over the {dtype_name} peak), "
@@ -2527,11 +2639,12 @@ def train_fit_phase(dev) -> dict:
         ev = dict(_build.LAUNCHES)
         for k, v in ev.items():
             totals[k] += v
-        if ev["K1"] != LAYERS or any(v for k, v in ev.items() if k != "K1") \
-                or not math.isfinite(nll):
+        want = {k: 0 for k in KERNELS}
+        want.update(K1=LAYERS, gate_fwd=DECODER_LAYERS, residual_fwd=DECODER_LAYERS)
+        if ev != want or not math.isfinite(nll):
             raise AssertionError(f"[{label}] evaluate: nll {nll}, launches {ev}")
         print(f"[{label}] EMA evaluate on 8 x {cfg.sample_length}: nll {nll:.4f}, launches "
-              f"K1 {LAYERS}, K2 0 ok")
+              f"K1 {LAYERS}, gate_fwd and residual_fwd {DECODER_LAYERS}, the rest 0 ok")
     return totals
 
 
@@ -2610,14 +2723,13 @@ GLOO_DEADLINE_S = 900.0
 
 
 def _step_launches(label: str, i: int) -> dict:
-    """The launches of one training step, which must be {K1: 30, K2: 30}."""
+    """The launches of one training step, which must be STEP_LAUNCHES."""
     from audio_style_transfer_tpu_torch.ops import _build
 
-    want = {k: 0 for k in KERNELS}
-    want.update(K1=LAYERS, K2=LAYERS)
+    want = {k: STEP_LAUNCHES.get(k, 0) for k in KERNELS}
     if dict(_build.LAUNCHES) != want:
         raise AssertionError(f"[{label}] step {i} launched {dict(_build.LAUNCHES)}, want "
-                             "K1 30, K2 30 and nothing else")
+                             f"{STEP_LAUNCHES} and nothing else")
     return want
 
 
@@ -2667,7 +2779,7 @@ def dp_nccl_phase(dev, smi: str, mesh) -> dict:
     same = torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(w0, w1))
     print(f"[{label}] {backend}, {TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} bf16, {DP_STEPS} steps: "
           f"losses {[round(float(v), 6) for v in l1]}; params and EMA equal mesh=None's bit for "
-          f"bit: {'ok' if same else 'FAIL'}; launches per step {{K1: 30, K2: 30}} ok")
+          f"bit: {'ok' if same else 'FAIL'}; launches per step {STEP_LAUNCHES} ok")
     print(f"[{label}] ms per step (first with warm-up): mesh=None {[round(v, 1) for v in ms0]}, "
           f"make_mesh(1) {[round(v, 1) for v in ms1]}; all-reduce of the {n_weights} gradients "
           f"and the loss ({4 * (n_weights + 1) / 1e6:.1f} MB f32) alone {reduce_ms:.3f} ms "
@@ -2802,7 +2914,7 @@ def gloo_phases(dev, smi: str) -> tuple[dict, dict]:
       against one Trainer on the whole batch: loss per step rel DP_TOL; after
       the first step at most TRAIN_FLIP_SHARE of the params differ by more
       than 1e-6; params and EMA after the last step equal on both ranks bit
-      for bit; {K1: 30, K2: 30} per rank per step;
+      for bit; STEP_LAUNCHES per rank per step;
     - ``optimize_batch(mesh=)`` of CLIP_K clips (T, stack 0, bf16, CLIP_EPOCHS
       epochs of CLIP_MAXITER iterations, no early stop) against ``mesh=None``:
       max|d| stated (0 expected: each clip runs the same code on the same
@@ -2873,7 +2985,7 @@ def gloo_phases(dev, smi: str) -> tuple[dict, dict]:
           f"{learning_rate(0):.0e}), {moved} of {off} differ by more than 1e-6 (<= "
           f"{TRAIN_FLIP_SHARE:.0e} of them); params and EMA after step {DP_STEPS} equal on "
           f"both ranks bit for bit: {'ok' if equal else 'FAIL'}; launches per rank per step "
-          f"{{K1: 30, K2: 30}} ok")
+          f"{STEP_LAUNCHES} ok")
     print(f"[{label}] ms per step (first with warm-up) by rank "
           f"{[[round(float(v), 1) for v in r['dp_ms']] for r in ranks]}, one process on the "
           f"whole batch {[round(v, 1) for v in ref_ms]} ({smi})")
@@ -3155,11 +3267,13 @@ def tp_inputs(dev) -> tuple:
     return params, xq, torch.from_numpy(enc).to(dev)
 
 
-def tp_step(decode, params, xq, enc) -> tuple:
+def tp_step(decode, params, xq, enc, fused: bool) -> tuple:
     """(logits, the NLL, the gradients of params' leaves, median ms) of the NLL
     forward + backward through ``decode(params, xq, enc)``, TP_TIMED passes
     timed after one warm-up; the outputs of the last. Launches of the
-    hand-written kernels: none (the decoder runs ``ops.conv``)."""
+    hand-written kernels: with ``fused`` (``decode_logits``) each of the
+    decoder's four epilogue kernels once a block a pass, else none
+    (``tp_decode_logits`` runs ``ops.conv`` and its own block code)."""
     import torch
 
     from audio_style_transfer_tpu_torch.models.wavenet_ae import nll_loss
@@ -3177,8 +3291,11 @@ def tp_step(decode, params, xq, enc) -> tuple:
         torch.cuda.synchronize()
         if i:
             ms.append((time.perf_counter() - t0) * 1e3)
-    if any(_build.LAUNCHES.values()):
-        raise AssertionError(f"the decoder launched {dict(_build.LAUNCHES)}")
+    per_pass = DECODER_LAYERS * (TP_TIMED + 1) if fused else 0
+    want = {k: per_pass if k in ("gate_fwd", "gate_bwd", "residual_fwd", "residual_bwd") else 0
+            for k in KERNELS}
+    if dict(_build.LAUNCHES) != want:
+        raise AssertionError(f"the decoder launched {dict(_build.LAUNCHES)}, want {want}")
     # The last layer's residual output feeds nothing: res_30 has no gradient.
     grads = [torch.zeros_like(v) if g is None else g.detach() for g, v in zip(grads, leaves)]
     return logits.detach(), float(nll.detach()), grads, float(np.median(ms))
@@ -3219,8 +3336,8 @@ def tp_nccl_phase(dev, smi: str) -> None:
 
     mesh, cfg = make_mesh(1, axis_name="model"), WaveNetAEConfig()
     params, xq, enc = tp_inputs(dev)
-    ref = tp_step(lambda p, x, e: decode_logits(p, x, e, cfg), params, xq, enc)
-    got = tp_step(lambda p, x, e: tp_decode_logits(p, x, e, cfg, mesh), params, xq, enc)
+    ref = tp_step(lambda p, x, e: decode_logits(p, x, e, cfg), params, xq, enc, True)
+    got = tp_step(lambda p, x, e: tp_decode_logits(p, x, e, cfg, mesh), params, xq, enc, False)
     check_tp("tp decoder nccl, world 1", tp_errors(got, ref, params), got[3], ref[3], smi)
     del params, ref, got
     torch.cuda.empty_cache()
@@ -3290,9 +3407,10 @@ def tp_rank(dev) -> dict:
     mesh, cfg = make_mesh(GLOO_RANKS, axis_name="model", device=dev.type, backend="gloo"), \
         WaveNetAEConfig()
     params, xq, enc = tp_inputs(dev)
-    ref = tp_step(lambda p, xx, e: decode_logits(p, xx, e, cfg), params, xq, enc)
+    ref = tp_step(lambda p, xx, e: decode_logits(p, xx, e, cfg), params, xq, enc, True)
     dist.barrier()
-    got = tp_step(lambda p, xx, e: tp_decode_logits(p, xx, e, cfg, mesh), params, xq, enc)
+    got = tp_step(lambda p, xx, e: tp_decode_logits(p, xx, e, cfg, mesh), params, xq, enc,
+                  False)
     err = tp_errors(got, ref, params)
     flat = torch.cat([g.reshape(-1) for g in got[2]])
     mine = flat.clone()
@@ -3956,6 +4074,7 @@ def main() -> int:
     results, exact_shapes = {}, {}
     for dtype_name in ("float32", "bfloat16"):
         results[dtype_name] = kernel_phase(dtype_name, params, dev)
+        results[dtype_name].update(decoder_kernel_phase(dtype_name, dev))
         exact_shapes[dtype_name] = exact_shapes_phase(dtype_name, params, dev)
     slice_phase(params, dev, STYLE, (29,))
     slice_phase(params, dev, FULL, (25,))
@@ -4030,6 +4149,11 @@ def main() -> int:
         "K7b": ("encoder block backward", src + "trunk_mma.cu",
                 "audio_style_transfer_tpu/ops/pallas_encoder.py:288", "K7b"),
     }
+    for k, name in (("gate_fwd", "decoder gate forward"), ("gate_bwd", "decoder gate backward"),
+                    ("residual_fwd", "decoder residual and skip forward"),
+                    ("residual_bwd", "decoder residual and skip backward")):
+        meta[k] = (f"{name}, 32 x 6144", src + "decoder.cu",
+                   "none (XLA fuses these ops in the JAX package)", k)
     kernels = []
     for k, (name, source, replaces, key) in meta.items():
         r = results["bfloat16"][key]

@@ -898,6 +898,164 @@ def test_one_train_step_on_card_matches_cpu(dev):
     assert moved <= 1e-3 * total
 
 
+# --- the decoder block's fused epilogues (ops/decoder.py) ---------------------
+
+# (B, T, frames a clip): the training step's rows; a ragged one (3 clips, 3
+# frames each). Width 512 (y is [B, T, 1024]), skip 256.
+DECODER_SHAPES = [(32, 6144, 12), (3, 1536, 3)]
+# dc and the biases' sums: the same rounded dz (or gradients) summed in float32
+# in another order, as max|d| over the largest entry.
+DECODER_SUM_TOL = 1e-4
+
+
+def _decoder_inputs(dev, dtype, b, t, frames, m=512, skip=256):
+    gen = torch.Generator(device=dev).manual_seed(b + t)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(dtype)
+
+    return dict(y=rand(b, t, 2 * m, scale=2.0), c=rand(b, frames, 2 * m),
+                b_dil=rand(2 * m, scale=0.3), b_cond=rand(2 * m, scale=0.3),
+                dgated=rand(b, t, m), l=rand(b, t, m), s=rand(b, t, skip), r=rand(b, t, m),
+                k=rand(b, t, skip), b_res=rand(m, scale=0.3), b_skip=rand(skip, scale=0.3))
+
+
+@pytest.mark.parametrize("shape", DECODER_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_kernels_match_plain(dev, dtype, shape):
+    """Each of the four kernels against its plain version on the same card:
+    the gate and residual forwards bit for bit (they round where eager
+    PyTorch rounds, with its sigmoid and tanh); the gate backward's dz, whose
+    only difference is the kernel's fused multiply-add in 1 - tanh^2 (one
+    rounding where the plain version's two ops round twice): bf16 element by
+    element within one bf16 step of the plain version's, float32 within TOL
+    of its largest entry (near |tanh| = 1 the product's rounding is most of
+    1 - tanh^2); dc and the four bias gradients within DECODER_SUM_TOL. One
+    launch each."""
+    from audio_style_transfer_tpu_torch.ops import decoder
+
+    x = _decoder_inputs(dev, dtype, *shape)
+    gate = (x["y"], x["c"], x["b_dil"], x["b_cond"])
+    res = (x["l"], x["s"], x["r"], x["k"], x["b_res"], x["b_skip"])
+    _build.reset_launches()
+    gated = decoder.gate_fwd(*gate)
+    dz, dc = decoder.gate_bwd(*gate, x["dgated"])
+    lo, so = decoder.residual_fwd(*res)
+    db_res, db_skip = decoder.residual_bwd(x["l"], x["s"])
+    torch.cuda.synchronize()
+    assert {k: _build.LAUNCHES[k] for k in ("gate_fwd", "gate_bwd", "residual_fwd",
+                                            "residual_bwd")} == dict.fromkeys(
+        ("gate_fwd", "gate_bwd", "residual_fwd", "residual_bwd"), 1)
+    assert torch.equal(gated, decoder.gate_fwd_plain(*gate))
+    lp, sp = decoder.residual_fwd_plain(*res)
+    assert torch.equal(lo, lp) and torch.equal(so, sp)
+    dz_p, dc_p = decoder.gate_bwd_plain(*gate, x["dgated"])
+    print(f"{dtype} {shape}: dz differs on {float((dz != dz_p).float().mean()):.2e} of "
+          f"elements, max|d| over max {_rel(dz, dz_p):.2e}")
+    assert dz.dtype == dtype and _rel(dz, dz_p) <= TOL[dtype]
+    if dtype == torch.bfloat16:  # one bf16 step is at most 2^-7 of the value
+        assert not bool(((dz.float() - dz_p.float()).abs() > 2.0 ** -7 * dz_p.float().abs()).any())
+    assert dc.dtype == torch.float32 and _rel(dc, dc_p) <= DECODER_SUM_TOL
+    assert _rel(dc.sum((0, 1)), dc_p.sum((0, 1))) <= DECODER_SUM_TOL
+    for got, want in zip((db_res, db_skip), decoder.residual_bwd_plain(x["l"], x["s"])):
+        assert got.dtype == torch.float32 and _rel(got, want) <= DECODER_SUM_TOL
+    # dc is the kernel's own dz summed over each frame's rows, and no others.
+    b, t, frames = shape
+    dz_sum = dz.float().reshape(b, frames, t // frames, -1).sum(2)
+    assert _rel(dc, dz_sum) <= DECODER_SUM_TOL
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decoder_fused_train_loss_matches_the_plain_blocks(dev, dtype, monkeypatch):
+    """One ``train_loss`` backward with remat at the full geometry (30 blocks
+    of 512, 2 x 6144), biases drawn nonzero: the fused blocks against the
+    plain blocks on the card (``_decoder_block`` swapped for the plain one),
+    within the tolerances of test_one_train_step_on_card_matches_cpu (loss rel
+    1e-5, each gradient rel L2 5e-3). The fused step launches the gate
+    forward 60 times (forward and remat re-forward), the residual forward 30
+    (the re-forward stops at the last tensor the backward keeps, the gated
+    input of the res and skip products) and each backward 30 times; the
+    plain one none of them."""
+    from audio_style_transfer_tpu_torch.models import wavenet_ae
+    from audio_style_transfer_tpu_torch.train.trainer import train_loss
+
+    cfg = wavenet_ae.WaveNetAEConfig(compute_dtype=dtype, remat=True)
+    params = wavenet_ae.init_params(0, cfg, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for e in params.values():
+        e["b"].uniform_(-0.1, 0.1, generator=gen)
+    wav = torch.tensor(np.random.RandomState(0).uniform(-0.8, 0.8, (2, 6144)),
+                       dtype=torch.float32, device=dev)
+    leaves = [v.requires_grad_(True) for e in params.values() for v in e.values()]
+    out = {}
+    for route in ("fused", "plain"):
+        if route == "plain":
+            monkeypatch.setattr(wavenet_ae, "_decoder_block", wavenet_ae._plain_decoder_block)
+        _build.reset_launches()
+        loss = train_loss(params, wav, cfg)
+        # The last block's res conv reaches no loss: no gradient on either route.
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        torch.cuda.synchronize()
+        out[route] = (float(loss.detach()), grads, {k: _build.LAUNCHES[k] for k in (
+            "gate_fwd", "gate_bwd", "residual_fwd", "residual_bwd")})
+    (lf, gf, nf), (lp, gp, np_) = out["fused"], out["plain"]
+    assert nf == {"gate_fwd": 60, "gate_bwd": 30, "residual_fwd": 30, "residual_bwd": 30}
+    assert not any(np_.values())
+    assert abs(lf - lp) <= 1e-5 * abs(lp)
+    worst = 0.0
+    # The same leaves get no gradient (res_30's) on both routes: no product
+    # backward runs for them.
+    assert [g is None for g in gf] == [g is None for g in gp]
+    for a, b in zip(gf, gp):
+        if b is None:
+            continue
+        if float(b.norm()) == 0:
+            assert float(a.abs().max()) == 0
+        else:
+            worst = max(worst, _rel_l2(a, b))
+    print(f"{dtype}: loss {lf} / {lp}; worst gradient rel L2 {worst:.2e}")
+    assert worst <= 5e-3
+
+
+def test_decoder_kernels_refuse_what_they_do_not_take(dev):
+    """Each wrapper raises on a non-contiguous operand, a T that is no
+    multiple of the frame count, a CPU / CUDA mix, a dtype other than float32
+    and bfloat16, and a width that is no multiple of 8."""
+    from audio_style_transfer_tpu_torch.ops import decoder
+
+    x = _decoder_inputs(dev, torch.bfloat16, 2, 1024, 2)
+    y, c, bd, bc, dg = x["y"], x["c"], x["b_dil"], x["b_cond"], x["dgated"]
+    l, s, r, k, br, bs = x["l"], x["s"], x["r"], x["k"], x["b_res"], x["b_skip"]
+    strided = lambda a: a.transpose(0, 1).contiguous().transpose(0, 1)  # noqa: E731
+    cut = lambda a, n: a[..., :n].contiguous()  # noqa: E731
+    ragged = lambda a: a[:, :1001].contiguous()  # noqa: E731
+    cases = [
+        ("contiguous", decoder.gate_fwd, (strided(y), c, bd, bc)),
+        ("frame count", decoder.gate_fwd, (ragged(y), c, bd, bc)),
+        ("one device", decoder.gate_fwd, (y, c.cpu(), bd, bc)),
+        ("float32 or bfloat16", decoder.gate_fwd,
+         (y.double(), c.double(), bd.double(), bc.double())),
+        ("multiple of 8", decoder.gate_fwd, (cut(y, 1000), cut(c, 1000), bd[:1000], bc[:1000])),
+        ("contiguous", decoder.gate_bwd, (y, c, bd, bc, strided(dg))),
+        ("frame count", decoder.gate_bwd, (ragged(y), c, bd, bc, ragged(dg))),
+        ("one device", decoder.gate_bwd, (y, c, bd, bc, dg.cpu())),
+        ("contiguous", decoder.residual_fwd, (l, s, strided(r), k, br, bs)),
+        ("one B and T", decoder.residual_fwd, (l, s, r, ragged(k), br, bs)),
+        ("one device", decoder.residual_fwd, (l, s.cpu(), r, k, br, bs)),
+        ("bfloat16", decoder.residual_fwd, (l, s, r.float(), k, br, bs)),
+        ("multiples of 8", decoder.residual_fwd, (cut(l, 500), s, cut(r, 500), k, br[:500], bs)),
+        ("contiguous", decoder.residual_bwd, (strided(l), s)),
+        ("one B and T", decoder.residual_bwd, (l, ragged(s))),
+        ("one device", decoder.residual_bwd, (l, s.cpu())),
+        ("multiples of 8", decoder.residual_bwd, (cut(l, 500), s)),
+    ]
+    _build.reset_launches()
+    for match, fn, args in cases:
+        with pytest.raises((ValueError, TypeError), match=match):
+            fn(*args)
+    assert not any(_build.LAUNCHES.values())
+
+
 def test_world_one_nccl_trainer_equals_mesh_none(dev):
     """Trainer(mesh=make_mesh(1)) over NCCL at world size 1: two steps equal
     mesh=None's bit for bit (one rank's all-reduce and the division by 1 are
