@@ -9,6 +9,8 @@ inputs' type; bytes count each input read once and each output written once.
 
 from __future__ import annotations
 
+from portbench.reference.transfer import style_taps
+
 # NVIDIA H100 SXM, dense, at the 700 W limit (NVIDIA's data sheet).
 PEAK_BYTES_S = 3.35e12
 PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
@@ -66,7 +68,7 @@ def trunk_eval_bound_s(rows: int, cfg: dict, k1_launches: int, k2_launches: int)
     ``rows``: in each backward, the layers that emit a style tap (not the
     last, whose cotangent seeds the chain) read a tap cotangent."""
     dt, c, n = cfg["compute_dtype"], cfg["ae_width"], cfg["ae_num_layers"]
-    style = set(range(cfg["stack"] * 10, cfg["stack"] * 10 + 10)) | set(cfg["cont_lyr_ids"])
+    style = set(style_taps(cfg)) | set(cfg["cont_lyr_ids"])
     tapped = len(style - {n - 1}) / n
     k2_mean = tapped * bound_s(*k2(rows, c, dt, True), dt) + \
         (1 - tapped) * bound_s(*k2(rows, c, dt, False), dt)
@@ -74,9 +76,11 @@ def trunk_eval_bound_s(rows: int, cfg: dict, k1_launches: int, k2_launches: int)
 
 
 def gram_eval_bound_s(rows: int, cfg: dict, k5_launches: int, k6_launches: int) -> float:
-    dt, c = cfg["compute_dtype"], cfg["ae_width"]
-    return (k5_launches * bound_s(*k5(rows, c, 10, dt), dt)
-            + k6_launches * bound_s(*k6(rows, c, 10, dt), dt))
+    """The summed bounds of K5 and K6 launches over the configuration's style
+    taps (channel-wise grams; a Gatys configuration launches neither)."""
+    dt, c, taps = cfg["compute_dtype"], cfg["ae_width"], len(style_taps(cfg))
+    return (k5_launches * bound_s(*k5(rows, c, taps, dt), dt)
+            + k6_launches * bound_s(*k6(rows, c, taps, dt), dt))
 
 
 # --------------------------------------------------------------------------
@@ -93,11 +97,16 @@ def trunk_fwd_ops_per_row(cfg: dict) -> float:
 def transfer_eval_ops(rows: int, cfg: dict) -> float:
     """Model operations of one loss + waveform-gradient evaluation: the
     trunk forward and its cotangent at the input (no weight gradient), and
-    the gram of the style taps with its backward. The start conv's 3
-    multiply-adds a row and the bottleneck, which the loss does not read,
-    are left out."""
-    taps, c = 10, cfg["ae_width"]
-    gram = 2.0 * (taps * (taps + 1) // 2) * rows * c + 2.0 * taps * taps * rows * c
+    the gram of the style taps with its backward: channel-wise, one product
+    per pair of the symmetric gram and all pairs back; Gatys, each tap's
+    [C, rows] x [rows, C] product forward and one as large back. The start
+    conv's 3 multiply-adds a row and the bottleneck, which the loss does
+    not read, are left out."""
+    taps, c = len(style_taps(cfg)), cfg["ae_width"]
+    if cfg.get("gatys"):
+        gram = 2 * (2.0 * taps * rows * c * c)
+    else:
+        gram = 2.0 * (taps * (taps + 1) // 2) * rows * c + 2.0 * taps * taps * rows * c
     return 2 * trunk_fwd_ops_per_row(cfg) * rows + gram
 
 

@@ -1,6 +1,8 @@
 """The drivers of the kinds of traffic. A mix's ``kind`` names one.
 
-Each module defines ``Workload(cell, seed, device)`` with
+Each module defines ``small(cfg, traffic)``, the configuration and mix cut
+to a size the CPU runs in seconds (the harness's tests), and
+``Workload(cell, seed, device)`` with
   setup()            everything before the window: weights, traffic, warm-up
   run_window(s)      units of work (clips, steps) until ``s`` seconds passed
   end_to_end()       {metric: value} of the window

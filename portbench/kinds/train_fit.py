@@ -50,6 +50,12 @@ def _change_norms(a: dict, b: dict) -> dict[str, float]:
             for k in b}
 
 
+def small(cfg: dict, traffic: dict) -> tuple[dict, dict]:
+    """The cell cut to a size the CPU runs in seconds (the harness's tests)."""
+    return (dict(cfg, total_batch_size=2, sample_length=1024, steps_per_call=4),
+            dict(traffic, batch=2, samples=1024, distinct=4))
+
+
 class Workload:
     def __init__(self, cell, seed: int, device="cuda"):
         self.cell, self.cfg, self.mix = cell, cell.config, cell.traffic

@@ -20,18 +20,15 @@ SMALL = dict(ae_width=32, ae_bottleneck_width=4, num_layers=2, width=16, skip_wi
              quant_channels=256)
 
 
-def small_cell(workload: str, dtype: str = "float32"):
-    cell = spec.resolve(spec.load_benchmark(ROOT), workload, ROOT)
-    cfg = dict(cell.config, **SMALL, compute_dtype=dtype)
-    traffic = dict(cell.traffic)
-    if traffic["kind"] == "transfer_exact":
-        cfg.update(cnt_channels=32, nb_channels=32, maxiter=20)
-        traffic.update(content_samples=9000, style_samples=8192, style_window=4096, distinct=2,
-                       epochs=2)
-    else:
-        cfg.update(total_batch_size=2, sample_length=1024, steps_per_call=4)
-        traffic.update(batch=2, samples=1024, distinct=4)
+def small(cell: spec.Cell, dtype: str = "float32") -> spec.Cell:
+    """``cell`` at the test widths, cut further by its kind's ``small``."""
+    cfg, traffic = cell.kind.small(dict(cell.config, **SMALL, compute_dtype=dtype),
+                                   cell.traffic)
     return dataclasses.replace(cell, config=cfg, traffic=traffic)
+
+
+def small_cell(workload: str, dtype: str = "float32") -> spec.Cell:
+    return small(spec.resolve(spec.load_benchmark(ROOT), workload, ROOT), dtype)
 
 
 @pytest.fixture

@@ -82,7 +82,9 @@ def test_each_reader_finds_nothing_without_the_spans(name):
 def test_the_new_metrics_are_the_transfer_cells():
     bench = spec.load_benchmark(spec.HERE.parent)
     entries = {m["name"]: m for m in bench["per_layer"]}
+    transfer = next(m for m in bench["end_to_end"] if m["name"] == "transfer_evals_per_s")
     for name in EXPECTED:
         m = entries[name]
-        assert (m["source"], m["moves"], m["workloads"]) == (
-            "program_span", "transfer_evals_per_s", ["transfer_exact15s"])
+        assert (m["source"], m["moves"]) == ("program_span", "transfer_evals_per_s")
+        assert "transfer_exact15s" in m["workloads"]
+        assert set(m["workloads"]) <= set(transfer["workloads"])
