@@ -1,5 +1,6 @@
 // All-pairs channel gram: forward (K5) and backward (K6), float32 FMAs on the
-// CUDA cores. Per channel both are tiny matrix products (L x L, depth T), but
+// CUDA cores; the per-layer (Gatys) gram, K8f and K8b, at the end of the
+// file. Per channel K5 and K6 are tiny matrix products (L x L, depth T), but
 // channel is the fastest axis in memory and every tap is an array of its own:
 // the layout, not the arithmetic, is what the design serves. Every figure in
 // this note is for one NVIDIA H100 80GB HBM3 at a 700.00 W power limit
@@ -70,7 +71,7 @@
 // Registers a thread (nvcc -Xptxas -v, sm_90a; tools/kernel_resources.py)
 // stand beside the geometry below; the times are in PERF.md.
 
-#include "ast_io.h"
+#include "mma_tiles.h"
 
 namespace {
 
@@ -83,16 +84,6 @@ struct TapPtrs {
 struct OutPtrs {
   void* p[MAXL];
 };
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 
 // Wait until at most N of this thread's commit groups are in flight.
 template <int N>
@@ -497,6 +488,456 @@ cudaError_t dispatch_gram_bwd(const TapPtrs& taps, const OutPtrs& outs, const fl
   }
 }
 
+
+// ------------------------------------------------------------ K8f, K8b ------
+//
+// The per-layer (Gatys) gram. K8f and K8b replace no TPU kernel: the JAX
+// package leaves this gram to XLA (transfer/grams.py, a bf16 x bf16 einsum
+// with float32 accumulation). The port's plain route concatenated the taps,
+// cast them to float32 and ran float32 products on the CUDA cores (TF32 off),
+// which at the full stack of a 15 s clip was most of an evaluation's device
+// work. For each tap X_l ([T, C], C = 128, the encoder's width):
+//   K8f: G_l = X_l^T X_l, [C, C] float32
+//   K8b: dX_l = X_l (dG_l^T + dG_l), float32 sums rounded once to the tap dtype
+//
+// What bounds them (bf16, 237568 rows, L = 30): K8f reads the taps once, 1.82
+// GB, 0.545 ms at 3.35 TB/s; its products are 233 GFLOP (117 for the upper
+// triangle), 0.12-0.24 ms at 989 TFLOP/s. K8b reads the taps and writes their
+// cotangents, 3.65 GB, 1.09 ms; its two products (X hi and X lo, the bf16 parts
+// of dG + dG^T, instead of one product of dG + dG^T rounded to bf16) are 467
+// GFLOP, 0.47 ms. Bytes bound both,
+// with the tensor cores close behind, so neither may read a byte twice from
+// memory.
+// Design (bf16):
+//  - K8f: a block owns one tap and a chunk of rows; the wrapper cuts T so that
+//    the grid is about one wave of two blocks an SM (8 chunks a tap at L=30).
+//    Its 10 warps own the 10 upper 32 x 32 tiles of the 4 x 4 tiles of the
+//    gram (the lower 6 are their mirror): 2 x 4 accumulator tiles of
+//    mma.sync.m16n8k16, 32 registers a thread. Rows stream in as 16-byte
+//    cp.async into a ring of 4 stages of 64 rows, [row][channel] with the
+//    16-byte chunks swizzled by row (mma_tiles.h); both operands, A = X^T and
+//    B = X, are read from the same stage with ldmatrix.trans. The tensor
+//    cores' accumulation cuts low bits, so each stage's products are added
+//    into a float32 sum rounded to nearest (32 registers more): on an H100 a
+//    sum of 29696 rows kept in the accumulator alone came out 1.2e-4 low on
+//    the diagonal, flushed every 4 k-steps 2e-7 (against float64). A
+//    block writes the partial sums of its upper tiles ([L, chunks, C, C]
+//    float32, 15.7 MB at L=30); gram_layer_sum_kernel adds the chunks in
+//    order and mirrors the lower tiles. No atomics: the result repeats bit
+//    for bit.
+//  - K8b computes dX_l^T = (dG_l + dG_l^T) X_l^T, the channels as the
+//    product's rows, so that X, the large operand, is read from shared memory
+//    once a warp as B, and dG in both orientations is the A fragments. Each
+//    of 8 warps owns 16 output channels by a tile's 128 rows: 16 accumulator
+//    tiles, 64 registers a thread. A block walks a contiguous run of the L x
+//    ceil(T / 128) (tap, tile) pairs, so the grid is one block an SM whatever
+//    L and T; tiles stream in two ahead (3 buffers of 32 KB). At each new tap
+//    the hi and lo bf16 parts of H = dG + dG^T are staged (stage_operands):
+//    H is summed in float32 and symmetric, hi + lo is within 2^-18 of it, far
+//    below the cotangents' one rounding to bf16 (2^-9). Two products a tile,
+//    hi read as A and lo, transposed on load, as A (the same matrix). The
+//    float32 sums are rounded once, written back
+//    transposed into the tile's buffer with stmatrix.trans, and stored as
+//    16-byte pieces of whole rows.
+// float32 taps take FMA kernels on the same grids (gram_layer_fwd_fma_kernel,
+// gram_layer_bwd_fma_kernel): a thread owns an 8 x 8 tile of the output and
+// reads 16 float4 from shared memory for 256 FMAs; K8b's H = dG + dG^T is
+// summed in float32 once a tap.
+
+// Registers a thread (nvcc -Xptxas -v, sm_90a, no spills): gram_layer_fwd_kernel
+// 96, gram_layer_fwd_fma_kernel 114, gram_layer_sum_kernel 30,
+// gram_layer_bwd_kernel 137, gram_layer_bwd_fma_kernel 168.
+constexpr int GL_TILE = 32;  // K8f: a warp's tile of channels a by channels b
+
+// K8f, bf16.
+constexpr int LF_NT = 320;   // 10 warps: the upper 32 x 32 tiles
+constexpr int LF_SR = 64;    // rows per stage; a block's rows are a multiple of it
+constexpr int LF_NST = 4;    // stages of the cp.async ring
+constexpr int LF_STAGEB = LF_SR * ROWB;
+constexpr int LF_SMEM = LF_NST * LF_STAGEB;  // 64 KB
+
+// K8f, float32.
+constexpr int FF_NT = 256;   // 16 x 16 threads, an 8 x 8 tile of the gram each
+constexpr int FF_SR = 32;
+constexpr int FF_NST = 4;
+constexpr int FROWB = C * 4;  // bytes of one float32 row
+constexpr int FF_STAGEB = FF_SR * FROWB;
+constexpr int FF_SMEM = FF_NST * FF_STAGEB;  // 64 KB
+
+// K8b.
+constexpr int LB_NT = 256;   // 8 warps (bf16) or 16 x 16 threads (float32)
+constexpr int LB_TN = 128;   // rows per tile
+constexpr int LB_NB = 3;     // bf16 tile buffers: two tiles stream in under one
+constexpr int LB_TILEB = LB_TN * ROWB;
+constexpr int LB_SMEM = 2 * WBYTES + LB_NB * LB_TILEB;  // 160 KB: 2 operands, 3 tiles
+constexpr int FB_NB = 2;     // float32 tile buffers
+constexpr int FB_TILEB = LB_TN * FROWB;
+constexpr int FB_SMEM = C * FROWB + FB_NB * FB_TILEB;   // 192 KB
+
+__device__ __forceinline__ void stmatrix4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// Channels 4q..4q+3 and 64+4q..64+4q+3 of a float32 row: a thread's 8.
+__device__ __forceinline__ void ld8(const float* row, int q, float (&v)[8]) {
+  const float4 lo = reinterpret_cast<const float4*>(row)[q];
+  const float4 hi = reinterpret_cast<const float4*>(row)[q + C / 8];
+  v[0] = lo.x, v[1] = lo.y, v[2] = lo.z, v[3] = lo.w;
+  v[4] = hi.x, v[5] = hi.y, v[6] = hi.z, v[7] = hi.w;
+}
+
+// Start the copies of rows [r0, r0 + n) of a [t_len, C] tap into buffer rows
+// [0, n) (bf16: 256-byte rows, chunks swizzled; float32: plain 512-byte
+// rows); rows at or past `end` are zero-filled.
+template <int kThreads, typename T>
+__device__ __forceinline__ void stage_tap_rows(uint32_t dst, const T* __restrict__ x, long r0,
+                                               int n, long end) {
+  constexpr int P = C * (int)sizeof(T) / 16;  // 16-byte pieces a row
+  for (int i = threadIdx.x; i < n * P; i += kThreads) {
+    const int row = i / P, piece = i % P;
+    const bool in = r0 + row < end;
+    const uint32_t at =
+        sizeof(T) == 2 ? chunk_at(row, piece) : (uint32_t)(row * FROWB + piece * 16);
+    cp_async16(dst + at, x + (in ? r0 + row : 0) * C + piece * (16 / (int)sizeof(T)), in ? 16 : 0);
+  }
+}
+
+// Grid (chunks, L). partial: [L, chunks, C, C] float32; the upper tiles are written.
+__global__ void __launch_bounds__(LF_NT, 2)
+gram_layer_fwd_kernel(const __grid_constant__ TapPtrs taps, int t_len, int chunk,
+                      float* __restrict__ partial) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sbase = smem_addr(smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = lane & 7, mat = lane >> 3;
+  int ti, tj;
+  tile_groups(warp, C / GL_TILE, ti, tj);
+  const bf16* x = static_cast<const bf16*>(taps.p[blockIdx.y]);
+  const long t0 = (long)blockIdx.x * chunk;
+  const long t1 = min(t0 + (long)chunk, (long)t_len);
+  const int n_stages = (int)((t1 - t0 + LF_SR - 1) / LF_SR);
+  auto load = [&](int s) {
+    if (s < n_stages)
+      stage_tap_rows<LF_NT>(sbase + (s % LF_NST) * LF_STAGEB, x, t0 + (long)s * LF_SR, LF_SR, t1);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < LF_NST - 1; ++s) load(s);
+
+  // The tensor cores add into acc with low bits cut, a bias that grows with
+  // the chunk's length: acc holds one stage (64 rows) and is added into sum,
+  // rounded to nearest.
+  float acc[2][4][4], sum[2][4][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[mi][n][e] = 0.f;
+
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<LF_NST - 2>();  // stage s has landed (this thread's part)
+    __syncthreads();              // everyone's part; stage s - 1 is free
+    load(s + LF_NST - 1);
+    const uint32_t buf = sbase + (s % LF_NST) * LF_STAGEB;
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mi][n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < LF_SR / 16; ++kk) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        // A[m][k] = X[k][m]: stage rows k, 16 channels m of tile ti, transposed
+        // on load: matrices (m lo, k lo), (m hi, k lo), (m lo, k hi), (m hi, k hi).
+        ldmatrix4_trans(a[h], buf + chunk_at(kk * 16 + r + (mat >> 1) * 8,
+                                              ti * 4 + h * 2 + (mat & 1)));
+        // B[k][n] = X[k][n]: 16 channels n of tile tj, as mma_kstep reads W[k][n].
+        ldmatrix4_trans(b[h], buf + chunk_at(kk * 16 + r + (mat & 1) * 8,
+                                              tj * 4 + h * 2 + (mat >> 1)));
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int nj = 0; nj < 2; ++nj) {
+          mma16816(acc[mi][2 * nj], a[mi], b[nj][0], b[nj][1]);
+          mma16816(acc[mi][2 * nj + 1], a[mi], b[nj][2], b[nj][3]);
+        }
+    }
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sum[mi][n][e] += acc[mi][n][e];
+  }
+  cp_async_wait<0>();
+  const int g = lane >> 2, t = lane & 3;
+  float* dst = partial + ((long)blockIdx.y * gridDim.x + blockIdx.x) * C * C;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      const int row = ti * GL_TILE + mi * 16 + g, col = tj * GL_TILE + n * 8 + 2 * t;
+      *reinterpret_cast<float2*>(dst + row * C + col) = make_float2(sum[mi][n][0], sum[mi][n][1]);
+      *reinterpret_cast<float2*>(dst + (row + 8) * C + col) =
+          make_float2(sum[mi][n][2], sum[mi][n][3]);
+    }
+}
+
+// The float32 K8f: the same grid and partial sums, every tile computed.
+__global__ void __launch_bounds__(FF_NT, 2)
+gram_layer_fwd_fma_kernel(const __grid_constant__ TapPtrs taps, int t_len, int chunk,
+                          float* __restrict__ partial) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const uint32_t sbase = smem_addr(smem);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const float* x = static_cast<const float*>(taps.p[blockIdx.y]);
+  const long t0 = (long)blockIdx.x * chunk;
+  const long t1 = min(t0 + (long)chunk, (long)t_len);
+  const int n_stages = (int)((t1 - t0 + FF_SR - 1) / FF_SR);
+  auto load = [&](int s) {
+    if (s < n_stages)
+      stage_tap_rows<FF_NT>(sbase + (s % FF_NST) * FF_STAGEB, x, t0 + (long)s * FF_SR, FF_SR, t1);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < FF_NST - 1; ++s) load(s);
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  for (int s = 0; s < n_stages; ++s) {
+    cp_async_wait<FF_NST - 2>();
+    __syncthreads();
+    load(s + FF_NST - 1);
+    const float* buf = reinterpret_cast<const float*>(smem + (s % FF_NST) * FF_STAGEB);
+    for (int rr = 0; rr < FF_SR; ++rr) {
+      float a[8], b[8];
+      ld8(buf + rr * C, ty, a);
+      ld8(buf + rr * C, tx, b);
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  }
+  cp_async_wait<0>();
+  float* dst = partial + ((long)blockIdx.y * gridDim.x + blockIdx.x) * C * C;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    float* row = dst + (long)(i < 4 ? 4 * ty + i : C / 2 + 4 * ty + i - 4) * C;
+    reinterpret_cast<float4*>(row)[tx] = make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+    reinterpret_cast<float4*>(row)[tx + C / 8] =
+        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]);
+  }
+}
+
+// out[l, a, b] = the chunks' partial sums in order; an element of a tile below
+// the diagonal reads its mirror.
+__global__ void gram_layer_sum_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                                      int L, int n_chunks) {
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)L * C * C) return;
+  const int b = idx % C, a = (idx / C) % C;
+  const long l = idx / (C * C);
+  const long at = a / GL_TILE > b / GL_TILE ? (long)b * C + a : (long)a * C + b;
+  float sum = 0.f;
+  for (int k = 0; k < n_chunks; ++k) sum += partial[(l * n_chunks + k) * C * C + at];
+  out[idx] = sum;
+}
+
+// The two A operands of one tap's products, bf16 in shared memory ([a][b],
+// swizzled): s1 = hi = bf16(H) and s2 = lo = bf16(H - hi) of H = dG + dG^T,
+// summed in float32 (so bit for bit symmetric); hi + lo is within 2^-18 of H.
+// The barrier before the first tile's products publishes them.
+__device__ __forceinline__ void stage_operands(uint8_t* s1, uint8_t* s2,
+                                               const float* __restrict__ g) {
+  for (int p = threadIdx.x; p < C * C / 4; p += LB_NT) {
+    const float4 v = reinterpret_cast<const float4*>(g)[p];
+    const int a = p / (C / 4), b = (p % (C / 4)) * 4;
+    const float h[4] = {v.x + g[b * C + a], v.y + g[(b + 1) * C + a], v.z + g[(b + 2) * C + a],
+                        v.w + g[(b + 3) * C + a]};
+    const uint2 hi = make_uint2(pack2(h[0], h[1]), pack2(h[2], h[3]));
+    const uint2 lo = make_uint2(pack2(h[0] - bf_lo(hi.x), h[1] - bf_hi(hi.x)),
+                                pack2(h[2] - bf_lo(hi.y), h[3] - bf_hi(hi.y)));
+    const uint32_t off = chunk_at(a, b / 8) + (b % 8) * 2;
+    *reinterpret_cast<uint2*>(s1 + off) = hi;
+    *reinterpret_cast<uint2*>(s2 + off) = lo;
+  }
+}
+
+// acc[n tile] += A B over k-chunk kk for A = a and A = at (16 channels m),
+// B[k][n] = X[n][k] of the tile's 128 rows n (mma_kstep's transposed form).
+__device__ __forceinline__ void bwd_products(float (&acc)[16][4], const uint32_t (&a)[4],
+                                             const uint32_t (&at)[4], uint32_t buf, int kk,
+                                             int lane) {
+  const int r = lane & 7, mat = lane >> 3;
+#pragma unroll
+  for (int jj = 0; jj < 8; ++jj) {
+    uint32_t b[4];
+    ldmatrix4(b, buf + chunk_at(jj * 16 + r + (mat >> 1) * 8, kk * 2 + (mat & 1)));
+    mma16816(acc[2 * jj], a, b[0], b[1]);
+    mma16816(acc[2 * jj], at, b[0], b[1]);
+    mma16816(acc[2 * jj + 1], a, b[2], b[3]);
+    mma16816(acc[2 * jj + 1], at, b[2], b[3]);
+  }
+}
+
+// Grid (blocks). Block k walks the (tap, tile) pairs [k per, (k + 1) per) of
+// the L x ceil(T / 128) in order: tap-major, tiles ascending.
+__global__ void __launch_bounds__(LB_NT, 1)
+gram_layer_bwd_kernel(const __grid_constant__ TapPtrs taps, const __grid_constant__ OutPtrs outs,
+                      const float* __restrict__ dg, int L, int t_len, int per) {
+  extern __shared__ __align__(128) uint8_t smem[];
+  uint8_t* s1 = smem;
+  uint8_t* s2 = smem + WBYTES;
+  uint8_t* tiles = smem + 2 * WBYTES;
+  const uint32_t s1_s = smem_addr(s1), s2_s = smem_addr(s2), tiles_s = smem_addr(tiles);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r = lane & 7, mat = lane >> 3;
+  const int n_tiles = (t_len + LB_TN - 1) / LB_TN;
+  const long first = (long)blockIdx.x * per;
+  const int count = (int)min((long)per, (long)L * n_tiles - first);
+  auto load = [&](int i) {
+    if (i < count) {
+      const long pair = first + i;
+      stage_tap_rows<LB_NT>(tiles_s + (i % LB_NB) * LB_TILEB,
+                            static_cast<const bf16*>(taps.p[pair / n_tiles]),
+                            (pair % n_tiles) * LB_TN, LB_TN, t_len);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < LB_NB - 1; ++i) load(i);
+
+  for (int i = 0; i < count; ++i) {
+    const long pair = first + i;
+    const int l = (int)(pair / n_tiles);
+    const long r0 = (pair % n_tiles) * LB_TN;
+    // A new tap: every warp is past the last tile's products (two barriers).
+    if (i == 0 || r0 == 0) stage_operands(s1, s2, dg + (long)l * C * C);
+    cp_async_wait<LB_NB - 2>();  // tile i has landed (this thread's part)
+    __syncthreads();             // everyone's part; tile i - 1's buffer is free
+    load(i + LB_NB - 1);
+    const uint32_t buf = tiles_s + (i % LB_NB) * LB_TILEB;
+    float acc[16][4];
+    zero(acc);
+#pragma unroll 1
+    for (int kk = 0; kk < C / 16; ++kk) {
+      uint32_t a[4], at[4];
+      load_a_frag(a, s1_s, warp * 16, kk, lane);  // A[m][k] = s1[m][k]
+      // A[m][k] = s2[k][m]: rows k, the warp's 16 channels m, transposed on load.
+      ldmatrix4_trans(at, s2_s + chunk_at(kk * 16 + r + (mat >> 1) * 8, warp * 2 + (mat & 1)));
+      bwd_products(acc, a, at, buf, kk, lane);
+    }
+    __syncthreads();  // every warp has read the tile: its buffer takes the result
+    // Rounded once; accumulator tile 2 jj (+1) is channels g, g + 8 by rows
+    // 16 jj + 2 t, + 1 (+ 8), stored transposed as rows of 8 channels.
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj) {
+      const uint32_t v[4] = {pack2(acc[2 * jj][0], acc[2 * jj][1]),
+                             pack2(acc[2 * jj][2], acc[2 * jj][3]),
+                             pack2(acc[2 * jj + 1][0], acc[2 * jj + 1][1]),
+                             pack2(acc[2 * jj + 1][2], acc[2 * jj + 1][3])};
+      stmatrix4_trans(buf + chunk_at(jj * 16 + (mat >> 1) * 8 + r, warp * 2 + (mat & 1)), v);
+    }
+    __syncthreads();
+    bf16* dx = static_cast<bf16*>(outs.p[l]);
+    const uint8_t* src = tiles + (i % LB_NB) * LB_TILEB;
+    for (int p = threadIdx.x; p < LB_TN * 16; p += LB_NT) {
+      const long t = r0 + (p >> 4);
+      if (t < t_len)
+        *reinterpret_cast<uint4*>(dx + t * C + (p & 15) * 8) =
+            *reinterpret_cast<const uint4*>(src + chunk_at(p >> 4, p & 15));
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The float32 K8b: the same walk; H = dG + dG^T in shared memory, a thread's
+// 8 rows x 8 channels of a tile from 16 float4 reads a step of 4 channels k.
+__global__ void __launch_bounds__(LB_NT, 1)
+gram_layer_bwd_fma_kernel(const __grid_constant__ TapPtrs taps,
+                          const __grid_constant__ OutPtrs outs, const float* __restrict__ dg,
+                          int L, int t_len, int per) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  float* h = reinterpret_cast<float*>(smem);  // [k][c]
+  const uint32_t tiles_s = smem_addr(smem + C * FROWB);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int n_tiles = (t_len + LB_TN - 1) / LB_TN;
+  const long first = (long)blockIdx.x * per;
+  const int count = (int)min((long)per, (long)L * n_tiles - first);
+  auto load = [&](int i) {
+    if (i < count) {
+      const long pair = first + i;
+      stage_tap_rows<LB_NT>(tiles_s + (i % FB_NB) * FB_TILEB,
+                            static_cast<const float*>(taps.p[pair / n_tiles]),
+                            (pair % n_tiles) * LB_TN, LB_TN, t_len);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < FB_NB - 1; ++i) load(i);
+
+  for (int i = 0; i < count; ++i) {
+    const long pair = first + i;
+    const int l = (int)(pair / n_tiles);
+    const long r0 = (pair % n_tiles) * LB_TN;
+    if (i == 0 || r0 == 0) {
+      __syncthreads();  // every thread is past the last tile's products
+      const float* g = dg + (long)l * C * C;
+      for (int p = threadIdx.x; p < C * C; p += LB_NT) h[p] = g[p] + g[(p % C) * C + p / C];
+    }
+    cp_async_wait<FB_NB - 2>();
+    __syncthreads();
+    load(i + FB_NB - 1);
+    const float* buf = reinterpret_cast<const float*>(smem + C * FROWB + (i % FB_NB) * FB_TILEB);
+    float acc[8][8];
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[a][j] = 0.f;
+    for (int k = 0; k < C; k += 4) {
+      float4 xv[8];
+#pragma unroll
+      for (int a = 0; a < 8; ++a)
+        xv[a] = *reinterpret_cast<const float4*>(buf + (ty * 8 + a) * C + k);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float hv[8];
+        ld8(h + (k + q) * C, tx, hv);
+#pragma unroll
+        for (int a = 0; a < 8; ++a) {
+          const float xs = q == 0 ? xv[a].x : q == 1 ? xv[a].y : q == 2 ? xv[a].z : xv[a].w;
+#pragma unroll
+          for (int j = 0; j < 8; ++j) acc[a][j] = fmaf(xs, hv[j], acc[a][j]);
+        }
+      }
+    }
+    float* dx = static_cast<float*>(outs.p[l]);
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const long t = r0 + ty * 8 + a;
+      if (t < t_len) {
+        float4* row = reinterpret_cast<float4*>(dx + t * C);
+        row[tx] = make_float4(acc[a][0], acc[a][1], acc[a][2], acc[a][3]);
+        row[tx + C / 8] = make_float4(acc[a][4], acc[a][5], acc[a][6], acc[a][7]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
 }  // namespace
 
 extern "C" {
@@ -542,6 +983,71 @@ int ast_pair_gram_bwd(const void* const* taps, void* const* outs, int L, int B, 
       is_bf16 ? dispatch_gram_bwd<__nv_bfloat16>(in, out, hp, L, B, t_len, c_len, rows, s)
               : dispatch_gram_bwd<float>(in, out, hp, L, B, t_len, c_len, rows, s);
   return (int)e;
+}
+
+// The per-layer gram K8f. taps: host array of L device pointers ([T, C = 128],
+// one dtype, 16-byte aligned); chunk: rows per block, a multiple of 64;
+// partial: [L, ceil(T / chunk), C, C] float32 scratch; out: [L, C, C] float32.
+// Returns cudaGetLastError().
+int ast_layer_gram(const void* const* taps, int L, int t_len, int chunk, int is_bf16,
+                   void* partial, void* out, void* stream) {
+  if (L < 1 || L > MAXL || t_len < 1 || chunk < LF_SR || chunk % LF_SR != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  TapPtrs ptrs = {};
+  for (int i = 0; i < L; ++i) ptrs.p[i] = taps[i];
+  const int chunks = (t_len + chunk - 1) / chunk;
+  const dim3 grid(chunks, L);
+  float* pp = (float*)partial;
+  cudaError_t e;
+  if (is_bf16) {
+    e = cudaFuncSetAttribute(gram_layer_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             LF_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    gram_layer_fwd_kernel<<<grid, LF_NT, LF_SMEM, s>>>(ptrs, t_len, chunk, pp);
+  } else {
+    e = cudaFuncSetAttribute(gram_layer_fwd_fma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, FF_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    gram_layer_fwd_fma_kernel<<<grid, FF_NT, FF_SMEM, s>>>(ptrs, t_len, chunk, pp);
+  }
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  const long total = (long)L * C * C;
+  gram_layer_sum_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(pp, (float*)out, L,
+                                                                         chunks);
+  return (int)cudaGetLastError();
+}
+
+// The per-layer gram's backward K8b. taps / outs: host arrays of L device
+// pointers ([T, C = 128], one dtype, 16-byte aligned); dg: [L, C, C] float32;
+// per: (tap, 128-row tile) pairs a block. Returns cudaGetLastError().
+int ast_layer_gram_bwd(const void* const* taps, void* const* outs, int L, int t_len, int per,
+                       int is_bf16, const void* dg, void* stream) {
+  if (L < 1 || L > MAXL || t_len < 1 || per < 1) return (int)cudaErrorInvalidValue;
+  TapPtrs in = {};
+  OutPtrs out = {};
+  for (int i = 0; i < L; ++i) {
+    in.p[i] = taps[i];
+    out.p[i] = outs[i];
+  }
+  const cudaStream_t s = (cudaStream_t)stream;
+  const long pairs = (long)L * ((t_len + LB_TN - 1) / LB_TN);
+  const unsigned blocks = (unsigned)((pairs + per - 1) / per);
+  const float* g = (const float*)dg;
+  cudaError_t e;
+  if (is_bf16) {
+    e = cudaFuncSetAttribute(gram_layer_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             LB_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    gram_layer_bwd_kernel<<<blocks, LB_NT, LB_SMEM, s>>>(in, out, g, L, t_len, per);
+  } else {
+    e = cudaFuncSetAttribute(gram_layer_bwd_fma_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, FB_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    gram_layer_bwd_fma_kernel<<<blocks, LB_NT, FB_SMEM, s>>>(in, out, g, L, t_len, per);
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -49,6 +49,8 @@ _SIGNATURES = {
     "ast_encoder_bwd_dx_mma": [_P] * 5 + [_I] * 5 + [_P],
     "ast_pair_gram": [ctypes.POINTER(_P)] + [_I] * 6 + [_P] * 3,
     "ast_pair_gram_bwd": [ctypes.POINTER(_P)] * 2 + [_I] * 6 + [_P] * 2,
+    "ast_layer_gram": [ctypes.POINTER(_P)] + [_I] * 4 + [_P] * 3,
+    "ast_layer_gram_bwd": [ctypes.POINTER(_P)] * 2 + [_I] * 4 + [_P] * 2,
     "ast_decoder_gate_fwd": [_P] * 5 + [_I] * 4 + [_P],
     "ast_decoder_gate_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "ast_decoder_residual_fwd": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P],
@@ -61,9 +63,11 @@ _lib: ctypes.CDLL | None = None
 # Kernel launches, one count per wrapper call that launched its kernel
 # (K1 trunk forward layer, K2 trunk backward layer, K2wf grouped wavefront
 # trunk backward, K5 gram forward, K6 gram backward, K7f / K7b per-layer
-# encoder block forward / backward; the decoder block's gate and residual
-# epilogues, forward and backward, ops/decoder.py).
+# encoder block forward / backward, K8f / K8b per-layer (Gatys) gram forward /
+# backward; the decoder block's gate and residual epilogues, forward and
+# backward, ops/decoder.py).
 LAUNCHES = {"K1": 0, "K2": 0, "K2wf": 0, "K5": 0, "K6": 0, "K7f": 0, "K7b": 0,
+            "K8f": 0, "K8b": 0,
             "gate_fwd": 0, "gate_bwd": 0, "residual_fwd": 0, "residual_bwd": 0}
 
 

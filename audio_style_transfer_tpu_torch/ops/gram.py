@@ -15,9 +15,18 @@ device and is not taken over. On an NVIDIA H100 80GB HBM3 at 700 W (bf16,
 T=16384, C=128) the plain composition at L=10 is some 200 launches and 2.2
 ms, K6 one launch (PERF.md has the kernels' times).
 
+``layer_gram(*taps)`` maps L taps, each [1, T, C], to the per-layer (Gatys)
+grams ``G[l] = X_l^T X_l``, [L, C, C] float32: K8f forward and K8b backward
+(csrc/gram.cu, ``LayerGram``) on CUDA tensors, the plain float32 matmul
+(``layer_gram_reference``, differentiated by autograd) on CPU tensors. The
+JAX package has no kernel for it (XLA's bf16 einsum, accumulated in float32);
+the kernels read the bf16 taps where they lie, with no copy and no float32
+cast.
+
 The kernels' launch geometry is chosen here, by plain functions the CPU
 tests reach: the tap bucket the kernels are compiled for, K5's time rows per
-partial sum and K6's time rows per block.
+partial sum, K6's time rows per block, K8f's rows per block and K8b's (tap,
+tile) pairs per block.
 """
 
 from __future__ import annotations
@@ -27,6 +36,7 @@ import ctypes
 import torch
 
 from audio_style_transfer_tpu_torch.ops import _build
+from audio_style_transfer_tpu_torch.utils.profiling import span
 
 MAX_TAPS = 32           # taps per K5 or K6 launch
 CHANNEL_BLOCK = 8       # K5 needs C to be a multiple of this
@@ -37,6 +47,11 @@ BWD_STEP = 32           # K6 walks its rows 32 at a time
 # Blocks of K6 resident on an SM, by tap bucket (from the kernels' registers
 # and shared memory; csrc/gram.cu).
 BWD_RESIDENT = {8: 4, 16: 4, 24: 2, 32: 2}
+LAYER_WIDTH = 128       # K8f / K8b take the encoder's width only
+LAYER_ROWS = 64         # K8f's rows per block are a multiple of its stage
+LAYER_TILE = 128        # K8b's rows per tile
+LAYER_FWD_RESIDENT = 2  # K8f blocks resident on an SM (64 KB of shared memory)
+LAYER_BWD_RESIDENT = 1  # K8b (160 KB bf16, 192 KB float32)
 
 
 def tap_bucket(nl: int) -> int:
@@ -69,6 +84,24 @@ def bwd_block_rows(b: int, t: int, c: int, nl: int, sms: int) -> int:
     return max(-(-rows // BWD_STEP) * BWD_STEP, MIN_ROWS)
 
 
+def layer_fwd_chunk_rows(t: int, nl: int, sms: int) -> int:
+    """Time rows per K8f block: T cut into as many chunks a tap as make the
+    grid (chunks x L) about one wave of resident blocks, a multiple of
+    LAYER_ROWS and no fewer than MIN_ROWS. Each chunk leaves one partial
+    gram."""
+    chunks = max(1, sms * LAYER_FWD_RESIDENT // nl)
+    rows = -(-t // chunks)
+    return max(-(-rows // LAYER_ROWS) * LAYER_ROWS, MIN_ROWS)
+
+
+def layer_bwd_pairs_per_block(t: int, nl: int, sms: int) -> int:
+    """(tap, tile) pairs per K8b block: the L x ceil(T / LAYER_TILE) pairs
+    split into one run a resident block, so the grid is one wave whatever L
+    and T."""
+    pairs = nl * -(-t // LAYER_TILE)
+    return -(-pairs // min(pairs, sms * LAYER_BWD_RESIDENT))
+
+
 def pair_gram_reference(*taps: torch.Tensor) -> torch.Tensor:
     """Plain version: float32 einsum over the stacked taps -> [B, L, L, C]."""
     stacked = torch.stack([t.to(torch.float32) for t in taps], dim=1)
@@ -96,6 +129,11 @@ def _check_taps(taps, channel_block: int) -> None:
             raise ValueError(f"tap {i} must be aligned to {ALIGN} bytes")
 
 
+def _tap_ptrs(tensors):
+    """A host array of the tensors' device pointers, as the kernels take them."""
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
 def pair_gram_fwd(*taps: torch.Tensor) -> torch.Tensor:
     """The gram forward: K5 on CUDA, the plain version on the CPU."""
     if taps[0].device.type == "cpu":
@@ -107,9 +145,8 @@ def pair_gram_fwd(*taps: torch.Tensor) -> torch.Tensor:
     rows = fwd_chunk_rows(b, t, c, _build.sm_count(dev.index))
     partial = torch.empty(fwd_scratch_shape(b, t, c, nl, rows), dtype=torch.float32, device=dev)
     out = torch.empty((b, nl, nl, c), dtype=torch.float32, device=dev)
-    ptrs = (ctypes.c_void_p * nl)(*[tp.data_ptr() for tp in taps])
     status = _build.lib().ast_pair_gram(
-        ptrs, nl, b, t, c, rows, int(taps[0].dtype == torch.bfloat16),
+        _tap_ptrs(taps), nl, b, t, c, rows, int(taps[0].dtype == torch.bfloat16),
         partial.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
     _build.check(status, "ast_pair_gram")
     _build.LAUNCHES["K5"] += 1
@@ -148,10 +185,9 @@ def pair_gram_bwd(taps, h: torch.Tensor):
     # One allocation for the L cotangents (each slice stays 16-byte aligned:
     # C is a multiple of 16), handed out as its L views.
     outs = torch.empty((nl, b, t, c), dtype=taps[0].dtype, device=dev).unbind(0)
-    tap_ptrs = (ctypes.c_void_p * nl)(*[tp.data_ptr() for tp in taps])
-    out_ptrs = (ctypes.c_void_p * nl)(*[o.data_ptr() for o in outs])
     status = _build.lib().ast_pair_gram_bwd(
-        tap_ptrs, out_ptrs, nl, b, t, c, bwd_block_rows(b, t, c, nl, _build.sm_count(dev.index)),
+        _tap_ptrs(taps), _tap_ptrs(outs), nl, b, t, c,
+        bwd_block_rows(b, t, c, nl, _build.sm_count(dev.index)),
         int(taps[0].dtype == torch.bfloat16), h.data_ptr(), _build.stream_ptr(dev))
     _build.check(status, "ast_pair_gram_bwd")
     _build.LAUNCHES["K6"] += 1
@@ -175,3 +211,78 @@ def pair_gram(*taps: torch.Tensor) -> torch.Tensor:
     """All-pairs channel-wise gram of L taps, each [B, T, C] -> [B, L, L, C]
     float32."""
     return PairGram.apply(*taps)
+
+
+def layer_gram_reference(*taps: torch.Tensor) -> torch.Tensor:
+    """Plain version: each tap's [C, T] x [T, C] product in float32 after a
+    cast of the concatenated taps -> [L, C, C]."""
+    stl = torch.cat(taps, dim=0).to(torch.float32).transpose(1, 2)  # [L, C, T]
+    return torch.matmul(stl, stl.transpose(1, 2))
+
+
+def _check_layer_taps(taps) -> None:
+    _check_taps(taps, LAYER_WIDTH)
+    if taps[0].shape[0] != 1 or taps[0].shape[2] != LAYER_WIDTH:
+        raise ValueError(f"the per-layer gram kernels take taps [1, T, {LAYER_WIDTH}], "
+                         f"got {tuple(taps[0].shape)}")
+
+
+def layer_gram_fwd(*taps: torch.Tensor) -> torch.Tensor:
+    """K8f (and its sum over the partial grams): [L, C, C] float32 of L CUDA
+    taps, each [1, T, 128] in float32 or bf16."""
+    _check_layer_taps(taps)
+    nl, t = len(taps), taps[0].shape[1]
+    dev = taps[0].device
+    rows = layer_fwd_chunk_rows(t, nl, _build.sm_count(dev.index))
+    c = LAYER_WIDTH
+    partial = torch.empty((nl, -(-t // rows), c, c), dtype=torch.float32, device=dev)
+    out = torch.empty((nl, c, c), dtype=torch.float32, device=dev)
+    status = _build.lib().ast_layer_gram(
+        _tap_ptrs(taps), nl, t, rows, int(taps[0].dtype == torch.bfloat16),
+        partial.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
+    _build.check(status, "ast_layer_gram")
+    _build.LAUNCHES["K8f"] += 1
+    return out
+
+
+def layer_gram_bwd(taps, g: torch.Tensor):
+    """K8b: dX_l = X_l (g_l^T + g_l) for the CUDA taps and the grams'
+    gradient g ([L, C, C] float32), float32 sums rounded once to the taps'
+    dtype. Returns one cotangent per tap."""
+    _check_layer_taps(taps)
+    nl, t = len(taps), taps[0].shape[1]
+    dev, c = taps[0].device, LAYER_WIDTH
+    if (g.device != dev or g.dtype != torch.float32 or tuple(g.shape) != (nl, c, c)
+            or not g.is_contiguous() or g.data_ptr() % ALIGN):
+        raise ValueError(
+            f"g must be a contiguous, {ALIGN}-byte aligned float32 [{nl}, {c}, {c}] tensor on "
+            f"{dev}, got {g.dtype} {tuple(g.shape)} on {g.device}")
+    outs = torch.empty((nl, 1, t, c), dtype=taps[0].dtype, device=dev).unbind(0)
+    status = _build.lib().ast_layer_gram_bwd(
+        _tap_ptrs(taps), _tap_ptrs(outs), nl, t,
+        layer_bwd_pairs_per_block(t, nl, _build.sm_count(dev.index)),
+        int(taps[0].dtype == torch.bfloat16), g.data_ptr(), _build.stream_ptr(dev))
+    _build.check(status, "ast_layer_gram_bwd")
+    _build.LAUNCHES["K8b"] += 1
+    return outs
+
+
+class LayerGram(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, *taps):
+        ctx.save_for_backward(*taps)
+        with span("gram.layer"):
+            return layer_gram_fwd(*taps)
+
+    @staticmethod
+    def backward(ctx, g):
+        with span("gram.layer_bwd"):
+            return layer_gram_bwd(ctx.saved_tensors, g.to(torch.float32).contiguous())
+
+
+def layer_gram(*taps: torch.Tensor) -> torch.Tensor:
+    """Per-layer (Gatys) grams of L taps, each [1, T, C] -> [L, C, C]
+    float32, ``G[l, a, b] = sum_t taps[l][0, t, a] * taps[l][0, t, b]``."""
+    if taps[0].device.type == "cpu":
+        return layer_gram_reference(*taps)
+    return LayerGram.apply(*taps)

@@ -60,7 +60,7 @@ from audio_style_transfer_tpu_torch.models.wavenet_ae import (
     encoder_trunk,
     receptive_field_radius,
 )
-from audio_style_transfer_tpu_torch.ops.gram import pair_gram
+from audio_style_transfer_tpu_torch.ops.gram import layer_gram, pair_gram
 from audio_style_transfer_tpu_torch.parallel.mesh import neighbour_exchange, psum
 from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law, safe_abs
 from audio_style_transfer_tpu_torch.signal.stft import stft, stft_l1
@@ -84,11 +84,10 @@ def _needed(spec: LossSpec) -> tuple:
 def _window_grams(extracts, spec: LossSpec) -> torch.Tensor:
     """Unnormalized partial grams of one window's taps, float32: [C, L, L]
     through the all-pairs gram (K5 on CUDA tensors), or for Gatys [L, C, C]
-    as a plain float32 matmul (no kernel in the JAX package either)."""
+    through the per-layer gram (K8f on CUDA tensors)."""
     ids = spec.style_layer_ids
     if spec.gatys:
-        stl = torch.cat([extracts[i] for i in ids], dim=0).to(_F32).transpose(1, 2)  # [L, C, t]
-        return torch.matmul(stl, stl.transpose(1, 2))
+        return layer_gram(*[extracts[i] for i in ids])
     g = pair_gram(*[extracts[i] for i in ids])  # [1, L, L, C] float32
     return g[0].permute(2, 0, 1)
 

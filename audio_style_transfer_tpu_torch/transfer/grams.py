@@ -3,8 +3,9 @@ audio_style_transfer_tpu/transfer/grams.py).
 
 "ours": channel-wise grams [C, L, L] over the selected taps, through
 ``ops.gram.pair_gram`` (the K5 kernel on CUDA). Gatys: per-layer channel x
-channel grams [L, C, C], a plain matmul (JAX computes it outside any kernel
-too). Both are l2-normalized over their trailing two axes.
+channel grams [L, C, C], through ``ops.gram.layer_gram`` (K8f on CUDA; JAX
+computes it outside any kernel). Both are cast to the taps' dtype and
+l2-normalized over their trailing two axes.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ from typing import Sequence
 
 import torch
 
-from audio_style_transfer_tpu_torch.ops.gram import pair_gram
+from audio_style_transfer_tpu_torch.ops.gram import layer_gram, pair_gram
 
 
 def l2_normalize(x: torch.Tensor, axes=(1, 2), eps: float = 1e-12) -> torch.Tensor:
@@ -45,9 +46,7 @@ def style_gram(extracts, layer_ids: Sequence[int], *, gatys: bool = False,
     ("ours") or [L, C, C] (Gatys)."""
     dtype = extracts[layer_ids[0]].dtype
     if gatys:
-        stl = torch.cat([extracts[i] for i in layer_ids], dim=0).to(torch.float32)
-        stl = stl.transpose(1, 2)  # [L, C, T]
-        gram = torch.matmul(stl, stl.transpose(1, 2)).to(dtype)
+        gram = layer_gram(*[extracts[i] for i in layer_ids]).to(dtype)
         return l2_normalize(gram, axes=(1, 2))
     g = pair_gram(*[extracts[i] for i in layer_ids])  # [1, L, L, C] f32
     gram = l2_normalize(g[0].permute(2, 0, 1).to(dtype), axes=(1, 2))

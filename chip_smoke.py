@@ -36,7 +36,11 @@ Phases (any failure raises and exits non-zero):
      windows and with none; the decoder block's four epilogue kernels
      (ops/decoder.py) at the training step's 32 x 6144 rows against their
      plain versions (the forwards bit for bit), each timed beside its plain
-     version and its bound by bytes;
+     version and its bound by bytes; the per-layer (Gatys) gram kernels
+     K8f/K8b at the 15 s clip's 237568 rows and L=30: K8f against the
+     float64 gram (and closer to it than the plain float32 route), K8b
+     against autograd of the plain route, each timed beside it and its bound
+     from portbench/counts_layer_gram.py;
      then a bare bfloat16 loss+gradient evaluation at stack 0 and at the
      full stack, CUDA events beside the host clock, with the kernel
      launches of one evaluation;
@@ -66,7 +70,7 @@ Phases (any failure raises and exits non-zero):
      with it off; in every run K6 is launched once
      per evaluation that took a gradient, and K5 at least as often; the
      stack-0 and full-stack CLI runs again in float32 (the full-stack final
-     loss held to a band) and the --gatys CLI in both types {K1, K2}, with
+     loss held to a band) and the --gatys CLI in both types {K1, K2, K8f, K8b}, with
      the bf16 / f32 ratio of final losses printed per path; `[tf1
      checkpoint]` a full-size NSynth TF1 bundle of init_params(0) written
      without TensorFlow (tools/tf1_bundle.py, with global_step and optimizer
@@ -213,7 +217,7 @@ TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # Mask bytes can differ only where a value within rounding of zero changes
 # sign; allowed share of differing bytes per layer.
 MASK_TOL = 1e-4
-KERNELS = ("K1", "K2", "K2wf", "K5", "K6", "K7f", "K7b",
+KERNELS = ("K1", "K2", "K2wf", "K5", "K6", "K7f", "K7b", "K8f", "K8b",
            "gate_fwd", "gate_bwd", "residual_fwd", "residual_bwd")
 # The decoder's fused epilogues (ops/decoder.py) in one remat training step of
 # its 30 blocks: the gate in the forward and the re-forward, the residual in
@@ -971,6 +975,15 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
                     **windowed.get(k, {})) for k in errs}
 
 
+# The per-layer (Gatys) grams at the benchmark's 15 s clip, one window: rows
+# and style taps of the full stack. K8f against the float64 gram, relative
+# L2 (the plain float32 route, one product over all the rows, is some 1e-4
+# off); K8b against autograd of the plain route: bf16 rounds nearly the same
+# float32 sums once.
+LAYER_GRAM_ROWS = 237568
+LAYER_GRAM_FWD_TOL = 1e-5
+LAYER_GRAM_BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
+
 # The decoder block's epilogues at the training step's shape: 32 x 6144 rows,
 # 12 hop frames a clip, width 512 (the gate's y is [rows, 1024]), skip 256.
 DECODER_SHAPE = (32, 6144, 12)
@@ -1066,6 +1079,82 @@ def decoder_kernel_phase(dtype_name: str, dev) -> dict:
         print(f"  {name}: {note} ok; kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
               f"({nbytes / 1e6:.0f} MB, {bnd['bound_ms'] / ms:.1%} of it), plain {plain_ms:.4f} ms")
         torch.cuda.empty_cache()
+    return out
+
+
+def layer_gram_kernel_phase(dtype_name: str, dev) -> dict:
+    """K8f and K8b (ops/gram.py::layer_gram_fwd / layer_gram_bwd) at the 15 s
+    clip's rows and the full stack's 30 taps against the plain route
+    (``layer_gram_reference``: the taps concatenated, cast to float32 and
+    multiplied; its autograd for the backward). K8f is held to the float64
+    gram and must come closer to it than the plain route; K8b to the plain
+    route's cotangents, for a float32 gradient (the exact path's). Each kernel
+    and its plain version timed as a replayed CUDA graph; the plain
+    backward's time is its graph of forward and backward less the forward's.
+    Bounds from the benchmark's counts of the kernels' bytes and operations."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import gram
+    from portbench import counts_layer_gram
+
+    dt = getattr(torch, dtype_name)
+    rows, nl = LAYER_GRAM_ROWS, LAYERS
+    gen = torch.Generator(device=dev).manual_seed(23)
+    taps = [torch.randn((1, rows, C), generator=gen, device=dev).to(dt) for _ in range(nl)]
+    g = torch.randn((nl, C, C), generator=gen, device=dev) * 1e-3
+    leaves = [tp.detach().requires_grad_(True) for tp in taps]
+
+    def l2(a, b) -> float:
+        a, b = a.double(), b.double()
+        return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+
+    def plain_fwd():
+        return gram.layer_gram_reference(*taps)
+
+    def plain_fwd_bwd():
+        return torch.autograd.grad(gram.layer_gram_reference(*leaves), leaves, g)
+
+    print(f"[layer gram kernels {dtype_name}] {rows} rows, L={nl}, C={C}")
+    got, plain = gram.layer_gram_fwd(*taps), plain_fwd()
+    exact = torch.stack([tp[0].double().T @ tp[0].double() for tp in taps])
+    fwd_rel, plain_rel = l2(got, exact), l2(plain, exact)
+    fwd_err = float((got.double() - exact).abs().max())
+    if fwd_rel > LAYER_GRAM_FWD_TOL or fwd_rel >= plain_rel:
+        raise AssertionError(f"[layer gram kernels {dtype_name}] K8f: rel L2 {fwd_rel:.3e} to "
+                             f"the float64 gram, the plain route {plain_rel:.3e}")
+    print(f"  K8f: rel L2 {fwd_rel:.3e} to the float64 gram (tol {LAYER_GRAM_FWD_TOL:.0e}; "
+          f"the plain route {plain_rel:.3e}, K8f to it {l2(got, plain):.3e}), max|d| "
+          f"{fwd_err:.3e} ok")
+    del got, plain, exact
+    outs, want = gram.layer_gram_bwd(taps, g), plain_fwd_bwd()
+    bwd_rel = max(l2(a, w) for a, w in zip(outs, want))
+    bwd_err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(outs, want))
+    tol = LAYER_GRAM_BWD_TOL[dtype_name]
+    if bwd_rel > tol or any(a.dtype != dt for a in outs):
+        raise AssertionError(f"[layer gram kernels {dtype_name}] K8b: worst rel L2 "
+                             f"{bwd_rel:.3e} to the plain route (tol {tol:.0e})")
+    print(f"  K8b: worst rel L2 {bwd_rel:.3e} over {nl} cotangents to the plain route "
+          f"(tol {tol:.0e}), max|d| {bwd_err:.3e} ok")
+    del outs, want
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    plain_fwd_ms = cuda_ms(plain_fwd, graph=True)
+    times = {
+        "K8f": (cuda_ms(lambda: gram.layer_gram_fwd(*taps), graph=True), plain_fwd_ms,
+                fwd_err, counts_layer_gram.k8f(rows, C, nl, dtype_name)),
+        "K8b": (cuda_ms(lambda: gram.layer_gram_bwd(taps, g), graph=True),
+                cuda_ms(plain_fwd_bwd, graph=True) - plain_fwd_ms,
+                bwd_err, counts_layer_gram.k8b(rows, C, nl, dtype_name)),
+    }
+    out = {}
+    for name, (ms, plain_ms, err, (nbytes, ops)) in times.items():
+        bnd = bound(nbytes, ops, dtype_name)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, fma_ms=None,
+                         library_ms=None, **bnd)
+        print(f"  {name}: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+              f"{bnd['bound_by']} ({bnd['bound_ms'] / ms:.1%} of it), plain {plain_ms:.4f} ms")
+    del taps, leaves
+    torch.cuda.empty_cache()
     return out
 
 
@@ -1389,22 +1478,21 @@ def longform_phase(dev, wavefront: bool, epochs: int):
 
 def check_launches(label: str, launches: dict, expected: set, grad_evals: int) -> None:
     """The path launched every kernel of ``expected`` and no other, and its
-    gram backward is K6 and nothing else: one launch per evaluation that took
-    a gradient, each after a K5 of its own (K5 also runs in the gradient-free
-    passes that make the targets)."""
+    gram backward (K6, or K8b for the Gatys gram) and nothing else: one launch
+    per evaluation that took a gradient, each after a forward (K5, K8f) of its
+    own (the forward also runs in the gradient-free passes that make the
+    targets)."""
     missing = [k for k in sorted(expected) if launches[k] == 0]
     extra = [k for k in KERNELS if k not in expected and launches[k] != 0]
     if missing or extra:
         raise AssertionError(f"{label}: kernels not launched {missing}, launched but not on "
                              f"this path {extra}: {launches}")
-    if "K6" not in expected:  # the Gatys gram is a plain matmul: no gram kernel at all
-        print(f"[{label}] launches {launches}: {sorted(expected)} all > 0, the rest 0 ok")
-        return
-    if launches["K6"] != grad_evals or launches["K5"] < grad_evals:
-        raise AssertionError(f"{label}: K6 {launches['K6']} and K5 {launches['K5']} launches for "
-                             f"{grad_evals} evaluations that took a gradient")
-    print(f"[{label}] launches {launches}: {sorted(expected)} all > 0, the rest 0; K6 == "
-          f"{grad_evals} gradient evaluations <= K5 ok")
+    fwd, bwd = ("K8f", "K8b") if "K8b" in expected else ("K5", "K6")
+    if launches[bwd] != grad_evals or launches[fwd] < grad_evals:
+        raise AssertionError(f"{label}: {bwd} {launches[bwd]} and {fwd} {launches[fwd]} launches "
+                             f"for {grad_evals} evaluations that took a gradient")
+    print(f"[{label}] launches {launches}: {sorted(expected)} all > 0, the rest 0; {bwd} == "
+          f"{grad_evals} gradient evaluations <= {fwd} ok")
 
 
 def check_losses(label: str, losses, audio_or_x, samples: int = T, band=None) -> None:
@@ -4075,6 +4163,7 @@ def main() -> int:
     for dtype_name in ("float32", "bfloat16"):
         results[dtype_name] = kernel_phase(dtype_name, params, dev)
         results[dtype_name].update(decoder_kernel_phase(dtype_name, dev))
+        results[dtype_name].update(layer_gram_kernel_phase(dtype_name, dev))
         exact_shapes[dtype_name] = exact_shapes_phase(dtype_name, params, dev)
     slice_phase(params, dev, STYLE, (29,))
     slice_phase(params, dev, FULL, (25,))
@@ -4086,7 +4175,7 @@ def main() -> int:
     cli_paths = {  # path: (CLI arguments, kernels, band of the float32 final loss)
         "cli stack 0": (["--stack", "0"], grams, None),
         "cli full stack": (["--cont_lyrs", "25"], grams, (F32_FULL_STACK_LOSS, F32_BAND)),
-        "cli gatys": (["--gatys", "--stack", "0"], {"K1", "K2"}, None),
+        "cli gatys": (["--gatys", "--stack", "0"], {"K1", "K2", "K8f", "K8b"}, None),
     }
     runs = {}
     for label, (path_args, expected, band) in cli_paths.items():
@@ -4154,6 +4243,9 @@ def main() -> int:
                     ("residual_bwd", "decoder residual and skip backward")):
         meta[k] = (f"{name}, 32 x 6144", src + "decoder.cu",
                    "none (XLA fuses these ops in the JAX package)", k)
+    for k, name in (("K8f", "per-layer gram forward"), ("K8b", "per-layer gram backward")):
+        meta[k] = (f"{name}, {LAYER_GRAM_ROWS} rows, L=30", src + "gram.cu",
+                   "none (XLA's einsum in the JAX package, transfer/grams.py:72-79)", k)
     kernels = []
     for k, (name, source, replaces, key) in meta.items():
         r = results["bfloat16"][key]
