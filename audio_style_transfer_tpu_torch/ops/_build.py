@@ -55,6 +55,7 @@ _SIGNATURES = {
     "ast_decoder_gate_bwd": [_P] * 7 + [_I] * 4 + [_P],
     "ast_decoder_residual_fwd": [_P] * 4 + [_I] + [_P] * 4 + [_I] * 3 + [_P],
     "ast_decoder_residual_bwd": [_P, _I, _P] + [_I] * 3 + [_P] * 2 + [_I, _P],
+    "ast_taps_pack": [_P] * 2 + [_I] * 6 + [_P],
 }
 
 _lock = threading.Lock()
@@ -65,10 +66,12 @@ _lib: ctypes.CDLL | None = None
 # trunk backward, K5 gram forward, K6 gram backward, K7f / K7b per-layer
 # encoder block forward / backward, K8f / K8b per-layer (Gatys) gram forward /
 # backward; the decoder block's gate and residual epilogues, forward and
-# backward, ops/decoder.py).
+# backward, ops/decoder.py; the merged-taps pack of the bf16 convs,
+# ops/conv.py).
 LAUNCHES = {"K1": 0, "K2": 0, "K2wf": 0, "K5": 0, "K6": 0, "K7f": 0, "K7b": 0,
             "K8f": 0, "K8b": 0,
-            "gate_fwd": 0, "gate_bwd": 0, "residual_fwd": 0, "residual_bwd": 0}
+            "gate_fwd": 0, "gate_bwd": 0, "residual_fwd": 0, "residual_bwd": 0,
+            "taps_pack": 0}
 
 
 def reset_launches() -> None:

@@ -7,7 +7,9 @@ non-causal is a symmetric pad of ((F-1)//2 * d), causal a left pad of
 input's dtype once, as the JAX path does: on the CPU and in float32 through
 float32 products, one per tap; on bfloat16 CUDA tensors as one bfloat16
 product on the tensor cores (the taps merged along the reduction axis), in
-the forward and in both gradients, see ``conv1d``.
+the forward and in both gradients, see ``conv1d``. The merged-taps operand
+of a CUDA tensor is written by one hand-written kernel (``taps_pack``,
+csrc/conv.cu); of a CPU tensor it is the plain pad and concatenation.
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ import contextlib
 
 import torch
 import torch.nn.functional as F
+
+from audio_style_transfer_tpu_torch.ops import _build
+
+ALIGN = 16  # bytes: the pack kernel moves 16-byte pieces
+VEC = 8     # bf16 channels in a piece: the width must be a multiple of this
 
 
 def _offsets(filter_length: int, dilation: int, causal: bool) -> list[int]:
@@ -53,9 +60,46 @@ def _float32_reduction():
         m.allow_bf16_reduced_precision_reduction = before
 
 
+def taps_pack(x: torch.Tensor, offsets) -> torch.Tensor:
+    """[B, T, F*C] with out[b, t, k*C + c] = x[b, t + o_k, c], zero off the
+    clip, by the pack kernel (csrc/conv.cu) in one pass over x. x: a
+    contiguous, 16-byte aligned bfloat16 CUDA tensor [B, T, C], C a multiple
+    of 8; offsets: at least two, evenly spaced. Raises on anything else."""
+    if x.dim() != 3:
+        raise ValueError(f"taps_pack: x must be [B, T, C], got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"taps_pack: the kernel takes bfloat16, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("taps_pack: x must be contiguous")
+    b, t, c = x.shape
+    if c % VEC:
+        raise ValueError(f"taps_pack: C = {c} must be a multiple of {VEC}")
+    f = len(offsets)
+    step = offsets[1] - offsets[0] if f > 1 else 0
+    if f < 2 or any(o != offsets[0] + k * step for k, o in enumerate(offsets)):
+        raise ValueError(f"taps_pack: offsets {list(offsets)} are not two or more evenly "
+                         "spaced taps")
+    if x.device.type != "cuda":
+        raise RuntimeError(f"taps_pack: the kernel runs on CUDA tensors, got {x.device}")
+    if x.data_ptr() % ALIGN:
+        raise ValueError(f"taps_pack: x must be aligned to {ALIGN} bytes")
+    out = torch.empty((b, t, f * c), dtype=x.dtype, device=x.device)
+    status = _build.lib().ast_taps_pack(x.data_ptr(), out.data_ptr(), b, t, c, f, offsets[0],
+                                        step, _build.stream_ptr(x.device))
+    _build.check(status, "ast_taps_pack")
+    _build.LAUNCHES["taps_pack"] += 1
+    return out
+
+
 def _side_by_side(x: torch.Tensor, offsets) -> torch.Tensor:
-    """[B, T, F*C]: the shifted views of x concatenated along channels."""
-    return x if offsets == [0] else torch.cat(_shifted_by(x, offsets), dim=-1)
+    """[B, T, F*C]: the shifted views of x side by side along channels; x
+    itself for the one tap [0]. A CUDA tensor takes the pack kernel
+    (``taps_pack``), a CPU tensor the plain pad and concatenation."""
+    if offsets == [0]:
+        return x
+    if x.is_cuda:
+        return taps_pack(x, offsets)
+    return torch.cat(_shifted_by(x, offsets), dim=-1)
 
 
 class _MergedTapsConv(torch.autograd.Function):
@@ -65,11 +109,12 @@ class _MergedTapsConv(torch.autograd.Function):
     [B*T, F*Cout] @ [F*Cout, Cin]. Every product sums in float32 and rounds
     once to the operands' type (reduced-precision split-K off). An output
     that reaches no loss (the last decoder block's residual) gets no
-    gradient and runs no product."""
+    gradient and runs no product. The pack takes contiguous rows: a strided
+    input or cotangent (an expanded one, say) is copied once first."""
 
     @staticmethod
     def forward(ctx, x, w, offsets):
-        xs = _side_by_side(x, offsets)
+        xs = _side_by_side(x.contiguous(), offsets)
         ctx.save_for_backward(xs, w)  # as autograd would keep it for xs @ w
         ctx.offsets = offsets
         ctx.set_materialize_grads(False)
@@ -86,7 +131,7 @@ class _MergedTapsConv(torch.autograd.Function):
         with _float32_reduction():
             if ctx.needs_input_grad[0]:
                 w_t = w.transpose(1, 2).reshape(f * cout, cin)
-                dx = _side_by_side(g, [-o for o in ctx.offsets]) @ w_t
+                dx = _side_by_side(g.contiguous(), [-o for o in ctx.offsets]) @ w_t
             if ctx.needs_input_grad[1]:
                 dw = (xs.reshape(-1, f * cin).T @ g.reshape(-1, cout)).view(f, cin, cout)
         return dx, dw, None

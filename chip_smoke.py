@@ -40,7 +40,9 @@ Phases (any failure raises and exits non-zero):
      K8f/K8b at the 15 s clip's 237568 rows and L=30: K8f against the
      float64 gram (and closer to it than the plain float32 route), K8b
      against autograd of the plain route, each timed beside it and its bound
-     from portbench/counts_layer_gram.py;
+     from portbench/counts_layer_gram.py; in bfloat16 the merged-taps pack
+     (ops/conv.py::taps_pack) at the training step's shapes, bit for bit the
+     plain pad and concatenation, timed beside it and its bound by bytes;
      then a bare bfloat16 loss+gradient evaluation at stack 0 and at the
      full stack, CUDA events beside the host clock, with the kernel
      launches of one evaluation;
@@ -105,8 +107,9 @@ Phases (any failure raises and exits non-zero):
      and the recompute against plain autograd, each path's time and peak
      memory, and `[train step float32|bfloat16]` TrainConfig()'s
      step (32 x 6144, remat on): 10 steps on one batch, the loss falling,
-     exactly STEP_LAUNCHES per step (K1 and K2 30 each, the decoder's gate
-     forward 60, the rest of its epilogue kernels 30), ms per step against the
+     exactly STEP_LAUNCHES of its type per step (K1 and K2 30 each, the
+     decoder's gate forward 60, the rest of its epilogue kernels 30; in
+     bfloat16 the pack kernel TAPS_PACK_STEP times), ms per step against the
      bound of its operations, samples/s, peak memory, and one step's split
      under torch.profiler (device time by kind, the trunk's weight
      recompute, Adam and the EMA; the busy share); `[train fit]` ``fit``
@@ -132,7 +135,8 @@ Phases (any failure raises and exits non-zero):
      card per rank), each phase against this process's single-rank run:
      `[dp train gloo, 2 ranks on one card]` 3 f32 steps at full width on a
      global batch of 4 x 2048 (losses, the weights after step 1, both ranks
-     bit for bit, STEP_LAUNCHES per rank per step), `[clip sharded]`
+     bit for bit, STEP_LAUNCHES per rank per step, the float32 ones),
+     `[clip sharded]`
      ``optimize_batch(mesh=)`` of 8 clips at T=16384 (stack 0, bf16, 2
      epochs of maxiter 20; aggregate evals/s both ways), `[longform
      sharded]` ``transfer_longform(mesh=, windows_per_device=1)`` on the
@@ -218,15 +222,22 @@ TOL = {"float32": 2e-5, "bfloat16": 1e-2}
 # sign; allowed share of differing bytes per layer.
 MASK_TOL = 1e-4
 KERNELS = ("K1", "K2", "K2wf", "K5", "K6", "K7f", "K7b", "K8f", "K8b",
-           "gate_fwd", "gate_bwd", "residual_fwd", "residual_bwd")
+           "gate_fwd", "gate_bwd", "residual_fwd", "residual_bwd", "taps_pack")
 # The decoder's fused epilogues (ops/decoder.py) in one remat training step of
 # its 30 blocks: the gate in the forward and the re-forward, the residual in
 # the forward alone (the re-forward stops at the last tensor the backward
 # keeps, the gated input of the res and skip products), each backward once.
 DECODER_LAYERS = 30
-STEP_LAUNCHES = {"K1": LAYERS, "K2": LAYERS, "gate_fwd": 2 * DECODER_LAYERS,
-                 "gate_bwd": DECODER_LAYERS, "residual_fwd": DECODER_LAYERS,
-                 "residual_bwd": DECODER_LAYERS}
+# The merged-taps pack (ops/conv.py::taps_pack) in one bf16 step: each decoder
+# dilated conv's forward, re-forward and input gradient; in the trunk's weight
+# recompute (ops/chain.py::TrunkFunction, reference_trunk through conv1d) each
+# encoder layer's input and every layer's cotangent but the first's. A float32
+# step packs nothing (one float32 product per tap).
+TAPS_PACK_STEP = 3 * DECODER_LAYERS + 2 * LAYERS - 1
+STEP_LAUNCHES = {dtype_name: {"K1": LAYERS, "K2": LAYERS, "gate_fwd": 2 * DECODER_LAYERS,
+                              "gate_bwd": DECODER_LAYERS, "residual_fwd": DECODER_LAYERS,
+                              "residual_bwd": DECODER_LAYERS, "taps_pack": packs}
+                 for dtype_name, packs in (("float32", 0), ("bfloat16", TAPS_PACK_STEP))}
 # Published peaks of one H100 SXM: device memory rate, and dense operation
 # rates by the type of the inputs (float32 outside the tensor cores).
 PEAK_BYTES_S = 3.35e12
@@ -1079,6 +1090,67 @@ def decoder_kernel_phase(dtype_name: str, dev) -> dict:
         print(f"  {name}: {note} ok; kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
               f"({nbytes / 1e6:.0f} MB, {bnd['bound_ms'] / ms:.1%} of it), plain {plain_ms:.4f} ms")
         torch.cuda.empty_cache()
+    return out
+
+
+# The pack's cases at the training step's rows, F=3 causal (ops/conv.py::taps_pack): the
+# decoder's dilated conv input x and its output's cotangent g, packed with the taps negated for
+# the input gradient; dilations 1 and 512, the decoder's shortest and longest.
+TAPS_PACK_CASES = {  # name: (channels, dilation, negated)
+    "x d=1": (512, 1, False), "x d=512": (512, 512, False),
+    "g d=1": (1024, 1, True), "g d=512": (1024, 512, True),
+}
+
+
+def taps_pack_phase(dev) -> dict:
+    """The merged-taps pack kernel (csrc/conv.cu) at the training step's 32 x
+    6144 rows in bfloat16 against the plain route it replaced (``F.pad`` and
+    ``torch.cat`` of the shifted views): bit for bit; each timed as a
+    replayed CUDA graph beside the plain route and its bound (one read of the
+    input, one write of the operand, over the memory rate). Per step, the
+    decoder's share: 60 x packs and 30 g packs, at the mean of the two
+    dilations."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import conv
+
+    b, t = TRAIN_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(22)
+    out = {}
+    print(f"[taps pack] {b} x {t} rows, F=3 causal, bfloat16")
+    for name, (c, d, negated) in TAPS_PACK_CASES.items():
+        offsets = conv._offsets(3, d, True)
+        if negated:
+            offsets = [-o for o in offsets]
+        x = torch.randn((b, t, c), generator=gen, device=dev).to(torch.bfloat16)
+
+        def kernel():
+            return conv.taps_pack(x, offsets)
+
+        def plain():
+            return torch.cat(conv._shifted_by(x, offsets), dim=-1)
+
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[taps pack] {name}: not bit for bit the plain route")
+        del got, want
+        ms = cuda_ms(kernel, graph=True)
+        plain_ms = cuda_ms(plain, graph=True)
+        nbytes = x.numel() * x.element_size() * (1 + len(offsets))
+        bnd = bound(nbytes, 0.0, "bfloat16")
+        out[f"TP {name}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, fma_ms=None,
+                                 library_ms=None, **bnd)
+        print(f"  {name} (C {c}, offsets {offsets}): bit for bit ok; kernel {ms:.4f} ms, bound "
+              f"{bnd['bound_ms']:.4f} ms ({nbytes / 1e6:.0f} MB, {bnd['bound_ms'] / ms:.1%} of "
+              f"it), plain {plain_ms:.4f} ms")
+        del x
+        torch.cuda.empty_cache()
+    per_step = {key: 30 * sum((2 if n.startswith("x") else 1) * out[f"TP {n}"][key]
+                              for n in TAPS_PACK_CASES) / 2
+                for key in ("ms", "bound_ms", "plain_ms")}
+    print(f"[taps pack] a training step's 90 decoder packs: kernel {per_step['ms']:.1f} ms, "
+          f"bound {per_step['bound_ms']:.1f} ms, plain {per_step['plain_ms']:.1f} ms")
     return out
 
 
@@ -2618,7 +2690,7 @@ def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
     st = tr.init_state()
     wav = torch.from_numpy(train_batch(TRAIN_SHAPE, 2)).to(dev)
     losses, ms, peaks = [], [], []
-    want = {k: STEP_LAUNCHES.get(k, 0) for k in KERNELS}
+    want = {k: STEP_LAUNCHES[dtype_name].get(k, 0) for k in KERNELS}
     totals = {k: 0 for k in KERNELS}
     for i in range(TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -2631,7 +2703,7 @@ def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
         peaks.append(torch.cuda.max_memory_allocated(dev) / 1e9)
         if dict(_build.LAUNCHES) != want:
             raise AssertionError(f"[{label}] step {i} launched {dict(_build.LAUNCHES)}, want "
-                                 f"{STEP_LAUNCHES} and nothing else")
+                                 f"{STEP_LAUNCHES[dtype_name]} and nothing else")
         for k, v in _build.LAUNCHES.items():
             totals[k] += v
         losses.append(float(loss))
@@ -2645,7 +2717,7 @@ def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
     busy = split["busy_ms"] / split["wall_ms"]
     print(f"[{label}] {b} x {t} samples, remat on, full width: {TRAIN_STEPS} steps on one "
           f"batch, losses {[round(v, 4) for v in losses]} (falling ok); launches per step "
-          f"{STEP_LAUNCHES}, the rest 0, every step ok")
+          f"{STEP_LAUNCHES[dtype_name]}, the rest 0, every step ok")
     print(f"[{label}] step ms {[round(v, 1) for v in timed]} (median {step_ms:.1f}; the first, "
           f"with warm-up, {ms[0]:.1f}); {b * t / step_ms * 1e3:.0f} samples/s; bound "
           f"{bnd['bound_ms']:.1f} ms ({flops / 1e12:.2f} TFLOP over the {dtype_name} peak), "
@@ -2810,14 +2882,15 @@ LONGFORM_TOL = (2e-4, 1e-4)  # sharded long-form audio: rtol, atol (tests/test_l
 GLOO_DEADLINE_S = 900.0
 
 
-def _step_launches(label: str, i: int) -> dict:
-    """The launches of one training step, which must be STEP_LAUNCHES."""
+def _step_launches(label: str, i: int, dtype_name: str) -> dict:
+    """The launches of one training step, which must be STEP_LAUNCHES of its
+    type."""
     from audio_style_transfer_tpu_torch.ops import _build
 
-    want = {k: STEP_LAUNCHES.get(k, 0) for k in KERNELS}
+    want = {k: STEP_LAUNCHES[dtype_name].get(k, 0) for k in KERNELS}
     if dict(_build.LAUNCHES) != want:
         raise AssertionError(f"[{label}] step {i} launched {dict(_build.LAUNCHES)}, want "
-                             f"{STEP_LAUNCHES} and nothing else")
+                             f"{STEP_LAUNCHES[dtype_name]} and nothing else")
     return want
 
 
@@ -2851,7 +2924,7 @@ def dp_nccl_phase(dev, smi: str, mesh) -> dict:
             st, loss = tr.step(st, wav)
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
-            for k, v in _step_launches(label, i).items():
+            for k, v in _step_launches(label, i, "bfloat16").items():
                 totals[k] += v
             losses.append(loss.detach())
         runs[name] = (torch.stack(losses).cpu(),
@@ -2867,7 +2940,7 @@ def dp_nccl_phase(dev, smi: str, mesh) -> dict:
     same = torch.equal(l0, l1) and all(torch.equal(a, b) for a, b in zip(w0, w1))
     print(f"[{label}] {backend}, {TRAIN_SHAPE[0]} x {TRAIN_SHAPE[1]} bf16, {DP_STEPS} steps: "
           f"losses {[round(float(v), 6) for v in l1]}; params and EMA equal mesh=None's bit for "
-          f"bit: {'ok' if same else 'FAIL'}; launches per step {STEP_LAUNCHES} ok")
+          f"bit: {'ok' if same else 'FAIL'}; launches per step {STEP_LAUNCHES['bfloat16']} ok")
     print(f"[{label}] ms per step (first with warm-up): mesh=None {[round(v, 1) for v in ms0]}, "
           f"make_mesh(1) {[round(v, 1) for v in ms1]}; all-reduce of the {n_weights} gradients "
           f"and the loss ({4 * (n_weights + 1) / 1e6:.1f} MB f32) alone {reduce_ms:.3f} ms "
@@ -2958,7 +3031,7 @@ def gloo_rank(rank: int, tmp: str) -> None:
         dist.barrier()
         (st, loss), wall, _ = _timed_launches(
             lambda: tr.step(st, train_batch(DP_GLOO_SHAPE, 30 + i)))
-        for k, v in _step_launches(f"dp train gloo, rank {rank}", i).items():
+        for k, v in _step_launches(f"dp train gloo, rank {rank}", i, "float32").items():
             launches[k] += v
         losses.append(float(loss))
         ms.append(wall * 1e3)
@@ -3002,7 +3075,7 @@ def gloo_phases(dev, smi: str) -> tuple[dict, dict]:
       against one Trainer on the whole batch: loss per step rel DP_TOL; after
       the first step at most TRAIN_FLIP_SHARE of the params differ by more
       than 1e-6; params and EMA after the last step equal on both ranks bit
-      for bit; STEP_LAUNCHES per rank per step;
+      for bit; the float32 STEP_LAUNCHES per rank per step;
     - ``optimize_batch(mesh=)`` of CLIP_K clips (T, stack 0, bf16, CLIP_EPOCHS
       epochs of CLIP_MAXITER iterations, no early stop) against ``mesh=None``:
       max|d| stated (0 expected: each clip runs the same code on the same
@@ -3073,7 +3146,7 @@ def gloo_phases(dev, smi: str) -> tuple[dict, dict]:
           f"{learning_rate(0):.0e}), {moved} of {off} differ by more than 1e-6 (<= "
           f"{TRAIN_FLIP_SHARE:.0e} of them); params and EMA after step {DP_STEPS} equal on "
           f"both ranks bit for bit: {'ok' if equal else 'FAIL'}; launches per rank per step "
-          f"{STEP_LAUNCHES} ok")
+          f"{STEP_LAUNCHES['float32']} ok")
     print(f"[{label}] ms per step (first with warm-up) by rank "
           f"{[[round(float(v), 1) for v in r['dp_ms']] for r in ranks]}, one process on the "
           f"whole batch {[round(v, 1) for v in ref_ms]} ({smi})")
@@ -4164,6 +4237,8 @@ def main() -> int:
         results[dtype_name] = kernel_phase(dtype_name, params, dev)
         results[dtype_name].update(decoder_kernel_phase(dtype_name, dev))
         results[dtype_name].update(layer_gram_kernel_phase(dtype_name, dev))
+        if dtype_name == "bfloat16":
+            results[dtype_name].update(taps_pack_phase(dev))
         exact_shapes[dtype_name] = exact_shapes_phase(dtype_name, params, dev)
     slice_phase(params, dev, STYLE, (29,))
     slice_phase(params, dev, FULL, (25,))
@@ -4267,6 +4342,15 @@ def main() -> int:
         if k in ("K1", "K2"):  # layer by layer at the training step's 32 x 6144 rows
             kernels[-1].update(train_shape_max_abs_err=train_trunk["bfloat16"][k.lower()],
                                train_shape_f32_max_abs_err=train_trunk["float32"][k.lower()])
+    for name in TAPS_PACK_CASES:  # one kernel: the main paths' launches, shared by its cases
+        r = results["bfloat16"][f"TP {name}"]
+        kernels.append({"name": f"TP merged-taps pack, {name}, 32 x 6144 (bf16)", "route": "cuda",
+                        "source": src + "conv.cu",
+                        "replaces": "none (XLA's conv reads the taps in place in the JAX package)",
+                        "launches": launches["taps_pack"], "launches_of": "every case",
+                        "max_abs_err": r["max_abs_err"],
+                        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"], "library_ms": None})
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
