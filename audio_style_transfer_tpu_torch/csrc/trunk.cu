@@ -3,11 +3,11 @@
 //
 // This file is the float32 path of K1, K2 and the per-layer encoder blocks
 // K7f and K7b (TF32 would not keep float32's digits, so float32 products stay
-// on the CUDA cores), and (through trunk_tiles.h) what the grouped backward
-// K2-wf is built on. For bfloat16 tensors K1, K2, K7f and K7b run on the
-// tensor cores instead (trunk_mma.cu); the bfloat16 instantiation here stays
-// callable (ops/chain.py::layer_fwd_fma, layer_bwd_fma,
-// ops/encoder.py::block_fwd_fma, block_bwd_fma) for comparisons.
+// on the CUDA cores), and (through trunk_tiles.h) what the float32 grouped
+// backward K2-wf is built on. For bfloat16 tensors K1, K2, K7f and K7b run on
+// the tensor cores instead (trunk_mma.cu), so only the float32 build of these
+// kernels is compiled; they stay templates on the storage type, which keeps
+// their names (the trace readers sort kernels by name).
 //
 // Replaces: audio_style_transfer_tpu/ops/pallas_chain.py::_fwd_group_kernel
 // (K1) and ::_bwd_group_kernel (K2). The TPU kernels chain groups of up to
@@ -399,50 +399,39 @@ const char* ast_error_string(int status) { return cudaGetErrorString((cudaError_
 // Each entry returns cudaGetLastError() after its launches (0 on success).
 
 // K1: one trunk layer forward with its mask bytes; [lo, hi) is the valid
-// window in in-clip rows, [0, clip_rows) for none.
+// window in in-clip rows, [0, clip_rows) for none. All tensors are float32
+// except the mask bytes.
 int ast_trunk_fwd(const void* x, const void* wd, const void* bd, const void* wr,
                   const void* br, void* out, void* mask, void* inmask, int rows,
-                  int clip_rows, int d, int lo, int hi, int is_bf16, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(is_bf16 ? launch_fwd<__nv_bfloat16, true>(x, wd, bd, wr, br, out, mask,
-                                                         inmask, rows, clip_rows, d, lo, hi, s)
-                       : launch_fwd<float, true>(x, wd, bd, wr, br, out, mask, inmask, rows,
-                                                 clip_rows, d, lo, hi, s));
+                  int clip_rows, int d, int lo, int hi, void* stream) {
+  return (int)launch_fwd<float, true>(x, wd, bd, wr, br, out, mask, inmask, rows, clip_rows, d,
+                                      lo, hi, (cudaStream_t)stream);
 }
 
 // K2: both backward phases for one layer; `dy` is caller-allocated scratch;
 // [lo, hi) as in ast_trunk_fwd.
 int ast_trunk_bwd(const void* dxn, const void* dtap, const void* mask,
                   const void* inmask, const void* wd, const void* wr, void* dy, void* dx,
-                  int rows, int clip_rows, int d, int lo, int hi, int is_bf16, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(is_bf16 ? launch_trunk_bwd<__nv_bfloat16>(dxn, dtap, mask, inmask, wd, wr, dy,
-                                                         dx, rows, clip_rows, d, lo, hi, s)
-                       : launch_trunk_bwd<float>(dxn, dtap, mask, inmask, wd, wr, dy, dx,
-                                                 rows, clip_rows, d, lo, hi, s));
+                  int rows, int clip_rows, int d, int lo, int hi, void* stream) {
+  return (int)launch_trunk_bwd<float>(dxn, dtap, mask, inmask, wd, wr, dy, dx, rows, clip_rows,
+                                      d, lo, hi, (cudaStream_t)stream);
 }
 
 // K7f: one encoder block forward, output only; [lo, hi) as in ast_trunk_fwd.
 int ast_encoder_fwd(const void* x, const void* wd, const void* bd, const void* wr,
                     const void* br, void* out, int rows, int clip_rows, int d, int lo, int hi,
-                    int is_bf16, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(is_bf16 ? launch_fwd<__nv_bfloat16, false>(x, wd, bd, wr, br, out, nullptr,
-                                                          nullptr, rows, clip_rows, d, lo, hi, s)
-                       : launch_fwd<float, false>(x, wd, bd, wr, br, out, nullptr, nullptr,
-                                                  rows, clip_rows, d, lo, hi, s));
+                    void* stream) {
+  return (int)launch_fwd<float, false>(x, wd, bd, wr, br, out, nullptr, nullptr, rows,
+                                       clip_rows, d, lo, hi, (cudaStream_t)stream);
 }
 
 // K7b: the block's dx from its input x and output cotangent g, recomputing
 // the gate; `dy` is caller-allocated scratch; [lo, hi) as in ast_trunk_bwd.
 int ast_encoder_bwd(const void* x, const void* g, const void* wd, const void* bd,
                     const void* wr, void* dy, void* dx, int rows, int clip_rows, int d, int lo,
-                    int hi, int is_bf16, void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(is_bf16 ? launch_encoder_bwd<__nv_bfloat16>(x, g, wd, bd, wr, dy, dx, rows,
-                                                           clip_rows, d, lo, hi, s)
-                       : launch_encoder_bwd<float>(x, g, wd, bd, wr, dy, dx, rows, clip_rows,
-                                                   d, lo, hi, s));
+                    int hi, void* stream) {
+  return (int)launch_encoder_bwd<float>(x, g, wd, bd, wr, dy, dx, rows, clip_rows, d, lo, hi,
+                                        (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -473,40 +473,9 @@ trunk_bwd_dx_mma_kernel(const bf16* __restrict__ dxn, const bf16* __restrict__ d
   }
 }
 
-// One product alone, for testing the staging and fragment code:
-// out[rows, C] (float32) = a[rows, C] @ (w or w^T).
-template <bool kTransposed>
-__global__ void __launch_bounds__(NT, 1)
-product_mma_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w,
-                   float* __restrict__ out, int rows) {
-  extern __shared__ __align__(1024) uint8_t smem[];
-  const uint32_t wsm = smem_addr(smem), act = wsm + WBYTES;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const long row0 = (long)blockIdx.x * TM;
-  stage_weight<NT>(wsm, w);
-  stage_rows(act, a, 0, TM, row0, rows);
-  cp_async_commit();
-  cp_async_wait(0);
-  __syncthreads();
-  float acc[16][4];
-  zero(acc);
-  tap_product<kTransposed, false>(acc, act, warp * 16, wsm, true, true, lane);
-  const long r_lo = row0 + warp * 16 + g;
-#pragma unroll
-  for (int j = 0; j < 16; ++j) {
-    const int col = j * 8 + 2 * t;
-    if (r_lo < rows)
-      *reinterpret_cast<float2*>(out + r_lo * C + col) = make_float2(acc[j][0], acc[j][1]);
-    if (r_lo + 8 < rows)
-      *reinterpret_cast<float2*>(out + (r_lo + 8) * C + col) = make_float2(acc[j][2], acc[j][3]);
-  }
-}
-
 constexpr int FWD_SMEM = 4 * WBYTES + ACT_ROWS * ROWB;  // 229376 (K1, K7f, K7b phase 1)
 constexpr int DY_SMEM = WBYTES + 2 * TM * ROWB;         // 98304
 constexpr int DX_SMEM = 3 * WBYTES + ACT_ROWS * ROWB;   // 196608
-constexpr int PRODUCT_SMEM = WBYTES + TM * ROWB;        // 65536
 
 template <typename K>
 cudaError_t prepare(K kernel, int bytes) {
@@ -539,6 +508,28 @@ int launch_dx(const void* dxn, const void* dtap, const void* dy, const void* inm
   return (int)cudaGetLastError();
 }
 
+// K2 phase 1: writes dy.
+int trunk_bwd_dy(const void* dxn, const void* dtap, const void* mask, const void* wr, void* dy,
+                 int rows, int clip_rows, int lo, int hi, void* stream) {
+  const cudaError_t e = prepare(trunk_bwd_dy_mma_kernel, DY_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  trunk_bwd_dy_mma_kernel<<<n_blocks(rows), NT, DY_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)dxn, (const bf16*)dtap, (const uint8_t*)mask, (const bf16*)wr, (bf16*)dy,
+      rows, clip_rows, lo, hi);
+  return (int)cudaGetLastError();
+}
+
+// K7b phase 1: dy from x (the gate recomputed) and g.
+int encoder_bwd_dy(const void* x, const void* g, const void* wd, const void* bd, const void* wr,
+                   void* dy, int rows, int clip_rows, int d, int lo, int hi, void* stream) {
+  const cudaError_t e = prepare(encoder_bwd_dy_mma_kernel, FWD_SMEM);
+  if (e != cudaSuccess) return (int)e;
+  encoder_bwd_dy_mma_kernel<<<n_blocks(rows), NT, FWD_SMEM, (cudaStream_t)stream>>>(
+      (const bf16*)x, (const bf16*)g, (const bf16*)wd, (const float*)bd, (const bf16*)wr,
+      (bf16*)dy, rows, clip_rows, d, lo, hi);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -555,33 +546,14 @@ int ast_trunk_fwd_mma(const void* x, const void* wd, const void* bd, const void*
                           stream);
 }
 
-// K2 (bf16) phase 1 alone: writes dy.
-int ast_trunk_bwd_dy_mma(const void* dxn, const void* dtap, const void* mask, const void* wr,
-                         void* dy, int rows, int clip_rows, int lo, int hi, void* stream) {
-  const cudaError_t e = prepare(trunk_bwd_dy_mma_kernel, DY_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  trunk_bwd_dy_mma_kernel<<<n_blocks(rows), NT, DY_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)dxn, (const bf16*)dtap, (const uint8_t*)mask, (const bf16*)wr, (bf16*)dy,
-      rows, clip_rows, lo, hi);
-  return (int)cudaGetLastError();
-}
-
-// K2 (bf16) phase 2 alone: reads the dy phase 1 wrote.
-int ast_trunk_bwd_dx_mma(const void* dxn, const void* dtap, const void* dy,
-                         const void* inmask, const void* wd, void* dx, int rows, int clip_rows,
-                         int d, int lo, int hi, void* stream) {
-  return launch_dx<false>(dxn, dtap, dy, inmask, nullptr, wd, dx, rows, clip_rows, d, lo, hi,
-                          stream);
-}
-
 // K2 (bf16): both backward phases for one layer; `dy` is caller-allocated scratch.
 int ast_trunk_bwd_mma(const void* dxn, const void* dtap, const void* mask,
                       const void* inmask, const void* wd, const void* wr, void* dy, void* dx,
                       int rows, int clip_rows, int d, int lo, int hi, void* stream) {
-  const int e = ast_trunk_bwd_dy_mma(dxn, dtap, mask, wr, dy, rows, clip_rows, lo, hi, stream);
+  const int e = trunk_bwd_dy(dxn, dtap, mask, wr, dy, rows, clip_rows, lo, hi, stream);
   if (e != 0) return e;
-  return ast_trunk_bwd_dx_mma(dxn, dtap, dy, inmask, wd, dx, rows, clip_rows, d, lo, hi,
-                              stream);
+  return launch_dx<false>(dxn, dtap, dy, inmask, nullptr, wd, dx, rows, clip_rows, d, lo, hi,
+                          stream);
 }
 
 // K7f (bf16): one encoder block forward, output only.
@@ -592,52 +564,14 @@ int ast_encoder_fwd_mma(const void* x, const void* wd, const void* bd, const voi
                            hi, stream);
 }
 
-// K7b (bf16) phase 1 alone: dy from x (the gate recomputed) and g.
-int ast_encoder_bwd_dy_mma(const void* x, const void* g, const void* wd, const void* bd,
-                           const void* wr, void* dy, int rows, int clip_rows, int d, int lo,
-                           int hi, void* stream) {
-  const cudaError_t e = prepare(encoder_bwd_dy_mma_kernel, FWD_SMEM);
-  if (e != cudaSuccess) return (int)e;
-  encoder_bwd_dy_mma_kernel<<<n_blocks(rows), NT, FWD_SMEM, (cudaStream_t)stream>>>(
-      (const bf16*)x, (const bf16*)g, (const bf16*)wd, (const float*)bd, (const bf16*)wr,
-      (bf16*)dy, rows, clip_rows, d, lo, hi);
-  return (int)cudaGetLastError();
-}
-
-// K7b (bf16) phase 2 alone: dx from g, phase 1's dy and the gate x > 0.
-int ast_encoder_bwd_dx_mma(const void* x, const void* g, const void* dy, const void* wd,
-                           void* dx, int rows, int clip_rows, int d, int lo, int hi,
-                           void* stream) {
-  return launch_dx<true>(g, nullptr, dy, nullptr, x, wd, dx, rows, clip_rows, d, lo, hi, stream);
-}
-
 // K7b (bf16): the block's dx from its input x and output cotangent g; `dy`
-// is caller-allocated scratch.
+// is caller-allocated scratch. Phase 2 gates by x > 0.
 int ast_encoder_bwd_mma(const void* x, const void* g, const void* wd, const void* bd,
                         const void* wr, void* dy, void* dx, int rows, int clip_rows, int d,
                         int lo, int hi, void* stream) {
-  const int e = ast_encoder_bwd_dy_mma(x, g, wd, bd, wr, dy, rows, clip_rows, d, lo, hi, stream);
+  const int e = encoder_bwd_dy(x, g, wd, bd, wr, dy, rows, clip_rows, d, lo, hi, stream);
   if (e != 0) return e;
-  return ast_encoder_bwd_dx_mma(x, g, dy, wd, dx, rows, clip_rows, d, lo, hi, stream);
-}
-
-// One product through the kernels' staging and fragment code:
-// out (float32) = a @ w, or a @ w^T when `transposed`.
-int ast_product_mma(const void* a, const void* w, void* out, int rows, int transposed,
-                    void* stream) {
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (transposed) {
-    const cudaError_t e = prepare(product_mma_kernel<true>, PRODUCT_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    product_mma_kernel<true><<<n_blocks(rows), NT, PRODUCT_SMEM, s>>>(
-        (const bf16*)a, (const bf16*)w, (float*)out, rows);
-  } else {
-    const cudaError_t e = prepare(product_mma_kernel<false>, PRODUCT_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    product_mma_kernel<false><<<n_blocks(rows), NT, PRODUCT_SMEM, s>>>(
-        (const bf16*)a, (const bf16*)w, (float*)out, rows);
-  }
-  return (int)cudaGetLastError();
+  return launch_dx<true>(g, nullptr, dy, nullptr, x, wd, dx, rows, clip_rows, d, lo, hi, stream);
 }
 
 }  // extern "C"

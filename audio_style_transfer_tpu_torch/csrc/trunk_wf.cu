@@ -5,8 +5,8 @@
 // audio_style_transfer_tpu/ops/pallas_chain.py::_bwd_group_kernel_wf (the
 // wavefront schedule of the mask-only backward, chosen when
 // AST_CHAIN_BWD_WAVEFRONT=1 and the group's split geometry is feasible).
-// bfloat16 runs the tensor-core kernel of trunk_wf_mma.cu; this kernel's
-// bf16 build stays for comparisons (ops/chain.py::group_bwd_fma).
+// bfloat16 runs the tensor-core kernel of trunk_wf_mma.cu, so only this
+// kernel's float32 build is compiled.
 //
 // What it computes: exactly k calls of K2 (trunk.cu), layer j0+k-1 down to j0,
 //   g  = round(dx_{j+1} + dtap_j)
@@ -51,17 +51,17 @@
 //    piece does not have are skipped.
 //
 // Shared memory: 2 x 53,888 B of staging plus 3 carry slots of
-// ext * 128 * itemsize. With dilations (1, 2, 4, 8) (nk = 15): bf16 at
-// tile 64 takes 179,968 B; f32 at tile 64 would take 252,160 B and does not
-// fit, so f32 runs at tile 32 (203,008 B). The caller picks the tile.
+// ext * 128 * 4 B. With dilations (1, 2, 4, 8) (nk = 15): tile 64 would
+// take 252,160 B and does not fit, so such a group runs at tile 32
+// (203,008 B). The caller picks the tile.
 //
-// What bounds it on the H100 (T=16384, C=128, bf16, k=4, all four tap
+// What bounds it on the H100 (T=16384, C=128, k=4, all four tap
 // cotangents present): 16 [16384,128]x[128,128] products, 8.6 GFLOP of
 // float32 FMA on the CUDA cores (67 TFLOP/s): 128 us; bytes (dx in and out,
-// 4 tap cotangents, 5 mask arrays: 35.7 MB at 3.35 TB/s): 10.6 us. Bound by
-// operations. The halo and the doubled split margin add to that: at tile 64
-// a block does 1312 row-products per 64 output rows where four K2 launches
-// do 1024 (1.28x).
+// 4 tap cotangents, 5 mask arrays: 60.8 MB at 3.35 TB/s): 18.1 us. Bound by
+// operations. The halo and the doubled split margin add to that, the more so
+// at tile 32: each block recomputes the same 2 nk halo rows for half the
+// output rows a 64-row tile would have.
 
 #include "trunk_tiles.h"
 
@@ -299,7 +299,7 @@ extern "C" {
 int ast_trunk_bwd_group(const void* dxn, const void* const* dtaps, const void* const* masks,
                         const void* inmask, const void* wd, const void* wr, void* dx,
                         const int* dils, const int* splits, int k, int tile, int rows,
-                        int clip_rows, int lo, int hi, int is_bf16, void* stream) {
+                        int clip_rows, int lo, int hi, void* stream) {
   if (k < 2 || k > MAXK) return (int)cudaErrorInvalidValue;
   WfArgs a;
   a.dxn = dxn;
@@ -322,8 +322,7 @@ int ast_trunk_bwd_group(const void* dxn, const void* const* dtaps, const void* c
     a.prefix[j + 1] = a.prefix[j] + a.d[j];
   }
   if (!feasible(a)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  return (int)(is_bf16 ? launch_wf<__nv_bfloat16>(a, s) : launch_wf<float>(a, s));
+  return (int)launch_wf<float>(a, (cudaStream_t)stream);
 }
 
 }  // extern "C"

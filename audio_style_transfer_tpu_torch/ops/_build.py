@@ -30,23 +30,18 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # C entry point -> argtypes (pointers and the stream as c_void_p, ints as c_int).
 _SIGNATURES = {
-    "ast_trunk_fwd": [_P] * 8 + [_I] * 6 + [_P],
-    "ast_trunk_bwd": [_P] * 8 + [_I] * 6 + [_P],
+    "ast_trunk_fwd": [_P] * 8 + [_I] * 5 + [_P],
+    "ast_trunk_bwd": [_P] * 8 + [_I] * 5 + [_P],
     "ast_trunk_fwd_mma": [_P] * 8 + [_I] * 5 + [_P],
     "ast_trunk_bwd_mma": [_P] * 8 + [_I] * 5 + [_P],
-    "ast_trunk_bwd_dy_mma": [_P] * 5 + [_I] * 4 + [_P],
-    "ast_trunk_bwd_dx_mma": [_P] * 6 + [_I] * 5 + [_P],
-    "ast_product_mma": [_P] * 3 + [_I] * 2 + [_P],
     "ast_trunk_bwd_group": ([_P, ctypes.POINTER(_P), ctypes.POINTER(_P)] + [_P] * 4
-                            + [ctypes.POINTER(_I)] * 2 + [_I] * 7 + [_P]),
+                            + [ctypes.POINTER(_I)] * 2 + [_I] * 6 + [_P]),
     "ast_trunk_bwd_group_mma": ([_P, ctypes.POINTER(_P), ctypes.POINTER(_P)] + [_P] * 4
                                 + [ctypes.POINTER(_I)] + [_I] * 6 + [_P]),
-    "ast_encoder_fwd": [_P] * 6 + [_I] * 6 + [_P],
-    "ast_encoder_bwd": [_P] * 7 + [_I] * 6 + [_P],
+    "ast_encoder_fwd": [_P] * 6 + [_I] * 5 + [_P],
+    "ast_encoder_bwd": [_P] * 7 + [_I] * 5 + [_P],
     "ast_encoder_fwd_mma": [_P] * 6 + [_I] * 5 + [_P],
     "ast_encoder_bwd_mma": [_P] * 7 + [_I] * 5 + [_P],
-    "ast_encoder_bwd_dy_mma": [_P] * 6 + [_I] * 5 + [_P],
-    "ast_encoder_bwd_dx_mma": [_P] * 5 + [_I] * 5 + [_P],
     "ast_pair_gram": [ctypes.POINTER(_P)] + [_I] * 6 + [_P] * 3,
     "ast_pair_gram_bwd": [ctypes.POINTER(_P)] * 2 + [_I] * 6 + [_P] * 2,
     "ast_layer_gram": [ctypes.POINTER(_P)] + [_I] * 4 + [_P] * 3,

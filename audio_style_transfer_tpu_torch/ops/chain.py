@@ -271,16 +271,15 @@ def wavefront_mma_fits(dils: tuple, tile: int) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def plan_bwd_groups(dils: tuple, clip_rows: int, itemsize: int, fma: bool = False) -> tuple:
+def plan_bwd_groups(dils: tuple, clip_rows: int, itemsize: int) -> tuple:
     """Partition of the trunk's layers for the wavefront backward, for the
     K2-wf that ``group_bwd`` launches in this itemsize: the tensor-core kernel
-    for bfloat16 (2), the FMA kernel for float32 (4) and, with ``fma``, for
-    bfloat16 too (``group_bwd_fma``). From each layer on, the longest run of
-    2..WF_MAX_LAYERS layers that is feasible at the largest tile (the tile
-    dividing the clip, the kernel's geometry and shared memory, and
-    ``wavefront_splits``) becomes one group; a layer that starts no such run
-    stays a single K2 launch."""
-    mma = itemsize == 2 and not fma
+    for bfloat16 (2), the FMA kernel for float32 (4). From each layer on, the
+    longest run of 2..WF_MAX_LAYERS layers that is feasible at the largest
+    tile (the tile dividing the clip, the kernel's geometry and shared memory,
+    and ``wavefront_splits``) becomes one group; a layer that starts no such
+    run stays a single K2 launch."""
+    mma = itemsize == 2
     groups, j = [], 0
     while j < len(dils):
         found = None
@@ -404,16 +403,17 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def check_bf16(t):
-    """Refuse a tensor that is not bfloat16 (the tensor-core kernels' type)."""
-    if t.dtype != torch.bfloat16:
-        raise TypeError(f"the tensor-core kernels take bfloat16, got {t.dtype}")
+def kernel_entry(name: str, dtype) -> str:
+    """The C entry point of a trunk kernel for tensors of ``dtype`` (one that
+    ``check_layer`` takes): the tensor-core build (``name``_mma) for
+    bfloat16, the FMA build for float32."""
+    return name + "_mma" if dtype == torch.bfloat16 else name
 
 
-def _layer_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool, mma: bool,
+def _layer_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool,
                     valid_window=None):
-    """Launch K1 on CUDA tensors: the tensor-core kernel (bfloat16 only) when
-    ``mma``, else the float32-FMA kernel in x's dtype."""
+    """Launch K1 on CUDA tensors: the tensor-core kernel for bfloat16, the
+    float32-FMA kernel for float32."""
     check_layer(x, clip_rows)
     c, dev, dt = WIDTH, x.device, x.dtype
     check_cuda("x", x, x.shape, dt, dev)
@@ -427,14 +427,8 @@ def _layer_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool
     args = (x.data_ptr(), wd.data_ptr(), bd.data_ptr(), wr.data_ptr(), br.data_ptr(),
             out.data_ptr(), mask.data_ptr(), _ptr(inmask), x.shape[0], clip_rows, d,
             *clamp_window(valid_window, clip_rows))
-    if mma:
-        name = "ast_trunk_fwd_mma"
-        status = _build.lib().ast_trunk_fwd_mma(*args, _build.stream_ptr(dev))
-    else:
-        name = "ast_trunk_fwd"
-        status = _build.lib().ast_trunk_fwd(*args, int(dt == torch.bfloat16),
-                                            _build.stream_ptr(dev))
-    _build.check(status, name)
+    name = kernel_entry("ast_trunk_fwd", dt)
+    _build.check(getattr(_build.lib(), name)(*args, _build.stream_ptr(dev)), name)
     _build.LAUNCHES["K1"] += 1
     return out, mask, inmask
 
@@ -450,17 +444,7 @@ def layer_fwd(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = Fal
     Returns (out, mask, inmask or None)."""
     if x.device.type == "cpu":
         return layer_fwd_plain(x, wd, bd, wr, br, d, clip_rows, want_inmask, valid_window)
-    return _layer_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, want_inmask,
-                           mma=x.dtype == torch.bfloat16, valid_window=valid_window)
-
-
-def layer_fwd_fma(x, wd, bd, wr, br, d: int, clip_rows: int, want_inmask: bool = False,
-                  valid_window=None):
-    """K1's FMA kernel (csrc/trunk.cu) in x's dtype, bfloat16 included: the
-    code of the float32 K7f and K7b and of K2-wf. For comparisons only; no
-    transfer path calls it."""
-    return _layer_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, want_inmask, mma=False,
-                           valid_window=valid_window)
+    return _layer_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, want_inmask, valid_window)
 
 
 def _check_layer_bwd(dxn, dtap, mask, inmask, wd, wr, clip_rows: int):
@@ -478,9 +462,9 @@ def _check_layer_bwd(dxn, dtap, mask, inmask, wd, wr, clip_rows: int):
         check_cuda("wr", wr, (c, c), dt, dev)
 
 
-def _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, mma: bool,
+def _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int,
                     valid_window=None):
-    """Launch K2 (both phases) on CUDA tensors; ``mma`` as in ``_layer_fwd_cuda``."""
+    """Launch K2 (both phases) on CUDA tensors, by dtype as ``_layer_fwd_cuda``."""
     _check_layer_bwd(dxn, dtap, mask, inmask, wd, wr, clip_rows)
     dev = dxn.device
     dy = torch.empty_like(dxn)
@@ -488,14 +472,8 @@ def _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, mma
     args = (dxn.data_ptr(), _ptr(dtap), mask.data_ptr(), inmask.data_ptr(), wd.data_ptr(),
             wr.data_ptr(), dy.data_ptr(), dx.data_ptr(), dxn.shape[0], clip_rows, d,
             *clamp_window(valid_window, clip_rows))
-    if mma:
-        name = "ast_trunk_bwd_mma"
-        status = _build.lib().ast_trunk_bwd_mma(*args, _build.stream_ptr(dev))
-    else:
-        name = "ast_trunk_bwd"
-        status = _build.lib().ast_trunk_bwd(*args, int(dxn.dtype == torch.bfloat16),
-                                            _build.stream_ptr(dev))
-    _build.check(status, name)
+    name = kernel_entry("ast_trunk_bwd", dxn.dtype)
+    _build.check(getattr(_build.lib(), name)(*args, _build.stream_ptr(dev)), name)
     _build.LAUNCHES["K2"] += 1
     return dx
 
@@ -505,72 +483,17 @@ def layer_bwd(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, valid_win
     float32: csrc/trunk.cu), the plain version on the CPU."""
     if dxn.device.type == "cpu":
         return layer_bwd_plain(dxn, dtap, mask, inmask, wd, wr, d, clip_rows, valid_window)
-    return _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d, clip_rows,
-                           mma=dxn.dtype == torch.bfloat16, valid_window=valid_window)
-
-
-def layer_bwd_fma(dxn, dtap, mask, inmask, wd, wr, d: int, clip_rows: int, valid_window=None):
-    """K2's FMA kernels (csrc/trunk.cu) in dxn's dtype, bfloat16 included: the
-    launches K2-wf equals bit for bit. For comparisons only; no transfer path
-    calls it."""
-    return _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d, clip_rows, mma=False,
-                           valid_window=valid_window)
-
-
-def layer_bwd_mma_phase1(dxn, dtap, mask, wr, clip_rows: int, valid_window=None):
-    """Phase 1 of the bfloat16 K2 alone (for timing it): dy. Not counted as a
-    K2 launch."""
-    check_bf16(dxn)
-    _check_layer_bwd(dxn, dtap, mask, None, None, wr, clip_rows)
-    dy = torch.empty_like(dxn)
-    status = _build.lib().ast_trunk_bwd_dy_mma(
-        dxn.data_ptr(), _ptr(dtap), mask.data_ptr(), wr.data_ptr(), dy.data_ptr(),
-        dxn.shape[0], clip_rows, *clamp_window(valid_window, clip_rows),
-        _build.stream_ptr(dxn.device))
-    _build.check(status, "ast_trunk_bwd_dy_mma")
-    return dy
-
-
-def layer_bwd_mma_phase2(dxn, dtap, dy, inmask, wd, d: int, clip_rows: int, valid_window=None):
-    """Phase 2 of the bfloat16 K2 alone (for timing it): dx from phase 1's dy.
-    Not counted as a K2 launch."""
-    check_bf16(dxn)
-    _check_layer_bwd(dxn, dtap, None, inmask, wd, None, clip_rows)
-    check_cuda("dy", dy, dxn.shape, dxn.dtype, dxn.device)
-    dx = torch.empty_like(dxn)
-    status = _build.lib().ast_trunk_bwd_dx_mma(
-        dxn.data_ptr(), _ptr(dtap), dy.data_ptr(), inmask.data_ptr(), wd.data_ptr(),
-        dx.data_ptr(), dxn.shape[0], clip_rows, d, *clamp_window(valid_window, clip_rows),
-        _build.stream_ptr(dxn.device))
-    _build.check(status, "ast_trunk_bwd_dx_mma")
-    return dx
-
-
-def product_mma(a, w, transposed: bool):
-    """a [rows, C] @ w [C, C] (or w^T) in float32 from bfloat16 CUDA tensors,
-    through the staging and fragment code of csrc/trunk_mma.cu: one product
-    of the tensor-core kernels alone, for testing them."""
-    check_layer(a, a.shape[0])
-    check_bf16(a)
-    check_cuda("a", a, a.shape, torch.bfloat16, a.device)
-    check_cuda("w", w, (WIDTH, WIDTH), torch.bfloat16, a.device)
-    out = torch.empty(a.shape, dtype=_F32, device=a.device)
-    status = _build.lib().ast_product_mma(a.data_ptr(), w.data_ptr(), out.data_ptr(),
-                                          a.shape[0], int(transposed),
-                                          _build.stream_ptr(a.device))
-    _build.check(status, "ast_product_mma")
-    return out
+    return _layer_bwd_cuda(dxn, dtap, mask, inmask, wd, wr, d, clip_rows, valid_window)
 
 
 def _group_bwd_cuda(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int,
-                    mma: bool, valid_window=None):
-    """Launch K2-wf on CUDA tensors: the tensor-core kernel (bfloat16 only)
-    when ``mma``, else the FMA kernel in dxn's dtype."""
+                    valid_window=None):
+    """Launch K2-wf on CUDA tensors: the tensor-core kernel for bfloat16, the
+    FMA kernel for float32."""
     dils, k = group.dils, len(group.dils)
     check_layer(dxn, clip_rows)
     c, dev, dt = WIDTH, dxn.device, dxn.dtype
-    if mma:
-        check_bf16(dxn)
+    mma = dt == torch.bfloat16
     if clip_rows % group.tile:
         raise ValueError(f"clip_rows {clip_rows} must be a multiple of the tile {group.tile}")
     smem = (wavefront_mma_smem_bytes(dils, group.tile) if mma
@@ -592,15 +515,10 @@ def _group_bwd_cuda(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_row
             inmask.data_ptr(), wd.data_ptr(), wr.data_ptr(), dx.data_ptr(),
             (ctypes.c_int * k)(*dils))
     geometry = (k, group.tile, dxn.shape[0], clip_rows, *clamp_window(valid_window, clip_rows))
-    if mma:
-        name = "ast_trunk_bwd_group_mma"
-        status = _build.lib().ast_trunk_bwd_group_mma(*args, *geometry, _build.stream_ptr(dev))
-    else:
-        name = "ast_trunk_bwd_group"
-        status = _build.lib().ast_trunk_bwd_group(
-            *args, (ctypes.c_int * k)(*group.splits), *geometry, int(dt == torch.bfloat16),
-            _build.stream_ptr(dev))
-    _build.check(status, name)
+    if not mma:
+        args += ((ctypes.c_int * k)(*group.splits),)
+    name = kernel_entry("ast_trunk_bwd_group", dt)
+    _build.check(getattr(_build.lib(), name)(*args, *geometry, _build.stream_ptr(dev)), name)
     _build.LAUNCHES["K2wf"] += 1
     return dx
 
@@ -628,19 +546,7 @@ def group_bwd(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int
     if dxn.device.type == "cpu":
         return group_bwd_plain(dxn, dtaps, masks, inmask, wd, wr, group.dils, clip_rows,
                                group.tile, group.splits, valid_window)
-    return _group_bwd_cuda(dxn, dtaps, masks, inmask, wd, wr, group, clip_rows,
-                           mma=dxn.dtype == torch.bfloat16, valid_window=valid_window)
-
-
-def group_bwd_fma(dxn, dtaps, masks, inmask, wd, wr, group: BwdGroup, clip_rows: int,
-                  valid_window=None):
-    """K2-wf's FMA kernel (csrc/trunk_wf.cu) in dxn's dtype, bfloat16
-    included, on a group of the FMA plan (``plan_bwd_groups(..., fma=True)``):
-    it equals the FMA K2 launches (``layer_bwd_fma``) bit for bit. For
-    comparisons only; no transfer path calls it."""
-    _check_group(group, dtaps, masks)
-    return _group_bwd_cuda(dxn, dtaps, masks, inmask, wd, wr, group, clip_rows, mma=False,
-                           valid_window=valid_window)
+    return _group_bwd_cuda(dxn, dtaps, masks, inmask, wd, wr, group, clip_rows, valid_window)
 
 
 def trunk_forward(x2d, wd, bd, wr, br, dils, clip_rows: int, valid_window=None, keep=None):

@@ -11,8 +11,7 @@ The forward is K7f and the waveform backward K7b. Unlike the chained trunk
 (ops/chain.py) nothing is stashed: K7b recomputes the gate from x. Both have
 two implementations, chosen by the tensor's dtype as K1 and K2 are:
 bfloat16 runs on the tensor cores (csrc/trunk_mma.cu), float32 as float32
-FMAs (csrc/trunk.cu; ``block_fwd_fma`` / ``block_bwd_fma`` reach those in
-bfloat16 too, for comparisons). On CPU tensors each wrapper runs its plain
+FMAs (csrc/trunk.cu). On CPU tensors each wrapper runs its plain
 version (``block_fwd_plain`` / ``block_bwd_plain``, the kernels' cast
 points); on a CUDA tensor it launches the kernel or raises. Weight
 cotangents, when asked for, come from autograd through
@@ -33,11 +32,11 @@ from audio_style_transfer_tpu_torch.ops import _build
 from audio_style_transfer_tpu_torch.ops.chain import (
     WIDTH,
     block_out_plain,
-    check_bf16,
     check_cuda,
     check_layer,
     clamp_window,
     dilated_conv_plain,
+    kernel_entry,
     transposed_conv_plain,
     window_rows,
     zero_outside,
@@ -83,28 +82,22 @@ def _check_block(x, g, clip_rows: int) -> None:
         check_cuda("g", g, x.shape, x.dtype, x.device)
 
 
-def _block_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, mma: bool, valid_window):
-    """Launch K7f on CUDA tensors: the tensor-core kernel (bfloat16 only) when
-    ``mma``, else the float32-FMA kernel in x's dtype."""
+def _block_fwd_cuda(x, wd, bd, wr, br, d: int, clip_rows: int, valid_window):
+    """Launch K7f on CUDA tensors: the tensor-core kernel for bfloat16, the
+    float32-FMA kernel for float32."""
     _check_block(x, None, clip_rows)
     _check_weights(wd, bd, wr, br, x.dtype, x.device)
     out = torch.empty_like(x)
     args = (x.data_ptr(), wd.data_ptr(), bd.data_ptr(), wr.data_ptr(), br.data_ptr(),
             out.data_ptr(), x.shape[0], clip_rows, d, *clamp_window(valid_window, clip_rows))
-    if mma:
-        name = "ast_encoder_fwd_mma"
-        status = _build.lib().ast_encoder_fwd_mma(*args, _build.stream_ptr(x.device))
-    else:
-        name = "ast_encoder_fwd"
-        status = _build.lib().ast_encoder_fwd(*args, int(x.dtype == torch.bfloat16),
-                                              _build.stream_ptr(x.device))
-    _build.check(status, name)
+    name = kernel_entry("ast_encoder_fwd", x.dtype)
+    _build.check(getattr(_build.lib(), name)(*args, _build.stream_ptr(x.device)), name)
     _build.LAUNCHES["K7f"] += 1
     return out
 
 
-def _block_bwd_cuda(x, g, wd, bd, wr, d: int, clip_rows: int, mma: bool, valid_window):
-    """Launch K7b (both phases) on CUDA tensors; ``mma`` as in
+def _block_bwd_cuda(x, g, wd, bd, wr, d: int, clip_rows: int, valid_window):
+    """Launch K7b (both phases) on CUDA tensors, by dtype as
     ``_block_fwd_cuda``."""
     _check_block(x, g, clip_rows)
     _check_weights(wd, bd, wr, None, x.dtype, x.device)
@@ -113,14 +106,8 @@ def _block_bwd_cuda(x, g, wd, bd, wr, d: int, clip_rows: int, mma: bool, valid_w
     args = (x.data_ptr(), g.data_ptr(), wd.data_ptr(), bd.data_ptr(), wr.data_ptr(),
             dy.data_ptr(), dx.data_ptr(), x.shape[0], clip_rows, d,
             *clamp_window(valid_window, clip_rows))
-    if mma:
-        name = "ast_encoder_bwd_mma"
-        status = _build.lib().ast_encoder_bwd_mma(*args, _build.stream_ptr(x.device))
-    else:
-        name = "ast_encoder_bwd"
-        status = _build.lib().ast_encoder_bwd(*args, int(x.dtype == torch.bfloat16),
-                                              _build.stream_ptr(x.device))
-    _build.check(status, name)
+    name = kernel_entry("ast_encoder_bwd", x.dtype)
+    _build.check(getattr(_build.lib(), name)(*args, _build.stream_ptr(x.device)), name)
     _build.LAUNCHES["K7b"] += 1
     return dx
 
@@ -134,14 +121,7 @@ def block_fwd(x, wd, bd, wr, br, d: int, clip_rows: int, valid_window=None):
     dtype; bd, br [C] float32; valid_window (lo, hi) in in-clip rows or None."""
     if x.device.type == "cpu":
         return block_fwd_plain(x, wd, bd, wr, br, d, clip_rows, valid_window)
-    return _block_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, x.dtype == torch.bfloat16,
-                           valid_window)
-
-
-def block_fwd_fma(x, wd, bd, wr, br, d: int, clip_rows: int, valid_window=None):
-    """K7f's FMA kernel (csrc/trunk.cu) in x's dtype, bfloat16 included. For
-    comparisons only; no transfer path calls it."""
-    return _block_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, False, valid_window)
+    return _block_fwd_cuda(x, wd, bd, wr, br, d, clip_rows, valid_window)
 
 
 def block_bwd(x, g, wd, bd, wr, d: int, clip_rows: int, valid_window=None):
@@ -149,44 +129,7 @@ def block_bwd(x, g, wd, bd, wr, d: int, clip_rows: int, valid_window=None):
     csrc/trunk.cu), the plain version on the CPU."""
     if x.device.type == "cpu":
         return block_bwd_plain(x, g, wd, bd, wr, d, clip_rows, valid_window)
-    return _block_bwd_cuda(x, g, wd, bd, wr, d, clip_rows, x.dtype == torch.bfloat16,
-                           valid_window)
-
-
-def block_bwd_fma(x, g, wd, bd, wr, d: int, clip_rows: int, valid_window=None):
-    """K7b's FMA kernels (csrc/trunk.cu) in x's dtype, bfloat16 included. For
-    comparisons only; no transfer path calls it."""
-    return _block_bwd_cuda(x, g, wd, bd, wr, d, clip_rows, False, valid_window)
-
-
-def block_bwd_mma_phase1(x, g, wd, bd, wr, d: int, clip_rows: int, valid_window=None):
-    """Phase 1 of the bfloat16 K7b alone (for timing it): dy, with the gate
-    recomputed from x. Not counted as a K7b launch."""
-    check_bf16(x)
-    _check_block(x, g, clip_rows)
-    _check_weights(wd, bd, wr, None, x.dtype, x.device)
-    dy = torch.empty_like(x)
-    status = _build.lib().ast_encoder_bwd_dy_mma(
-        x.data_ptr(), g.data_ptr(), wd.data_ptr(), bd.data_ptr(), wr.data_ptr(), dy.data_ptr(),
-        x.shape[0], clip_rows, d, *clamp_window(valid_window, clip_rows),
-        _build.stream_ptr(x.device))
-    _build.check(status, "ast_encoder_bwd_dy_mma")
-    return dy
-
-
-def block_bwd_mma_phase2(x, g, dy, wd, d: int, clip_rows: int, valid_window=None):
-    """Phase 2 of the bfloat16 K7b alone (for timing it): dx from phase 1's
-    dy, gated by x > 0. Not counted as a K7b launch."""
-    check_bf16(x)
-    _check_block(x, g, clip_rows)
-    check_cuda("dy", dy, x.shape, x.dtype, x.device)
-    check_cuda("wd", wd, (3, WIDTH, WIDTH), x.dtype, x.device)
-    dx = torch.empty_like(x)
-    status = _build.lib().ast_encoder_bwd_dx_mma(
-        x.data_ptr(), g.data_ptr(), dy.data_ptr(), wd.data_ptr(), dx.data_ptr(), x.shape[0],
-        clip_rows, d, *clamp_window(valid_window, clip_rows), _build.stream_ptr(x.device))
-    _build.check(status, "ast_encoder_bwd_dx_mma")
-    return dx
+    return _block_bwd_cuda(x, g, wd, bd, wr, d, clip_rows, valid_window)
 
 
 def reference_encoder_block(x, w_dil, b_dil, w_res, b_res, dilation: int, valid_window=None):

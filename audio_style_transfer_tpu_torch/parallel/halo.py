@@ -23,6 +23,13 @@ identity: each rank backpropagates that replicated loss, so the cotangent it
 receives is already the whole one. The exchange's backward sends each halo's
 cotangent back to the rank it came from.
 
+Every flavour's loss is ``transfer/losses.py::weighted_loss`` of its own
+content mean and float32 gram sums (``content_of``, ``gram_sums_of``,
+``style_of``), as the clip path's ``transfer_loss`` is. The single-device
+flavours live here, not in ``transfer/``, because the benchmark's calibration
+(``portbench/calibrate.py``) replaces ``make_scan_exact_value_and_grad_fn`` in
+this module.
+
 On one device two flavours compute the same loss:
 
   - single window (``_single_window_exact_loss_fn``): one unmasked trunk pass
@@ -60,48 +67,29 @@ from audio_style_transfer_tpu_torch.models.wavenet_ae import (
     encoder_trunk,
     receptive_field_radius,
 )
-from audio_style_transfer_tpu_torch.ops.gram import layer_gram, pair_gram
 from audio_style_transfer_tpu_torch.parallel.mesh import neighbour_exchange, psum
 from audio_style_transfer_tpu_torch.signal.mu_law import inv_mu_law, safe_abs
-from audio_style_transfer_tpu_torch.signal.stft import stft, stft_l1
-from audio_style_transfer_tpu_torch.transfer.grams import l2_normalize
-from audio_style_transfer_tpu_torch.transfer.losses import LossSpec
+from audio_style_transfer_tpu_torch.signal.stft import stft
+from audio_style_transfer_tpu_torch.transfer.losses import (
+    FRAME_LENGTH,
+    FRAME_STEP,
+    LossSpec,
+    content_of,
+    gram_sums_of,
+    mean_square,
+    needed_taps,
+    stft_regularizer,
+    style_of,
+    weighted_loss,
+)
 
 _F32 = torch.float32
-FRAME_LENGTH, FRAME_STEP = 1024, 512
 
 
 def _window_radius(cfg: WaveNetAEConfig, align: int = 512) -> int:
     """The receptive-field radius rounded up to a multiple of ``align`` (extra
     halo rows are recomputed and cropped, so the rounding changes nothing)."""
     return -(-receptive_field_radius(cfg) // align) * align
-
-
-def _needed(spec: LossSpec) -> tuple:
-    return tuple(sorted(set(spec.cont_lyr_ids) | set(spec.style_layer_ids)))
-
-
-def _window_grams(extracts, spec: LossSpec) -> torch.Tensor:
-    """Unnormalized partial grams of one window's taps, float32: [C, L, L]
-    through the all-pairs gram (K5 on CUDA tensors), or for Gatys [L, C, C]
-    through the per-layer gram (K8f on CUDA tensors)."""
-    ids = spec.style_layer_ids
-    if spec.gatys:
-        return layer_gram(*[extracts[i] for i in ids])
-    g = pair_gram(*[extracts[i] for i in ids])  # [1, L, L, C] float32
-    return g[0].permute(2, 0, 1)
-
-
-def _content(extracts, spec: LossSpec) -> torch.Tensor:
-    return torch.cat([extracts[i][:, :, :spec.cnt_channels] for i in spec.cont_lyr_ids],
-                     dim=2)[0]
-
-
-def _normalized(gram_sum, spec: LossSpec) -> torch.Tensor:
-    gram = l2_normalize(gram_sum, axes=(1, 2))
-    if spec.nb_channels < gram.shape[0] and not spec.gatys:
-        gram = gram[:spec.nb_channels]
-    return gram
 
 
 def _exchange_halos(x_local, radius: int, group):
@@ -165,12 +153,12 @@ def make_sharded_embeds_fn(cfg: WaveNetAEConfig, spec: LossSpec, mesh,
     the whole clip's normalized style gram, equal on every rank): the
     target-building companion of ``make_sharded_loss_fn``, one trunk pass."""
     group = mesh.get_group(axis_name)
-    needed = _needed(spec)
+    needed = needed_taps(spec)
 
     def embeds(params, x_local):
         extracts = time_sharded_trunk(params, x_local, cfg, group, needed_taps=needed)
-        return _content(extracts, spec), _normalized(psum(_window_grams(extracts, spec), group),
-                                                     spec)
+        return content_of(extracts, spec), style_of(psum(gram_sums_of(extracts, spec), group),
+                                                    spec)
 
     return embeds
 
@@ -191,19 +179,14 @@ def make_sharded_loss_fn(cfg: WaveNetAEConfig, spec: LossSpec, mesh, axis_name: 
     chunk of the whole clip's. Chunks must be of one length on every rank."""
     group = mesh.get_group(axis_name)
     n = mesh.size(mesh.mesh_dim_names.index(axis_name))
-    needed = _needed(spec)
+    needed = needed_taps(spec)
 
     def loss(params, x_local, phi_c_local, phi_s):
         extracts = time_sharded_trunk(params, x_local, cfg, group, needed_taps=needed)
-        content_sq = torch.mean(torch.square(_content(extracts, spec).to(_F32)
-                                             - phi_c_local.to(_F32)))
-        content_loss = psum(content_sq, group) / n * 10.0
-        gram = _normalized(psum(_window_grams(extracts, spec), group), spec)
-        style_loss = torch.mean(torch.square(gram - phi_s)) * 1e3
-        total = content_loss + spec.lambd * style_loss
-        if spec.gamma != 0.0:
-            total = total + spec.gamma * sharded_stft_l1(inv_mu_law(x_local[0]), group)
-        return total
+        content = psum(mean_square(content_of(extracts, spec), phi_c_local), group) / n
+        gram = style_of(psum(gram_sums_of(extracts, spec), group), spec)
+        return weighted_loss(spec, content, gram, phi_s,
+                             lambda: sharded_stft_l1(inv_mu_law(x_local[0]), group))[0]
 
     return loss
 
@@ -219,28 +202,23 @@ def make_sharded_loss(params, phi_c_local, phi_s, cfg: WaveNetAEConfig, spec: Lo
 def _single_window_exact_loss_fn(cfg: WaveNetAEConfig, spec: LossSpec, t_total: int):
     """Whole-clip exact loss as one unmasked trunk pass:
     (params, x [1, t_total], phi_c, phi_s) -> scalar."""
-    needed = _needed(spec)
+    needed = needed_taps(spec)
 
     def loss(params, x, phi_c, phi_s):
         extracts = encoder_trunk(params, x, cfg, needed_taps=needed)
-        c_local = _content(extracts, spec)
-        content_loss = torch.mean(torch.square(c_local.to(_F32) - phi_c.to(_F32))) * 10.0
-        gram = _normalized(_window_grams(extracts, spec), spec)
-        style_loss = torch.mean(torch.square(gram - phi_s)) * 1e3
-        total = content_loss + spec.lambd * style_loss
-        if spec.gamma != 0.0:
-            total = total + spec.gamma * stft_l1(inv_mu_law(x[0]), FRAME_LENGTH, FRAME_STEP)
-        return total
+        content = mean_square(content_of(extracts, spec), phi_c)
+        gram = style_of(gram_sums_of(extracts, spec), spec)
+        return weighted_loss(spec, content, gram, phi_s, lambda: stft_regularizer(x))[0]
 
     return loss
 
 
 def _single_window_exact_embeds_fn(cfg: WaveNetAEConfig, spec: LossSpec):
-    needed = _needed(spec)
+    needed = needed_taps(spec)
 
     def embeds(params, x):
         extracts = encoder_trunk(params, x, cfg, needed_taps=needed)
-        return _content(extracts, spec), _normalized(_window_grams(extracts, spec), spec)
+        return content_of(extracts, spec), style_of(gram_sums_of(extracts, spec), spec)
 
     return embeds
 
@@ -257,7 +235,7 @@ class _Scan:
         self.radius = _window_radius(cfg, align=2048)
         self.n_win = t_total // window
         self.w_ext = window + 2 * self.radius
-        self.needed = _needed(spec)
+        self.needed = needed_taps(spec)
         self.n_frames = 1 + (t_valid - FRAME_LENGTH) // FRAME_STEP
         self.m_win = window // FRAME_STEP
         # A window is fully valid iff its extended tile lies inside
@@ -298,7 +276,7 @@ class _Scan:
                                  valid_window=vw)
         r = self.radius
         extracts = [None if e is None else e[:, r:-r, :] for e in extracts]
-        return _content(extracts, self.spec), _window_grams(extracts, self.spec)
+        return content_of(extracts, self.spec), gram_sums_of(extracts, self.spec)
 
     def reg_sum(self, x_ext, i: int):
         """Window i's share of the global non-centred STFT L1: the frames
@@ -336,13 +314,9 @@ class _Scan:
         return total
 
     def finish(self, csum, gsum, rsum, cdim: int, phi_s):
-        spec = self.spec
-        content_loss = csum / (self.t_valid * cdim) * 10.0
-        style_loss = torch.mean(torch.square(_normalized(gsum, spec) - phi_s)) * 1e3
-        total = content_loss + spec.lambd * style_loss
-        if spec.gamma != 0.0:
-            total = total + spec.gamma * rsum / (self.n_frames * (FRAME_LENGTH // 2 + 1))
-        return total
+        """The loss from the three global sums."""
+        return weighted_loss(self.spec, csum / (self.t_valid * cdim), style_of(gsum, self.spec),
+                             phi_s, lambda: rsum / (self.n_frames * (FRAME_LENGTH // 2 + 1)))[0]
 
 
 def _scan_or_none(cfg, spec, t_total: int, window: int, t_valid):
@@ -453,6 +427,6 @@ def make_scan_exact_embeds_fn(cfg: WaveNetAEConfig, spec: LossSpec, t_total: int
             c_local, gp = scan.trunk_terms(params, scan.x_ext(xp, i), scan.valid_window(i))
             gsum = gp if gsum is None else gsum + gp
             cs.append(c_local)
-        return torch.cat(cs, dim=0), _normalized(gsum, spec)
+        return torch.cat(cs, dim=0), style_of(gsum, spec)
 
     return embeds

@@ -4,8 +4,9 @@ audio_style_transfer_tpu/transfer/grams.py).
 "ours": channel-wise grams [C, L, L] over the selected taps, through
 ``ops.gram.pair_gram`` (the K5 kernel on CUDA). Gatys: per-layer channel x
 channel grams [L, C, C], through ``ops.gram.layer_gram`` (K8f on CUDA; JAX
-computes it outside any kernel). Both are cast to the taps' dtype and
-l2-normalized over their trailing two axes.
+computes it outside any kernel). ``gram_sums`` gives either in float32,
+unnormalized; ``style_gram`` casts it to the taps' dtype and l2-normalizes it
+over its trailing two axes (``normalize_gram``).
 """
 
 from __future__ import annotations
@@ -40,16 +41,31 @@ def content_embeds(extracts, cont_lyr_ids: Sequence[int], cnt_channels: int = 12
     return torch.cat([extracts[i][:, :, :cnt_channels] for i in cont_lyr_ids], dim=2)[0]
 
 
+def gram_sums(extracts, layer_ids: Sequence[int], *, gatys: bool = False) -> torch.Tensor:
+    """Unnormalized float32 gram of the selected taps of a batch-1 clip or
+    window: [C, L, L] through the all-pairs gram, or for Gatys [L, C, C]
+    through the per-layer gram. Grams are time sums, so the sums of a clip's
+    windows add up to the clip's."""
+    taps = [extracts[i] for i in layer_ids]
+    if gatys:
+        return layer_gram(*taps)
+    return pair_gram(*taps)[0].permute(2, 0, 1)  # [1, L, L, C] -> [C, L, L]
+
+
+def normalize_gram(gram: torch.Tensor, *, gatys: bool = False,
+                   nb_channels: int = 128) -> torch.Tensor:
+    """l2-normalize a gram over its trailing two axes; a channel-wise gram
+    keeps its first ``nb_channels`` channels."""
+    gram = l2_normalize(gram, axes=(1, 2))
+    if nb_channels < gram.shape[0] and not gatys:
+        gram = gram[:nb_channels]
+    return gram
+
+
 def style_gram(extracts, layer_ids: Sequence[int], *, gatys: bool = False,
                nb_channels: int = 128) -> torch.Tensor:
     """Normalized gram over the selected taps of a batch-1 clip: [C, L, L]
-    ("ours") or [L, C, C] (Gatys)."""
+    ("ours") or [L, C, C] (Gatys), in the taps' dtype."""
     dtype = extracts[layer_ids[0]].dtype
-    if gatys:
-        gram = layer_gram(*[extracts[i] for i in layer_ids]).to(dtype)
-        return l2_normalize(gram, axes=(1, 2))
-    g = pair_gram(*[extracts[i] for i in layer_ids])  # [1, L, L, C] f32
-    gram = l2_normalize(g[0].permute(2, 0, 1).to(dtype), axes=(1, 2))
-    if nb_channels < gram.shape[0]:
-        gram = gram[:nb_channels]
-    return gram
+    return normalize_gram(gram_sums(extracts, layer_ids, gatys=gatys).to(dtype), gatys=gatys,
+                          nb_channels=nb_channels)

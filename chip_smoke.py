@@ -12,14 +12,14 @@ Phases (any failure raises and exits non-zero):
      (T=16384, C=128, the 30 trunk layers), in float32 with TF32 off and in
      bfloat16, and time both (CUDA events, median of runs): K1/K2 and
      K7f/K7b layer by layer on the plain chain's own inputs (all four are
-     the tensor-core kernels in bfloat16 and the FMA kernels in float32; the
-     FMA kernels are also held against them and timed beside them, the
-     bfloat16 K2 and K7b are timed per phase, and K7b's recomputed gate is
-     held to bit 1 of K1's mask bytes bit for bit), K2-wf on each group of
-     the wavefront plan (the tensor-core kernel in bfloat16, bit for bit
-     against the K2 launches it replaces; its FMA build bit for bit against
-     the FMA K2 launches; timed as a replayed CUDA graph beside its eager
-     call, its FMA build and the K2 launches it replaces in one graph), K5
+     the tensor-core kernels in bfloat16 and the FMA kernels in float32;
+     K7b also bit for bit against K2 fed K1's gate; K2's and K7b's two
+     phases timed under torch.profiler by their kernels' names), K2-wf on
+     each group of
+     the wavefront plan (the tensor-core kernel in bfloat16, the FMA kernel
+     in float32, bit for bit against the K2 launches it replaces; timed as a
+     replayed CUDA graph beside its eager call and the K2 launches it
+     replaces in one graph), K5
      and K6 on the stack-0 taps {0..9} (L=10) and on all 30 taps (L=30),
      and on two clips of a ragged
      T, K5 twice on the same inputs for equal bits, both timed as a
@@ -183,7 +183,7 @@ Phases (any failure raises and exits non-zero):
      parity (its TensorFlow oracle is not installed on the card's machine;
      tests/test_torch_composed_parity.py holds it on the CPU);
   6. print the per-kernel JSON line (time, plain time, bound, library time,
-     FMA time, windowed time, the error at the exact runs' shapes and, for
+     windowed time, the error at the exact runs' shapes and, for
      K1 and K2, at the training step's in both types), then the
      result line.
 
@@ -238,10 +238,6 @@ STEP_LAUNCHES = {dtype_name: {"K1": LAYERS, "K2": LAYERS, "gate_fwd": 2 * DECODE
                               "gate_bwd": DECODER_LAYERS, "residual_fwd": DECODER_LAYERS,
                               "residual_bwd": DECODER_LAYERS, "taps_pack": packs}
                  for dtype_name, packs in (("float32", 0), ("bfloat16", TAPS_PACK_STEP))}
-# Published peaks of one H100 SXM: device memory rate, and dense operation
-# rates by the type of the inputs (float32 outside the tensor cores).
-PEAK_BYTES_S = 3.35e12
-PEAK_OPS_S = {"float32": 67e12, "bfloat16": 989e12}
 WINDOWS = 4  # windows of the long-form run
 RAGGED_T = 1000  # rows of the gram kernels' ragged check: no multiple of their tiles
 # The valid window of the windowed K1/K2 check, in rows: both edges inside a
@@ -317,13 +313,31 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3, graph: bool = False) -> float
     return float(np.median(times))
 
 
+def kernel_ms(run, frags, launches: int) -> tuple:
+    """Device ms per launch of the kernels whose names hold each of
+    ``frags``, from one eager run() under torch.profiler after a warm-up."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels, _ = device_busy(prof, "a timing by kernel name")
+    return tuple(sum(e.time_range.end - e.time_range.start for e in kernels if f in e.name)
+                 / launches / 1e3 for f in frags)
+
+
 def bound(nbytes: float, ops: float, dtype_name: str) -> dict:
-    """The least time the card could take: the bytes the function must move
-    (inputs read once, outputs written once) over the memory rate, or its
-    operations over the peak rate for the inputs' type, whichever is larger."""
-    by_bytes = nbytes / PEAK_BYTES_S * 1e3
-    by_ops = ops / PEAK_OPS_S[dtype_name] * 1e3
-    return {"bound_ms": max(by_bytes, by_ops),
+    """The benchmark's bound (``portbench.counts.bound_s``: the bytes moved
+    over the memory rate or the operations over the peak rate for the
+    inputs' type, whichever is larger) in ms, and which of the two it is."""
+    from portbench import counts
+
+    by_bytes, by_ops = counts.bound_s(nbytes, 0.0, dtype_name), counts.bound_s(0.0, ops,
+                                                                               dtype_name)
+    return {"bound_ms": max(by_bytes, by_ops) * 1e3,
             "bound_by": "bytes" if by_bytes >= by_ops else "operations"}
 
 
@@ -376,12 +390,11 @@ def k2_chain(args, g, layer, rows: int, window=None):
     return dxn
 
 
-def wavefront_groups(dils, rows: int, itemsize: int, fma: bool = False) -> list:
-    """The groups of the wavefront plan that run as one K2-wf launch (with
-    ``fma``, the FMA kernel's plan, which ``group_bwd_fma`` takes)."""
+def wavefront_groups(dils, rows: int, itemsize: int) -> list:
+    """The groups of the wavefront plan that run as one K2-wf launch."""
     from audio_style_transfer_tpu_torch.ops import chain
 
-    return [g for g in chain.plan_bwd_groups(dils, rows, itemsize, fma) if g.splits is not None]
+    return [g for g in chain.plan_bwd_groups(dils, rows, itemsize) if g.splits is not None]
 
 
 def wavefront_launches(rows: int) -> tuple[int, int]:
@@ -394,12 +407,6 @@ def wavefront_launches(rows: int) -> tuple[int, int]:
     return groups, len(plan) - groups
 
 
-def group_pairs(groups, fma_groups) -> list:
-    """(group, the FMA plan's group of the same layers) per K2-wf group."""
-    by_layers = {(g.j0, g.dils): g for g in fma_groups}
-    return [(g, by_layers[g.j0, g.dils]) for g in groups]
-
-
 def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float,
                 clip_rows: int | None = None, wavefront: bool = True):
     """K1 and K2 over the 30 layers on x0 [clips * clip_rows, C] (one clip
@@ -407,10 +414,10 @@ def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float,
     ``window`` or None, layer by layer on the plain chain's own inputs, masks
     and cotangents; then, with ``wavefront``, K2-wf on every group of the
     wavefront plan at these rows, against its plain version and bit for bit
-    against the K2 launches it replaces (bf16: the tensor-core kernels), and
-    its FMA build on the FMA plan's group bit for bit against the FMA K2
-    launches, with the same window. Returns (K1 max|d|, K2 max|d|, K2-wf
-    max|d| or None without a group, the plain chain's first ten outputs)."""
+    against the K2 launches it replaces (bf16: the tensor-core kernels;
+    float32: the FMA kernels), with the same window. Returns (K1 max|d|, K2
+    max|d|, K2-wf max|d| or None without a group, the plain chain's first
+    ten outputs)."""
     import torch
 
     from audio_style_transfer_tpu_torch.ops import chain
@@ -457,25 +464,19 @@ def chain_check(label: str, weights, x0, dtaps: dict, window, tol: float,
         k2_err = max(k2_err, abs_err)
         dx = dx_p
     groups = wavefront_groups(dils, rows, x0.element_size()) if wavefront else []
-    fma_groups = wavefront_groups(dils, rows, x0.element_size(), fma=True) if wavefront else []
     wf_err = None
-    for g, fg in group_pairs(groups, fma_groups):
+    for g in groups:
         args = group_inputs(g, dxs, dtaps, masks, inmask, wd, wr)
         got = chain.group_bwd(*args, g, rows, window)
         abs_err, rel = rel_err(got, chain.group_bwd_plain(*args, g.dils, rows, g.tile, g.splits,
                                                           window))
-        k2 = k2_chain(args, g, chain.layer_bwd, rows, window)
-        fma = chain.group_bwd_fma(*args, fg, rows, window)
-        if (rel > tol or not torch.equal(got, k2)
-                or not torch.equal(fma, k2_chain(args, g, chain.layer_bwd_fma, rows, window))):
+        if rel > tol or not torch.equal(got, k2_chain(args, g, chain.layer_bwd, rows, window)):
             raise AssertionError(f"K2-wf group at layer {g.j0}, {rows} rows, {label}: rel err "
-                                 f"{rel:.3e}, or not the K2 launches bit for bit, or its FMA "
-                                 f"build not the FMA K2 launches")
+                                 f"{rel:.3e}, or not the K2 launches bit for bit")
         wf_err = max(wf_err or 0.0, abs_err)
     zeros = "" if window is None else ", masked rows zero with a zero bit 0"
     wf = (f"; K2-wf: max|d| {wf_err:.3e} over {len(groups)} groups at tile {groups[0].tile}, "
-          f"equal to the K2 launches bit for bit, its FMA build (tile {fma_groups[0].tile}) to "
-          f"the FMA K2 launches" if groups else
+          f"equal to the K2 launches bit for bit" if groups else
           "; no wavefront group" if wavefront else "")
     where = f"{rows} rows" if rows == x0.shape[0] else f"{x0.shape[0] // rows} x {rows} rows"
     print(f"  K1 at {where}, {label}: max|d| {k1_err:.3e} over 30 layers (tol rel {tol:.0e}), "
@@ -631,9 +632,8 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     # K1 and K7f, layer by layer on the plain chain's own inputs. K7f is
     # K1's code with the mask bytes compiled out (tensor cores in bfloat16,
     # FMA in float32): its output equals K1's bit for bit.
-    xs, masks, kmasks, fmasks, inmask = [x0], [], [], [], None
-    k1_err, k7f_err, mask_share, k1_fma_err, k1_fma_share = 0.0, 0.0, 0.0, 0.0, 0.0
-    k7f_fma_err = 0.0
+    xs, masks, kmasks, inmask = [x0], [], [], None
+    k1_err, k7f_err, mask_share = 0.0, 0.0, 0.0
     for j, d in enumerate(dils):
         out_p, m_p, im_p = chain.layer_fwd_plain(xs[-1], wd[j], bd[j], wr[j], br[j], d, T,
                                                  want_inmask=(j == 0))
@@ -643,25 +643,11 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         if rel > tol:
             raise AssertionError(f"K1 layer {j}: rel err {rel:.3e} > {tol}")
         k1_err = max(k1_err, abs_err)
-        # The FMA kernel in the same type: in bfloat16 the other
-        # implementation of K1, held against the tensor-core one.
-        out_f, m_f, _ = chain.layer_fwd_fma(xs[-1], wd[j], bd[j], wr[j], br[j], d, T)
-        abs_err, rel = rel_err(out_k, out_f)
-        fma_share = float((m_k != m_f).float().mean())
-        if rel > tol or fma_share > MASK_TOL:
-            raise AssertionError(f"K1 layer {j} against the FMA kernel: rel err {rel:.3e}, "
-                                 f"{fma_share:.2e} of mask bytes differ")
-        k1_fma_err, k1_fma_share = max(k1_fma_err, abs_err), max(k1_fma_share, fma_share)
         out_7 = encoder.block_fwd(xs[-1], wd[j], bd[j], wr[j], br[j], d, T)
         abs_err, rel = rel_err(out_7, out_p)
         if rel > tol or not torch.equal(out_7, out_k):
             raise AssertionError(f"K7f layer {j}: rel err {rel:.3e} > {tol}, or not K1's output")
         k7f_err = max(k7f_err, abs_err)
-        abs_err, rel = rel_err(out_7, encoder.block_fwd_fma(xs[-1], wd[j], bd[j], wr[j], br[j],
-                                                            d, T))
-        if rel > tol:
-            raise AssertionError(f"K7f layer {j} against the FMA kernel: rel err {rel:.3e}")
-        k7f_fma_err = max(k7f_fma_err, abs_err)
         share = float((m_k != m_p).float().mean())
         if j == 0:
             share = max(share, float((im_k != im_p).float().mean()))
@@ -672,19 +658,15 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         xs.append(out_p)
         masks.append(m_p)
         kmasks.append(m_k)
-        fmasks.append(m_f)
     print(f"  K1 taps: max|d| {k1_err:.3e} over 30 layers (tol rel {tol:.0e}) ok; "
           f"mask bytes differing <= {mask_share:.2e} (tol {MASK_TOL:.0e}) ok")
-    print(f"  K1 against the FMA kernel: max|d| {k1_fma_err:.3e}, mask bytes differing <= "
-          f"{k1_fma_share:.2e} ok")
     print(f"  K7f out: max|d| {k7f_err:.3e} over 30 layers (tol rel {tol:.0e}), equal to K1's "
-          f"output bit for bit; against the FMA kernel max|d| {k7f_fma_err:.3e} ok")
+          f"output bit for bit ok")
 
     # K2 and K7b, layer by layer on the plain chain's cotangents (and masks).
     dtaps = {j: (torch.randn((T, C), generator=gen, device=dev) * 1e-3).to(dt) for j in EMIT}
     dx = dtaps[LAYERS - 1]
-    k2_err, k7b_err, k2_fma_err, k7b_fma_err, k7b_fma_own_err = 0.0, 0.0, 0.0, 0.0, 0.0
-    gate_bits_checked = 0
+    k2_err, k7b_err = 0.0, 0.0
     gs, dxs = {}, {}
     for j in range(LAYERS - 1, -1, -1):
         dxs[j] = dx  # the cotangent of layer j's output, before its tap's
@@ -696,11 +678,6 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         if rel > tol:
             raise AssertionError(f"K2 layer {j}: rel err {rel:.3e} > {tol}")
         k2_err = max(k2_err, abs_err)
-        abs_err, rel = rel_err(
-            dx_k, chain.layer_bwd_fma(dx, dtap, masks[j], in_m, wd[j], wr[j], dils[j], T))
-        if rel > tol:
-            raise AssertionError(f"K2 layer {j} against the FMA kernel: rel err {rel:.3e}")
-        k2_fma_err = max(k2_fma_err, abs_err)
         gs[j] = dx if dtap is None else dx + dtap  # layer j's output cotangent
         # K7b recomputes its gate y > 0 from x with K1's dilated-conv code
         # (the tensor-core K1's in bfloat16, the FMA K1's in float32), so its
@@ -708,8 +685,8 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         # against the plain gate are bounded by MASK_TOL above. Its plain
         # version here takes that gate: a y within rounding of zero that
         # flips would move the cotangent of its neighbourhood by about its
-        # own size. The FMA K2 fed the same gate is the FMA kernel it is held
-        # to; the FMA K7b (bfloat16) to the plain version with its own gate.
+        # own size. K2 fed that gate and x > 0 runs K7b's phase 2 after the
+        # same g @ Wr^T product: equal bit for bit, so K7b's gate is K1's bit 1.
         in_relu = (xs[j] > 0).to(torch.uint8)
         want = chain.layer_bwd_plain(gs[j], None, kmasks[j], in_relu, wd[j], wr[j], dils[j], T)
         dx_7 = encoder.block_bwd(xs[j], gs[j], wd[j], bd[j], wr[j], dils[j], T)
@@ -717,55 +694,28 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         if rel > tol:
             raise AssertionError(f"K7b layer {j}: rel err {rel:.3e} > {tol}")
         k7b_err = max(k7b_err, abs_err)
-        abs_err, rel = rel_err(dx_7, chain.layer_bwd_fma(gs[j], None, kmasks[j], in_relu, wd[j],
-                                                         wr[j], dils[j], T))
-        if rel > tol:
-            raise AssertionError(f"K7b layer {j} against the FMA kernels: rel err {rel:.3e}")
-        k7b_fma_err = max(k7b_fma_err, abs_err)
-        if dt == torch.bfloat16:
-            want = chain.layer_bwd_plain(gs[j], None, fmasks[j], in_relu, wd[j], wr[j], dils[j],
-                                         T)
-            abs_err, rel = rel_err(
-                encoder.block_bwd_fma(xs[j], gs[j], wd[j], bd[j], wr[j], dils[j], T), want)
-            if rel > tol:
-                raise AssertionError(f"FMA K7b layer {j}: rel err {rel:.3e} > {tol}")
-            k7b_fma_own_err = max(k7b_fma_own_err, abs_err)
-            # Phase 1 alone: dy is zero exactly where the gate is off, and
-            # nonzero where it is on and g @ Wr^T is not negligible.
-            dy = encoder.block_bwd_mma_phase1(xs[j], gs[j], wd[j], bd[j], wr[j], dils[j], T)
-            gate = ((kmasks[j] >> 1) & 1).bool()
-            dv = gs[j].float() @ wr[j].float().T
-            informative = dv.abs() > 1e-3 * dv.abs().max()
-            if bool(dy[~gate].any()) or not torch.equal((dy != 0)[informative],
-                                                        gate[informative]):
-                raise AssertionError(f"K7b layer {j}: its gate is not the tensor-core K1's bit 1")
-            gate_bits_checked += int((informative | ~gate).sum())
-            del dy, dv, gate, informative
+        if not torch.equal(dx_7, chain.layer_bwd(gs[j], None, kmasks[j], in_relu, wd[j],
+                                                 wr[j], dils[j], T)):
+            raise AssertionError(f"K7b layer {j} differs from K2 fed K1's gate: its recomputed "
+                                 f"gate is not K1's bit 1")
         dx = dx_p
-    print(f"  K2 dx: max|d| {k2_err:.3e} over 30 layers (tol rel {tol:.0e}) ok; against the "
-          f"FMA kernel max|d| {k2_fma_err:.3e} ok")
+    print(f"  K2 dx: max|d| {k2_err:.3e} over 30 layers (tol rel {tol:.0e}) ok")
     print(f"  K7b dx: max|d| {k7b_err:.3e} over 30 layers (tol rel {tol:.0e}; plain version "
-          f"with K1's gate) ok; against the FMA K2 fed that gate max|d| {k7b_fma_err:.3e} ok")
-    if dt == torch.bfloat16:
-        print(f"  K7b's gate equals bit 1 of the tensor-core K1's mask bytes, bit for bit "
-              f"({gate_bits_checked} gate bits checked through phase 1's dy) ok; the FMA K7b "
-              f"against its plain version with the FMA K1's gate max|d| {k7b_fma_own_err:.3e} ok")
+          f"with K1's gate) ok; equal to K2 fed that gate bit for bit ok")
 
     # K2-wf on every group of the wavefront plan, on the plain chain's
     # cotangents and masks: against its plain version and bit for bit against
-    # the K2 launches it replaces (in bfloat16 the tensor-core kernels); its
-    # FMA build (bfloat16: the FMA plan's group) bit for bit against the FMA
-    # K2 launches, and against the K2-wf.
+    # the K2 launches it replaces (in bfloat16 the tensor-core kernels, in
+    # float32 the FMA kernels).
     groups = wavefront_groups(dils, T, x0.element_size())
-    wf_pairs = group_pairs(groups, wavefront_groups(dils, T, x0.element_size(), fma=True))
     if not groups:
         raise AssertionError("the wavefront plan holds no group at the full geometry")
 
     def group_args(g):
         return group_inputs(g, dxs, dtaps, masks, inmask, wd, wr)
 
-    wf_err, wf_vs_fma = 0.0, 0.0
-    for g, fg in wf_pairs:
+    wf_err = 0.0
+    for g in groups:
         got = chain.group_bwd(*group_args(g), g, T)
         want = chain.group_bwd_plain(*group_args(g), g.dils, T, g.tile, g.splits)
         abs_err, rel = rel_err(got, want)
@@ -774,17 +724,9 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         wf_err = max(wf_err, abs_err)
         if not torch.equal(got, k2_chain(group_args(g), g, chain.layer_bwd, T)):
             raise AssertionError(f"K2-wf group at layer {g.j0} differs from the K2 launches")
-        fma = chain.group_bwd_fma(*group_args(g), fg, T)
-        if not torch.equal(fma, k2_chain(group_args(g), g, chain.layer_bwd_fma, T)):
-            raise AssertionError(f"the FMA K2-wf at layer {g.j0} differs from the FMA K2 launches")
-        abs_err, rel = rel_err(fma, got)
-        if rel > tol:
-            raise AssertionError(f"the FMA K2-wf at layer {g.j0} against K2-wf: rel err {rel:.3e}")
-        wf_vs_fma = max(wf_vs_fma, abs_err)
     print(f"  K2-wf dx: max|d| {wf_err:.3e} over {len(groups)} groups of dils "
           f"{groups[0].dils} at tile {groups[0].tile} (tol rel {tol:.0e}) ok; equal to the K2 "
-          f"launches it replaces bit for bit; its FMA build (tile {wf_pairs[0][1].tile}) equal to "
-          f"the FMA K2 launches bit for bit, against the K2-wf max|d| {wf_vs_fma:.3e} ok")
+          f"launches it replaces bit for bit")
 
     # K1, K2 and K2-wf with a valid window that cuts tiles; then K7f and K7b.
     k1w_err, k2w_err, wfw_err, _ = chain_check(f"the valid window {WINDOW}",
@@ -853,10 +795,6 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         "K7b": (cuda_ms(blocks(encoder.block_bwd, True), graph=True) / LAYERS,
                 cuda_ms(blocks(encoder.block_bwd_plain, True)) / LAYERS),
     }
-    fma_ms = {"K1": cuda_ms(fwd(chain.layer_fwd_fma), graph=True) / LAYERS,
-              "K2": cuda_ms(bwd(chain.layer_bwd_fma), graph=True) / LAYERS,
-              "K7f": cuda_ms(blocks(encoder.block_fwd_fma, False), graph=True) / LAYERS,
-              "K7b": cuda_ms(blocks(encoder.block_bwd_fma, True), graph=True) / LAYERS}
     eager_ms = {"K1": cuda_ms(fwd(chain.layer_fwd)) / LAYERS,
                 "K2": cuda_ms(bwd(chain.layer_bwd)) / LAYERS,
                 "K7f": cuda_ms(blocks(encoder.block_fwd, False)) / LAYERS,
@@ -879,35 +817,18 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     windowed_ms["K2wf"] = min(ms[1:3])
     print(f"  K2-wf with the valid window, time per group: {ms[1]:.4f}, {ms[2]:.4f} ms between "
           f"{ms[0]:.4f} and {ms[3]:.4f} ms without a window")
-    if dt == torch.bfloat16:
-        # The tensor-core K2 phase by phase, on the plain chain's cotangents.
-        layer_args = [(dxs[j], dtaps.get(j) if j != LAYERS - 1 else None,
-                       masks[j - 1] if j > 0 else inmask) for j in range(LAYERS)]
-        dys = [chain.layer_bwd_mma_phase1(dxn, dtap, masks[j], wr[j], T)
-               for j, (dxn, dtap, _) in enumerate(layer_args)]
-        phase1 = cuda_ms(lambda: [chain.layer_bwd_mma_phase1(dxn, dtap, masks[j], wr[j], T)
-                                  for j, (dxn, dtap, _) in enumerate(layer_args)],
-                         graph=True) / LAYERS
-        phase2 = cuda_ms(lambda: [chain.layer_bwd_mma_phase2(dxn, dtap, dys[j], in_m, wd[j],
-                                                             dils[j], T)
-                                  for j, (dxn, dtap, in_m) in enumerate(layer_args)],
-                         graph=True) / LAYERS
-        print(f"  K2 time per launch by phase: dy {phase1:.4f} ms, dx {phase2:.4f} ms")
-        # The tensor-core K7b phase by phase, on the plain chain's inputs.
-        dys = [encoder.block_bwd_mma_phase1(xs[j], gs[j], wd[j], bd[j], wr[j], d, T)
-               for j, d in enumerate(dils)]
-        phase1 = cuda_ms(lambda: [encoder.block_bwd_mma_phase1(xs[j], gs[j], wd[j], bd[j], wr[j],
-                                                               d, T)
-                                  for j, d in enumerate(dils)], graph=True) / LAYERS
-        phase2 = cuda_ms(lambda: [encoder.block_bwd_mma_phase2(xs[j], gs[j], dys[j], wd[j], d, T)
-                                  for j, d in enumerate(dils)], graph=True) / LAYERS
-        print(f"  K7b time per launch by phase: dy {phase1:.4f} ms, dx {phase2:.4f} ms")
-        del dys
-    # K2-wf as a replayed CUDA graph beside the eager call, its FMA build,
-    # and the K2 launches it replaces in one graph; then K2-wf again, so that
-    # a drift of the card's clock shows.
-    def groups_run(fn, fma=False):
-        return lambda: [fn(*group_args(g), fg if fma else g, T) for g, fg in wf_pairs]
+    # K2 and K7b phase by phase: each phase's kernel time under torch.profiler.
+    for k, run, frags in (("K2", bwd(chain.layer_bwd), ("trunk_bwd_dy", "trunk_bwd_dx")),
+                          ("K7b", blocks(encoder.block_bwd, True),
+                           ("encoder_bwd_dy", "trunk_bwd_dx"))):
+        dy_ms, dx_ms = kernel_ms(run, frags, LAYERS)
+        print(f"  {k} time per launch by phase (torch.profiler): dy {dy_ms:.4f} ms, "
+              f"dx {dx_ms:.4f} ms")
+    # K2-wf as a replayed CUDA graph beside the eager call, and the K2
+    # launches it replaces in one graph; then K2-wf again, so that a drift of
+    # the card's clock shows.
+    def groups_run(fn):
+        return lambda: [fn(*group_args(g), g, T) for g in groups]
 
     wf_ms = [cuda_ms(groups_run(chain.group_bwd), graph=True) / ng]
     times["K2wf"] = (
@@ -915,19 +836,14 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
         cuda_ms(lambda: [chain.group_bwd_plain(*group_args(g), g.dils, T, g.tile, g.splits)
                          for g in groups]) / ng)
     eager_ms["K2wf"] = cuda_ms(groups_run(chain.group_bwd)) / ng
-    fma_ms["K2wf"] = cuda_ms(groups_run(chain.group_bwd_fma, fma=True), graph=True) / ng
     k2_ms = cuda_ms(lambda: [k2_chain(group_args(g), g, chain.layer_bwd, T) for g in groups],
                     graph=True) / ng
-    k2_fma_ms = cuda_ms(lambda: [k2_chain(group_args(g), g, chain.layer_bwd_fma, T)
-                                 for g in groups],
-                        graph=True) / ng
     wf_ms.append(cuda_ms(groups_run(chain.group_bwd), graph=True) / ng)
     kg = len(groups[0].dils)
     print(f"  K2-wf time per group of {kg} layers: {wf_ms[0]:.4f} ms, again {wf_ms[1]:.4f} ms "
           f"(graph; {eager_ms['K2wf']:.4f} ms per eager call), against {k2_ms:.4f} ms for the "
           f"{kg} K2 launches it replaces (layer_bwd, one graph): "
-          f"{'faster' if min(wf_ms) < k2_ms else 'slower'} by {abs(k2_ms - min(wf_ms)):.4f} ms; "
-          f"its FMA build {fma_ms['K2wf']:.4f} ms, the {kg} FMA K2 launches {k2_fma_ms:.4f} ms")
+          f"{'faster' if min(wf_ms) < k2_ms else 'slower'} by {abs(k2_ms - min(wf_ms)):.4f} ms")
     # One torch.einsum beside each gram kernel: a yardstick, used nowhere in
     # the port.
     library = {}
@@ -945,15 +861,13 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     for k, (ms, plain_ms) in times.items():
         lib = f", one einsum {library[k]:.4f} ms" if k in library else ""
         eager = f" ({eager_ms[k]:.4f} ms per eager wrapper call)" if k in eager_ms else ""
-        fma = f", fma {fma_ms[k]:.4f} ms" if k in fma_ms else ""
-        print(f"  {k} time per launch: kernel {ms:.4f} ms{eager}{fma}, plain {plain_ms:.4f} ms"
-              f"{lib}")
+        print(f"  {k} time per launch: kernel {ms:.4f} ms{eager}, plain {plain_ms:.4f} ms{lib}")
     errs.update({"K1": k1_err, "K2": k2_err, "K2wf": wf_err, "K7f": k7f_err, "K7b": k7b_err})
     windowed = {k: {"windowed_max_abs_err": err, "windowed_ms": windowed_ms[k]}
                 for k, err in (("K1", k1w_err), ("K2", k2w_err), ("K7f", k7fw_err),
                                ("K7b", k7bw_err), ("K2wf", wfw_err))}
-    # K2-wf's yardsticks: the K2 launches it replaces, in one graph.
-    windowed["K2wf"].update(k2_launches_ms=k2_ms, fma_k2_launches_ms=k2_fma_ms)
+    # K2-wf's yardstick: the K2 launches it replaces, in one graph.
+    windowed["K2wf"].update(k2_launches_ms=k2_ms)
 
     # Bounds from these shapes. A product is one [T, C] x [C, C] matrix
     # product; an activation or cotangent array is T * C elements.
@@ -982,7 +896,7 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
     for k, b in bounds.items():
         print(f"  {k} bound: {b['bound_ms']:.4f} ms by {b['bound_by']}")
     return {k: dict(max_abs_err=errs[k], ms=times[k][0], plain_ms=times[k][1],
-                    library_ms=library.get(k), fma_ms=fma_ms.get(k), **bounds[k],
+                    library_ms=library.get(k), **bounds[k],
                     **windowed.get(k, {})) for k in errs}
 
 
@@ -1085,7 +999,7 @@ def decoder_kernel_phase(dtype_name: str, dev) -> dict:
         ms = cuda_ms(kernel, graph=True)
         plain_ms = cuda_ms(plain, graph=True)
         bnd = bound(nbytes, 0.0, dtype_name)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, fma_ms=None,
+        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                          library_ms=None, **bnd)
         print(f"  {name}: {note} ok; kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms "
               f"({nbytes / 1e6:.0f} MB, {bnd['bound_ms'] / ms:.1%} of it), plain {plain_ms:.4f} ms")
@@ -1139,7 +1053,7 @@ def taps_pack_phase(dev) -> dict:
         plain_ms = cuda_ms(plain, graph=True)
         nbytes = x.numel() * x.element_size() * (1 + len(offsets))
         bnd = bound(nbytes, 0.0, "bfloat16")
-        out[f"TP {name}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0, fma_ms=None,
+        out[f"TP {name}"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0,
                                  library_ms=None, **bnd)
         print(f"  {name} (C {c}, offsets {offsets}): bit for bit ok; kernel {ms:.4f} ms, bound "
               f"{bnd['bound_ms']:.4f} ms ({nbytes / 1e6:.0f} MB, {bnd['bound_ms'] / ms:.1%} of "
@@ -1221,7 +1135,7 @@ def layer_gram_kernel_phase(dtype_name: str, dev) -> dict:
     out = {}
     for name, (ms, plain_ms, err, (nbytes, ops)) in times.items():
         bnd = bound(nbytes, ops, dtype_name)
-        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err, fma_ms=None,
+        out[name] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=err,
                          library_ms=None, **bnd)
         print(f"  {name}: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
               f"{bnd['bound_by']} ({bnd['bound_ms'] / ms:.1%} of it), plain {plain_ms:.4f} ms")
@@ -2245,6 +2159,7 @@ def generate_synth_phase(params, dev, enc16: np.ndarray, smi: str) -> list:
 
     from audio_style_transfer_tpu_torch.generate import fastgen
     from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
+    from portbench import counts
 
     label = "generate synth"
     cfg = WaveNetAEConfig()
@@ -2256,7 +2171,7 @@ def generate_synth_phase(params, dev, enc16: np.ndarray, smi: str) -> list:
               "int8": fastgen.quantize_params_int8(p_dev)}
     rows = []
     for fmt in GEN_FORMATS:
-        floor_us = fastgen.decoder_weight_bytes(stored[fmt], cfg) / PEAK_BYTES_S * 1e6
+        floor_us = fastgen.decoder_weight_bytes(stored[fmt], cfg) / counts.PEAK_BYTES_S * 1e6
         for b in GEN_BATCHES:
             enc = np.stack([enc16[i % GEN_CLIPS, GEN_FRAMES * (i // GEN_CLIPS):][:GEN_FRAMES]
                             for i in range(b)])
@@ -2277,9 +2192,10 @@ def generate_synth_phase(params, dev, enc16: np.ndarray, smi: str) -> list:
             rows.append(row)
             print(f"[{label}] {fmt} B={b}: {us:.1f} us per sample per stream with set-up, "
                   f"{steady:.1f} steady; {row['samples_per_s']:.0f} samples/s; floor "
-                  f"{floor_us:.1f} us per step (weights over {PEAK_BYTES_S / 1e12:.2f} TB/s, "
-                  f"shared by the batch), steady / floor {row['ratio']:.1f}; peak "
-                  f"{row['peak_gb']:.3f} GB; cond {row['cond_bytes']} B ({smi})")
+                  f"{floor_us:.1f} us per step (weights over "
+                  f"{counts.PEAK_BYTES_S / 1e12:.2f} TB/s, shared by the batch), steady / floor "
+                  f"{row['ratio']:.1f}; peak {row['peak_gb']:.3f} GB; cond {row['cond_bytes']} B "
+                  f"({smi})")
             ok = (audio.shape == (b, steps) and np.all(np.isfinite(audio))
                   and np.abs(audio).max() <= 1.0 and np.abs(audio).max() > 0)
             if not ok:
@@ -2428,22 +2344,6 @@ TRAIN_FLIP_SHARE = 1e-3
 TRUNK_REPS = 3  # timed forward + backward passes of each trunk path
 
 
-def train_flops(rows: int, cfg) -> float:
-    """Operations of one training step (2 per multiply-add), from the
-    shapes: the decoder's forward, its remat re-forward of the 30 blocks and
-    its backward (2x forward); the encoder's K1 forward, K2's cotangent
-    (the same products as the forward), the trunk's weight recompute forward
-    and its backward (2x)."""
-    w, s, q, bw = cfg.width, cfg.skip_width, cfg.quant_channels, cfg.ae_bottleneck_width
-    block = (cfg.filter_length * w * 2 * w + w * w + w * s) * 2 * cfg.num_layers
-    dec = block + (cfg.filter_length * w + w * s + s * s + s * q) * 2
-    trunk = (cfg.ae_filter_length * cfg.ae_width + cfg.ae_width) * cfg.ae_width * 2 \
-        * cfg.ae_num_layers
-    enc_rest = (cfg.ae_filter_length * cfg.ae_width + cfg.ae_width * bw) * 2
-    per_row = 3 * dec + block + 5 * trunk + 3 * enc_rest
-    return float(per_row) * rows
-
-
 def train_batch(shape, seed: int) -> np.ndarray:
     """Audio-like batch in (-1, 1): each row a few tones at random pitches
     with noise (no sample at +1.0: its label 256 makes the loss NaN, as in
@@ -2518,19 +2418,16 @@ def train_parity_phase(dev) -> None:
 
 def device_busy(prof, what: str) -> tuple[list, float]:
     """The device events of a torch.profiler capture and the device's busy
-    time in us: the union of their intervals, so overlaps count once."""
+    time in us (``portbench.trace.union_us``: overlaps count once)."""
     import torch
+
+    from portbench import trace
 
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not kernels:
         raise RuntimeError(f"torch.profiler recorded no device event in {what}")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo = busy + hi - lo, a
-        hi = max(hi, b)
-    return kernels, busy + hi - lo
+    busy, _ = trace.union_us((e.time_range.start, e.time_range.end) for e in kernels)
+    return kernels, busy
 
 
 def inclusive_us(e) -> float:
@@ -2549,6 +2446,8 @@ def _split_step(tr, st, wav) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from portbench import trace
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2560,10 +2459,9 @@ def _split_step(tr, st, wav) -> dict:
     by_name = {}
     for e in kernels:
         us = e.time_range.end - e.time_range.start
-        name = e.name.lower()
-        if any(w in name for w in ("gemm", "gemv", "xmma", "cutlass", "cublas", "nvjet")):
+        if trace.is_product(e.name):
             kinds["products"] += us
-        elif any(w in name for w in ("trunk_", "encoder_", "gram_")):
+        elif trace.is_own(e.name):
             kinds["hand-written"] += us
         else:
             kinds["other"] += us
@@ -2681,6 +2579,7 @@ def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
     from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig
     from audio_style_transfer_tpu_torch.ops import _build
     from audio_style_transfer_tpu_torch.train import TrainConfig, Trainer
+    from portbench import counts
 
     label = f"train step {dtype_name}"
     dtype = getattr(torch, dtype_name)
@@ -2711,7 +2610,7 @@ def train_step_phase(dev, dtype_name: str, smi: str) -> dict:
         raise AssertionError(f"[{label}] losses {losses}: not finite or not falling")
     timed = ms[1:]
     step_ms = float(np.median(timed))
-    flops = train_flops(b * t, model_cfg)
+    flops = counts.train_flops(b * t, vars(model_cfg))
     bnd = bound(0.0, flops, dtype_name)
     split = _split_step(tr, st, wav)
     busy = split["busy_ms"] / split["wall_ms"]
@@ -4329,11 +4228,8 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
-        if r["fma_ms"] is not None:  # K1, K2, K2-wf, K7f, K7b: the FMA kernel in bf16
-            kernels[-1]["fma_ms"] = r["fma_ms"]
         if "k2_launches_ms" in r:  # K2-wf: the K2 launches it replaces
-            kernels[-1].update(k2_launches_ms=r["k2_launches_ms"],
-                               fma_k2_launches_ms=r["fma_k2_launches_ms"])
+            kernels[-1]["k2_launches_ms"] = r["k2_launches_ms"]
         if "windowed_ms" in r:  # the same kernel with a valid window
             kernels[-1].update(windowed_ms=r["windowed_ms"],
                                windowed_max_abs_err=r["windowed_max_abs_err"])

@@ -156,7 +156,12 @@ def test_c_entry_point_arguments_match_the_ctypes_signature(name):
 
 
 def test_the_tensor_core_entries_take_the_fma_entries_arguments_without_is_bf16():
+    """Each trunk kernel has one build per dtype: the float32 FMA entry takes
+    exactly the bfloat16 tensor-core entry's arguments, with no dtype flag."""
     entries = _c_entries()
     for fma in ("ast_trunk_fwd", "ast_trunk_bwd", "ast_encoder_fwd", "ast_encoder_bwd"):
-        mma = fma + "_mma"
-        assert entries[fma] == entries[mma][:-1] + "I" + "P"
+        assert entries[fma] == entries[fma + "_mma"]
+    # The grouped backward: the FMA build takes its planned splits beside the
+    # tensor-core build's arguments.
+    group, group_mma = entries["ast_trunk_bwd_group"], entries["ast_trunk_bwd_group_mma"]
+    assert group == group_mma[:8] + "P" + group_mma[8:]

@@ -75,15 +75,13 @@ def test_infeasible_groups_have_no_splits(dils, tile):
     assert chain.wavefront_splits(dils, tile) is None
 
 
-@pytest.mark.parametrize("itemsize,tile", [(2, 64), (4, 32)])
+@pytest.mark.parametrize("itemsize,tile", [(4, 32)])
 def test_full_geometry_plan(itemsize, tile):
-    """The FMA K2-wf's plan (float32's, and bf16's for ``group_bwd_fma``):
-    30 layers, dilations 2**(i % 10), T=16384: the four layers with d <= 8
-    of each stack form one group (bf16 at tile 64; float32 at tile 32, where
-    three carry slots of a 64-row tile would not fit a block's shared
-    memory); the other 18 layers stay single K2 launches."""
-    plan = chain.plan_bwd_groups(FULL_DILS, 16384, itemsize, fma=True)
-    assert plan == chain.plan_bwd_groups(FULL_DILS, 16384, itemsize, fma=itemsize == 2)
+    """The FMA K2-wf's plan, float32's: 30 layers, dilations 2**(i % 10),
+    T=16384: the four layers with d <= 8 of each stack form one group at tile
+    32, where three carry slots of a 64-row tile would not fit a block's
+    shared memory; the other 18 layers stay single K2 launches."""
+    plan = chain.plan_bwd_groups(FULL_DILS, 16384, itemsize)
     groups = [g for g in plan if g.splits is not None]
     assert [(g.j0, g.dils, g.tile) for g in groups] == [
         (j0, (1, 2, 4, 8), tile) for j0 in (0, 10, 20)]
@@ -109,8 +107,6 @@ def test_tensor_core_plan_takes_the_same_layers_at_tile_128(rows):
     groups = [g for g in plan if g.splits is not None]
     assert [(g.j0, g.dils, g.tile) for g in groups] == [
         (j0, (1, 2, 4, 8), 128) for j0 in (0, 10, 20)]
-    fma = [g for g in chain.plan_bwd_groups(FULL_DILS, rows, 2, fma=True) if g.splits]
-    assert [(g.j0, g.dils) for g in fma] == [(g.j0, g.dils) for g in groups]
     assert [g.j0 for g in plan if g.splits is None] == [j for j in range(30) if j % 10 >= 4]
     for g in groups:
         assert chain.wavefront_mma_smem_bytes(g.dils, g.tile) == 220160

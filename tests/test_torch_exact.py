@@ -203,3 +203,52 @@ def test_exact_cli_on_cpu(tmp_path, extra, t_valid):
     assert f"samples {t_valid}" in r.stdout, r.stdout
     wavs = list((tmp_path / "out").rglob("longform.wav"))
     assert len(wavs) == 1 and "exact_True" in wavs[0].parent.name
+
+
+# One loss, three paths: the clip path's ``transfer_loss``, the exact
+# single window and the exact window scan, on a 30-layer trunk of width 16
+# (its receptive-field radius rounds up to 4096, so the scan's two windows of
+# 2048 are both edge windows).
+LOSS_GEOM = dict(ae_num_layers=30, ae_width=16)
+LOSS_SPECS = {
+    "stack 0": dict(style_layer_ids=tuple(range(10)), cont_lyr_ids=(29,)),
+    "full stack": dict(style_layer_ids=tuple(range(30)), cont_lyr_ids=(25,)),
+    "gatys": dict(style_layer_ids=tuple(range(30)), cont_lyr_ids=(25,), gatys=True),
+}
+
+
+@pytest.mark.parametrize("gamma", [0.0, 1e-3])
+@pytest.mark.parametrize("name", sorted(LOSS_SPECS))
+def test_the_clip_loss_and_the_exact_losses_are_one_function(name, gamma):
+    """In float32 on one clip and its targets: the single-window exact loss
+    is the clip path's ``transfer_loss`` bit for bit (the same taps, grams and
+    sums), and the two-window scan's value equals it within the tolerance of
+    ``test_transfer_exact_scan_equals_single_window`` (float32 sums over the
+    windows in another order)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.models.wavenet_ae import init_params
+    from audio_style_transfer_tpu_torch.parallel import halo
+    from audio_style_transfer_tpu_torch.signal.mu_law import mu_law
+    from audio_style_transfer_tpu_torch.transfer.losses import (
+        LossSpec,
+        transfer_embeds,
+        transfer_loss,
+    )
+
+    cfg = TCfg(**LOSS_GEOM)
+    params = init_params(0, cfg)
+    spec = LossSpec(gamma=gamma, **LOSS_SPECS[name])
+    x = mu_law(torch.from_numpy(_clip(W, 0, 0.05)))[None]
+    phi_c, _ = transfer_embeds(params, mu_law(torch.from_numpy(_clip(W, 2, 0.07)))[None], cfg,
+                               spec)
+    _, phi_s = transfer_embeds(params, mu_law(torch.from_numpy(_clip(W, 1, 0.11)))[None], cfg,
+                               spec)
+    clip, parts = transfer_loss(params, x, phi_c, phi_s, cfg, spec)
+    assert (float(parts["regularizer"]) > 0.0) == (gamma != 0.0)
+    single = halo._single_window_exact_loss_fn(cfg, spec, W)(params, x, phi_c, phi_s)
+    assert torch.equal(single, clip)
+    scan, grad = halo.make_scan_exact_value_and_grad_fn(cfg, spec, W, 2048)(
+        params, x, phi_c, phi_s)
+    assert grad.shape == (1, W)
+    np.testing.assert_allclose(float(scan), float(single), rtol=1e-3)

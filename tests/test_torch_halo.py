@@ -31,6 +31,7 @@ from audio_style_transfer_tpu_torch.models.wavenet_ae import WaveNetAEConfig as 
 from audio_style_transfer_tpu_torch.ops import _build
 from audio_style_transfer_tpu_torch.parallel import halo as thalo
 from audio_style_transfer_tpu_torch.transfer.losses import LossSpec as TSpec
+from audio_style_transfer_tpu_torch.transfer.losses import gram_sums_of
 
 GEOM = dict(ae_num_layers=6, ae_width=16)
 SPEC = dict(cont_lyr_ids=(5,), style_layer_ids=(0, 2, 4), cnt_channels=16, nb_channels=16,
@@ -170,13 +171,13 @@ def test_window_grams_match_jax(weights, gatys):
     taps = {i: rng.randn(1, 640, 16).astype(np.float32) for i in (0, 2, 4)}
     jspec, tspec = JSpec(gatys=gatys, **SPEC), TSpec(gatys=gatys, **SPEC)
     want = jhalo._window_grams({i: jnp.asarray(v) for i, v in taps.items()}, jspec)
-    got = thalo._window_grams({i: t(v) for i, v in taps.items()}, tspec)
+    got = gram_sums_of({i: t(v) for i, v in taps.items()}, tspec)
     assert got.dtype == torch.float32
     assert got.shape == ((3, 16, 16) if gatys else (16, 3, 3))
     np.testing.assert_allclose(n(got), n(want), rtol=1e-5, atol=1e-4)
     # bfloat16 taps: float32 sums of the bfloat16 values.
-    got16 = thalo._window_grams({i: t(v, torch.bfloat16) for i, v in taps.items()}, tspec)
-    want16 = thalo._window_grams({i: t(v, torch.bfloat16).float() for i, v in taps.items()}, tspec)
+    got16 = gram_sums_of({i: t(v, torch.bfloat16) for i, v in taps.items()}, tspec)
+    want16 = gram_sums_of({i: t(v, torch.bfloat16).float() for i, v in taps.items()}, tspec)
     assert got16.dtype == torch.float32
     np.testing.assert_allclose(n(got16), n(want16), rtol=1e-5, atol=1e-4)
 

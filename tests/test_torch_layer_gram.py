@@ -25,7 +25,7 @@ import torch
 
 from audio_style_transfer_tpu_torch.ops import _build, gram
 from audio_style_transfer_tpu_torch.parallel import halo
-from audio_style_transfer_tpu_torch.transfer.losses import LossSpec
+from audio_style_transfer_tpu_torch.transfer.losses import LossSpec, gram_sums_of
 
 ROOT = Path(__file__).resolve().parents[1]
 GATYS_CONFIG = ROOT / "portbench/configs/nsynth-encoder-transfer-gatys-bf16.json"
@@ -58,8 +58,8 @@ def test_layer_gram_on_the_cpu_is_the_references_einsum(dtype):
 def test_the_halo_paths_partial_grams_sum_to_the_whole_clips():
     spec = LossSpec(gatys=True, style_layer_ids=(0, 2, 3), cont_lyr_ids=(3,))
     taps = _taps(4, 1024, torch.float32, seed=2)
-    whole = halo._window_grams({i: tp for i, tp in enumerate(taps)}, spec)
-    parts = [halo._window_grams({i: tp[:, a:a + 256] for i, tp in enumerate(taps)}, spec)
+    whole = gram_sums_of({i: tp for i, tp in enumerate(taps)}, spec)
+    parts = [gram_sums_of({i: tp[:, a:a + 256] for i, tp in enumerate(taps)}, spec)
              for a in range(0, 1024, 256)]
     assert whole.shape == (3, 128, 128)
     assert _rel(sum(parts), whole) <= 1e-6
