@@ -3,7 +3,9 @@
 // kernel runs the same products in the same order: mma.sync.m16n8k16 (bf16
 // in, f32 accumulate) with ldmatrix operands from shared memory, 16-byte
 // cp.async staging of [C, C] weights and 256-byte activation rows whose
-// 16-byte chunks are XOR-swizzled by row, and the rounding epilogue.
+// 16-byte chunks are XOR-swizzled by row, and the rounding epilogue. K1, K7f,
+// K2 and K7b's phase 2 take their A fragments and epilogues from here and run
+// their products as wgmma, which sums each element as mma.sync does.
 //
 // A warp owns 16 rows by all 128 columns: 16 accumulator tiles of 16 x 8,
 // acc[j] holding rows g, g + 8 (g = lane / 4) by columns 8 j + 2 t, + 1

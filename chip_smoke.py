@@ -900,6 +900,59 @@ def kernel_phase(dtype_name: str, params, dev) -> dict:
                     **windowed.get(k, {})) for k in errs}
 
 
+# K1 and K2 by phase at the engine's T and at the exact cells' clip.
+TRUNK_PHASE_ROWS = (T, 237568)
+
+
+def trunk_phase_times(params, dev) -> dict:
+    """K1 and K2's two phases in bfloat16 at TRUNK_PHASE_ROWS: each kernel's
+    device time per launch from torch.profiler over a trunk pass (30 layers
+    forward, then 30 backward, each with a tap cotangent), against
+    portbench/counts.py's per-launch bounds (K2's with a tap)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import chain
+    from portbench import counts
+
+    dt = torch.bfloat16
+    dils = tuple(2 ** (k % 10) for k in range(LAYERS))
+    wd, bd, wr, br = chain.stack_trunk_weights(params, LAYERS)
+    wd, wr = wd.to(dev, dt).contiguous(), wr.to(dev, dt).contiguous()
+    bd, br = bd.to(dev, torch.float32).contiguous(), br.to(dev, torch.float32).contiguous()
+    out = {}
+    for rows in TRUNK_PHASE_ROWS:
+        gen = torch.Generator(device=dev).manual_seed(rows)
+        xs = [(torch.randn((rows, C), generator=gen, device=dev) * 0.5).to(dt)]
+        g = (torch.randn((rows, C), generator=gen, device=dev) * 1e-3).to(dt)
+        masks = []
+        for j, d in enumerate(dils):
+            o, m, _ = chain.layer_fwd(xs[-1], wd[j], bd[j], wr[j], br[j], d, rows)
+            xs.append(o)
+            masks.append(m)
+        inmask = (xs[0] > 0).to(torch.uint8)
+
+        def run():
+            for j, d in enumerate(dils):
+                chain.layer_fwd(xs[j], wd[j], bd[j], wr[j], br[j], d, rows)
+            for j in range(LAYERS - 1, -1, -1):
+                chain.layer_bwd(g, g, masks[j], masks[j - 1] if j else inmask, wd[j], wr[j],
+                                dils[j], rows)
+
+        k1_ms, dy_ms, dx_ms = kernel_ms(run, ("trunk_fwd_mma", "trunk_bwd_dy_mma",
+                                              "trunk_bwd_dx_mma"), LAYERS)
+        b1 = counts.bound_s(*counts.k1(rows, C, "bfloat16"), "bfloat16") * 1e3
+        b2 = counts.bound_s(*counts.k2(rows, C, "bfloat16", True), "bfloat16") * 1e3
+        print(f"[trunk phases bf16, {rows} rows] per launch (torch.profiler): K1 {k1_ms:.4f} ms "
+              f"against its bound {b1:.4f} ms ({100 * b1 / k1_ms:.1f}%); K2 dy {dy_ms:.4f} + dx "
+              f"{dx_ms:.4f} = {dy_ms + dx_ms:.4f} ms against {b2:.4f} ms "
+              f"({100 * b2 / (dy_ms + dx_ms):.1f}%)")
+        out[rows] = {"k1_ms": k1_ms, "k1_bound_ms": b1, "k2_dy_ms": dy_ms, "k2_dx_ms": dx_ms,
+                     "k2_bound_ms": b2}
+        del xs, masks, g, inmask
+        torch.cuda.empty_cache()
+    return out
+
+
 # The per-layer (Gatys) grams at the benchmark's 15 s clip, one window: rows
 # and style taps of the full stack. K8f against the float64 gram, relative
 # L2 (the plain float32 route, one product over all the rows, is some 1e-4
@@ -4138,6 +4191,7 @@ def main() -> int:
         results[dtype_name].update(layer_gram_kernel_phase(dtype_name, dev))
         if dtype_name == "bfloat16":
             results[dtype_name].update(taps_pack_phase(dev))
+            results[dtype_name]["trunk phases"] = trunk_phase_times(params, dev)
         exact_shapes[dtype_name] = exact_shapes_phase(dtype_name, params, dev)
     slice_phase(params, dev, STYLE, (29,))
     slice_phase(params, dev, FULL, (25,))
@@ -4238,6 +4292,11 @@ def main() -> int:
         if k in ("K1", "K2"):  # layer by layer at the training step's 32 x 6144 rows
             kernels[-1].update(train_shape_max_abs_err=train_trunk["bfloat16"][k.lower()],
                                train_shape_f32_max_abs_err=train_trunk["float32"][k.lower()])
+            kernels[-1]["profiler_ms_by_rows"] = {  # per launch, by phase for K2
+                rows: ({"ms": p["k1_ms"], "bound_ms": p["k1_bound_ms"]} if k == "K1" else
+                       {"dy_ms": p["k2_dy_ms"], "dx_ms": p["k2_dx_ms"],
+                        "bound_ms": p["k2_bound_ms"]})
+                for rows, p in results["bfloat16"]["trunk phases"].items()}
     for name in TAPS_PACK_CASES:  # one kernel: the main paths' launches, shared by its cases
         r = results["bfloat16"][f"TP {name}"]
         kernels.append({"name": f"TP merged-taps pack, {name}, 32 x 6144 (bf16)", "route": "cuda",

@@ -1,10 +1,10 @@
 """The trunk layer's semantics at tile and clip edges, pinned on the CPU, and
 the C entry points' signatures.
 
-The bfloat16 trunk kernels work on tiles of 128 rows, so three flattened
-clips of 96 rows (288 rows: no multiple of the tile, clip edges inside
-tiles) with dilations below, at and above the clip length are the shapes
-where a tile kernel can go wrong. Here the plain versions of K1 and K2
+The bfloat16 trunk kernels work on tiles of 64 rows (K1, K2) and 128 rows
+(K7b's phase 1, K2-wf), so three flattened clips of 96 rows (288 rows: no
+multiple of either tile, clip edges inside tiles) with dilations below, at
+and above the clip length are the shapes where a tile kernel can go wrong. Here the plain versions of K1 and K2
 (which the card tests hold the kernels to) are held to the JAX
 ``reference_trunk`` and its ``jax.vjp`` at exactly those shapes.
 

@@ -108,6 +108,39 @@ def test_windowed_trunk_kernels_match_plain(dev, dtype, rows, d):
                 assert torch.equal(dx_k, chain.layer_bwd(dxn, tap, m_p, im_p, wd, wr, d, rows))
 
 
+# The bf16 K1/K2 walk 64-row tiles, two warpgroups a block, one block an SM
+# at most: the transfer cells' one clip of 237 568 rows, training's 32 clips
+# of 6 144, a ragged count past a tile (237 568 + 77) and fewer rows than a
+# tile (40); dilations on both sides of the tile and one past the clip.
+@pytest.mark.parametrize("windowed", [False, True])
+@pytest.mark.parametrize("d", [1, 64, 128, 512, "past the clip"])
+@pytest.mark.parametrize("rows,clip", [(237568, 237568), (32 * 6144, 6144),
+                                       (237568 + 77, 237568 + 77), (40, 40)])
+def test_tensor_core_trunk_kernels_at_the_cells_shapes(dev, rows, clip, d, windowed):
+    """K1 and K2 (with and without a tap cotangent) against their plain
+    versions; with a window, zero outside it in every clip."""
+    d = clip + 1 if d == "past the clip" else d
+    vw = ((5, 33) if clip < 4096 else (100, clip - 144) if clip < 16384
+          else (4096 + 37, clip - 4096 - 61)) if windowed else None
+    x, wd, bd, wr, br, dxn = _block_inputs(dev, torch.bfloat16, rows, rows % 1000 + d % 997)
+    out_p, m_p, im_p = chain.layer_fwd_plain(x, wd, bd, wr, br, d, clip, True, vw)
+    out_k, m_k, im_k = chain.layer_fwd(x, wd, bd, wr, br, d, clip, True, vw)
+    torch.cuda.synchronize()
+    assert _rel(out_k, out_p) <= TOL[x.dtype]
+    assert float((m_k != m_p).float().mean()) <= 1e-3
+    assert torch.equal(im_k, im_p)
+    if vw is not None:
+        pos = torch.arange(rows, device=dev) % clip
+        outside = (pos < vw[0]) | (pos >= vw[1])
+        assert not out_k[outside].any() and not (m_k[outside] & 1).any()
+    del out_p, out_k, m_k, im_k
+    for tap in (None, x):
+        dx_p = chain.layer_bwd_plain(dxn, tap, m_p, im_p, wd, wr, d, clip, vw)
+        dx_k = chain.layer_bwd(dxn, tap, m_p, im_p, wd, wr, d, clip, vw)
+        torch.cuda.synchronize()
+        assert _rel(dx_k, dx_p) <= TOL[x.dtype]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_windowed_trunk_takes_the_window_per_clip(dev, dtype):
     """Three flattened clips of 96 rows (clip edges and window edges inside
