@@ -23,6 +23,11 @@ JAX package has no kernel for it (XLA's bf16 einsum, accumulated in float32);
 the kernels read the bf16 taps where they lie, with no copy and no float32
 cast.
 
+Autograd runs ``PairGram``'s forward (K5, its reduce and their buffers)
+inside the span ``gram.pair`` and its backward (h, its cast and K6) inside
+``gram.pair_bwd``; ``LayerGram``'s inside ``gram.layer`` and
+``gram.layer_bwd`` (``utils/profiling.py::span``).
+
 The kernels' launch geometry is chosen here, by plain functions the CPU
 tests reach: the tap bucket the kernels are compiled for, K5's time rows per
 partial sum, K6's time rows per block, K8f's rows per block and K8b's (tap,
@@ -198,13 +203,15 @@ class PairGram(torch.autograd.Function):
     @staticmethod
     def forward(ctx, *taps):
         ctx.save_for_backward(*taps)
-        return pair_gram_fwd(*taps)
+        with span("gram.pair"):
+            return pair_gram_fwd(*taps)
 
     @staticmethod
     def backward(ctx, g):
         taps = ctx.saved_tensors
-        h = (g + g.transpose(1, 2)).to(torch.float32).contiguous()
-        return pair_gram_bwd(taps, h)
+        with span("gram.pair_bwd"):
+            h = (g + g.transpose(1, 2)).to(torch.float32).contiguous()
+            return pair_gram_bwd(taps, h)
 
 
 def pair_gram(*taps: torch.Tensor) -> torch.Tensor:

@@ -42,7 +42,11 @@ Phases (any failure raises and exits non-zero):
      against autograd of the plain route, each timed beside it and its bound
      from portbench/counts_layer_gram.py; in bfloat16 the merged-taps pack
      (ops/conv.py::taps_pack) at the training step's shapes, bit for bit the
-     plain pad and concatenation, timed beside it and its bound by bytes;
+     plain pad and concatenation, timed beside it and its bound by bytes,
+     and K5/K6 at the 15 s clip's 237568 rows at L=30 and L=10 (K5 against
+     the float64 gram and twice for equal bits, K6 against its plain
+     composition), each timed as a replayed CUDA graph against its bound
+     from portbench/counts.py;
      then a bare bfloat16 loss+gradient evaluation at stack 0 and at the
      full stack, CUDA events beside the host clock, with the kernel
      launches of one evaluation;
@@ -962,6 +966,14 @@ LAYER_GRAM_ROWS = 237568
 LAYER_GRAM_FWD_TOL = 1e-5
 LAYER_GRAM_BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
+# The all-pairs grams K5 / K6 at the same clip, one window: K5 against the
+# float64 gram (a thread adds a chunk's rows in ascending order in float32,
+# 3712 products at L=30: 3.7e-6 off on an H100 in bf16), K6 against its plain
+# composition (the same float32 sums, rounded once to bf16).
+PAIR_GRAM_ROWS = 237568
+PAIR_GRAM_FWD_TOL = 1e-5
+PAIR_GRAM_BWD_TOL = 1e-3
+
 # The decoder block's epilogues at the training step's shape: 32 x 6144 rows,
 # 12 hop frames a clip, width 512 (the gate's y is [rows, 1024]), skip 256.
 DECODER_SHAPE = (32, 6144, 12)
@@ -1194,6 +1206,69 @@ def layer_gram_kernel_phase(dtype_name: str, dev) -> dict:
               f"{bnd['bound_by']} ({bnd['bound_ms'] / ms:.1%} of it), plain {plain_ms:.4f} ms")
     del taps, leaves
     torch.cuda.empty_cache()
+    return out
+
+
+def pair_gram_clip_phase(dev) -> dict:
+    """K5 and K6 (ops/gram.py::pair_gram_fwd / pair_gram_bwd) in bf16 at the
+    15 s clip's rows, at the full stack's 30 taps (bucket 32, the
+    ``transfer_full_exact15s`` cell) and the ten of stack 0 (bucket 16, the
+    ``transfer_exact15s`` cell). K5 is held to the float64 gram and run twice
+    for equal bits; K6 to its plain composition. Each kernel timed as a
+    replayed CUDA graph, median of 20, against the benchmark's bound of its
+    bytes and operations (``portbench/counts.py::k5`` / ``k6``)."""
+    import torch
+
+    from audio_style_transfer_tpu_torch.ops import gram
+    from portbench import counts
+
+    rows, dtype_name = PAIR_GRAM_ROWS, "bfloat16"
+    gen = torch.Generator(device=dev).manual_seed(29)
+    out = {}
+    for nl in (LAYERS, len(STYLE)):
+        taps = [torch.randn((1, rows, C), generator=gen, device=dev).to(torch.bfloat16)
+                for _ in range(nl)]
+        h = torch.randn((1, nl, nl, C), generator=gen, device=dev) * 1e-3
+        h = (h + h.transpose(1, 2)).contiguous()
+        got = gram.pair_gram_fwd(*taps)
+        if not torch.equal(got, gram.pair_gram_fwd(*taps)):
+            raise AssertionError(f"[pair gram clip] K5 L={nl}: two launches differ in their bits")
+        exact = []
+        for c0 in range(0, C, 16):  # the float64 gram, 16 channels at a time
+            e = torch.stack([tp[0, :, c0:c0 + 16].double() for tp in taps])
+            exact.append(torch.einsum("atc,btc->abc", e, e))
+        exact = torch.cat(exact, dim=2)[None]
+        fwd_rel = float(torch.linalg.vector_norm(got.double() - exact)
+                        / torch.linalg.vector_norm(exact))
+        fwd_err = float((got.double() - exact).abs().max())
+        del exact
+        if fwd_rel > PAIR_GRAM_FWD_TOL:
+            raise AssertionError(f"[pair gram clip] K5 L={nl}: rel L2 {fwd_rel:.3e} to the "
+                                 f"float64 gram (tol {PAIR_GRAM_FWD_TOL:.0e})")
+        outs, want = gram.pair_gram_bwd(taps, h), gram.pair_gram_bwd_plain(taps, h)
+        bwd_rel = max(float(torch.linalg.vector_norm(a.float() - w.float())
+                            / torch.linalg.vector_norm(w.float())) for a, w in zip(outs, want))
+        bwd_err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(outs, want))
+        del outs, want
+        if bwd_rel > PAIR_GRAM_BWD_TOL:
+            raise AssertionError(f"[pair gram clip] K6 L={nl}: worst rel L2 {bwd_rel:.3e} to "
+                                 f"the plain composition (tol {PAIR_GRAM_BWD_TOL:.0e})")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        times = {"K5": (cuda_ms(lambda: gram.pair_gram_fwd(*taps), graph=True), fwd_err,
+                        counts.k5(rows, C, nl, dtype_name)),
+                 "K6": (cuda_ms(lambda: gram.pair_gram_bwd(taps, h), graph=True), bwd_err,
+                        counts.k6(rows, C, nl, dtype_name))}
+        print(f"[pair gram clip bf16] {rows} rows, L={nl} (bucket {gram.tap_bucket(nl)}): K5 "
+              f"rel L2 {fwd_rel:.3e} to the float64 gram, two launches equal bit for bit; K6 "
+              f"worst rel L2 {bwd_rel:.3e} to the plain composition ok")
+        for name, (ms, err, (nbytes, ops)) in times.items():
+            bnd = bound(nbytes, ops, dtype_name)
+            out[f"{name} {rows} L={nl}"] = dict(ms=ms, max_abs_err=err, **bnd)
+            print(f"  {name}: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+                  f"{bnd['bound_by']} ({bnd['bound_ms'] / ms:.1%} of it)")
+        del taps, h, got
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4191,6 +4266,7 @@ def main() -> int:
         results[dtype_name].update(layer_gram_kernel_phase(dtype_name, dev))
         if dtype_name == "bfloat16":
             results[dtype_name].update(taps_pack_phase(dev))
+            results[dtype_name]["pair gram clip"] = pair_gram_clip_phase(dev)
             results[dtype_name]["trunk phases"] = trunk_phase_times(params, dev)
         exact_shapes[dtype_name] = exact_shapes_phase(dtype_name, params, dev)
     slice_phase(params, dev, STYLE, (29,))
@@ -4289,6 +4365,10 @@ def main() -> int:
                                windowed_max_abs_err=r["windowed_max_abs_err"])
         if k in exact_shapes["bfloat16"]:  # all but the grams at L=30 (L=10 there)
             kernels[-1]["exact_shapes_max_abs_err"] = exact_shapes["bfloat16"][k]
+        if k in ("K5", "K6"):  # at the 15 s clip's rows, by taps
+            clip = results["bfloat16"]["pair gram clip"]
+            kernels[-1]["clip_ms_by_taps"] = {nl: clip[f"{k} {PAIR_GRAM_ROWS} L={nl}"]
+                                              for nl in (LAYERS, len(STYLE))}
         if k in ("K1", "K2"):  # layer by layer at the training step's 32 x 6144 rows
             kernels[-1].update(train_shape_max_abs_err=train_trunk["bfloat16"][k.lower()],
                                train_shape_f32_max_abs_err=train_trunk["float32"][k.lower()])
