@@ -1,72 +1,137 @@
-// All-pairs channel gram: forward (K5) and backward (K6), float32 FMAs on the
-// CUDA cores; the per-layer (Gatys) gram, K8f and K8b, at the end of the
-// file. Per channel K5 and K6 are tiny matrix products (L x L, depth T), but
-// channel is the fastest axis in memory and every tap is an array of its own:
-// the layout, not the arithmetic, is what the design serves. Every figure in
-// this note is for one NVIDIA H100 80GB HBM3 at a 700.00 W power limit
-// (nvidia-smi --query-gpu=name,power.limit): 132 SMs, 3.35 TB/s.
+// All-pairs channel gram: forward (K5) and backward (K6); the per-layer
+// (Gatys) gram, K8f and K8b, at the end of the file. Per channel K5 and K6
+// are small matrix products (L x L, depth T), but channel is the fastest
+// axis in memory and every tap is an array of its own: the layout, not the
+// arithmetic, is what the designs serve. bf16 taps take tensor-core kernels
+// (gram_fwd_mma_kernel, gram_bwd_mma_kernel); float32 taps take float32 FMA
+// kernels on the CUDA cores (gram_fwd_kernel, gram_bwd_kernel), since TF32
+// is off in the port and float32 has no tensor-core route that keeps its
+// numbers. Every figure in this note is for one NVIDIA H100 80GB HBM3 at a
+// 700.00 W power limit (nvidia-smi --query-gpu=name,power.limit): 132 SMs,
+// 3.35 TB/s, 989 TFLOP/s bf16.
 //
 // K5 replaces: audio_style_transfer_tpu/ops/pallas_gram.py::_fwd_kernel.
 //   G[n, a, b, c] = sum_t E_a[n, t, c] * E_b[n, t, c]
-// for L taps (each [B, T, C], float32 or bf16), float32 products and sums,
-// written as [B, L, L, C] float32.
+// for L taps (each [B, T, C]), float32 products and sums, written as
+// [B, L, L, C] float32.
+// K6 replaces: audio_style_transfer_tpu/ops/pallas_gram.py::_bwd_kernel.
+//   dE_a[n, t, c] = sum_b h[n, a, b, c] * E_b[n, t, c]
+// for any float32 h (the gram's is g + g^T), summed in float32 and rounded
+// once to the tap dtype.
 //
-// What bounds K5 (bf16, T=16384, C=128): at L=30 the taps are 126 MB to read
-// once, 37.7 us at 3.35 TB/s; the 465 pairs of the upper triangle are 0.98 G
-// float32 FMAs, about 30 us on the CUDA cores. At L=10: 42 MB, 12.5 us, and
-// 0.12 G FMAs. So bytes bound it, with the FMAs close behind at L=30. An SM
-// starts 128 FMAs but only 32 shared-memory words a clock, so a word read
-// from shared memory has to feed at least 4 FMAs. The design:
+// bf16: what bounds them (237568 rows, C = 128). At L = 30 K5 reads 1.82 GB
+// of taps, 0.545 ms at 3.35 TB/s; its 465 pairs are 28.3 GFLOP, 0.03 ms on
+// the tensor cores. K6 reads the taps and writes their cotangents, 3.65 GB,
+// 1.089 ms; its products (h in two parts) are 109 GFLOP, 0.11 ms. So bytes
+// bound both, with the tensor cores far behind. What the layout costs is
+// the bytes' path: a block that reads 32 or 64 bytes of each (row, tap) line
+// streams about 2.0-2.1 TB/s on an H100, one that reads whole 128-byte lines
+// 2.9-3.1 TB/s (load-only benchmarks, 30 taps). The design, common to both:
+//   - a block owns a group of 64 channels, the whole 128-byte line of each
+//     (row, tap), and a run of rows; 512 threads, one block an SM; the
+//     wrapper cuts T so that the grid is one wave (K5 at 237568 rows: 2
+//     groups x 66 runs of 3616 rows). A last group narrower than 64 channels
+//     is masked (K5 takes any C that is a multiple of 8);
+//   - rows stream in 8 at a time as 16-byte cp.async pieces, 8 lanes a line,
+//     into a ring of 4 stages (8 at L <= 16, whose stages are a third as
+//     large), [row][tap][piece] with the pieces of a line XORed by the tap
+//     (ring_at): the copies and the transpose's reads fall on distinct banks;
+//   - a per-channel product needs (rows x taps) operands, so each stage is
+//     transposed once in shared memory into [channel][row][tap], 16-byte
+//     chunks of 8 taps, swizzled (tr_at): ldmatrix.trans reads a block of 8
+//     taps x 8 channels of one row as its rows, stmatrix writes each
+//     channel's 8 taps as a row; two instructions a warp for 512 bytes;
+//   - K5: warp w owns channels 4 w .. 4 w + 3. One ldmatrix.trans of a
+//     channel's 8 rows gives both operands of mma.sync.m16n8k8, A = E^T (16
+//     taps x 8 rows) and B = E (8 rows x 8 taps), over the upper triangle of
+//     (16-tap half, 8-tap block) tiles only: 6 at L <= 32, 2 at L <= 16, the
+//     last block's tiles skipped at L <= 24 and L <= 8. The tensor cores'
+//     accumulation cuts low bits, so each stage's products (8 rows) start
+//     from zero and are added into a float32 sum rounded to nearest (K8f's
+//     measure of the cut: 1.2e-4 low on the diagonal over 29696 rows kept in
+//     the accumulator, 2e-7 flushed every 64; here 1.3e-7 of the float64
+//     gram at 237568 rows). A block writes the partial sums of its run;
+//     gram_reduce_kernel adds the runs in order and mirrors the triangle. No
+//     atomics: the result repeats bit for bit;
+//   - K6: dE^T = h E^T per 16 taps a, A = h of one channel in two bf16
+//     parts, hi = bf16(h) and lo = bf16(h - hi) (hi + lo within 2^-18 of h),
+//     staged once per block into registers; B = E^T (16 taps b x 8 rows) by
+//     ldmatrix; both products into the same float32 accumulators, rounded
+//     once to bf16 and written back in place by stmatrix.trans. Each channel
+//     needs 32 registers of h at L > 16, so there two blocks share a group's
+//     run of rows, each computing 32 of its channels (2 a warp) from whole
+//     lines that the second reads from L2; at L <= 16 one block computes all
+//     64 (4 a warp). The stage then goes out by all threads: a word (2 taps)
+//     of 8 channels' chunks read from 32 banks, the axes swapped with byte
+//     permutes, two 16-byte pieces stored, side by side along the line;
+//   - one barrier a stage: between two, the block transposes stage s, each
+//     warp multiplies stage s - 1 and (K6) every thread stores its part of
+//     stage s - 2, each in a buffer of its own (K5 two transposed stages, K6
+//     three).
+// Shared memory a block: K5 192 KB at L > 16, 160 KB at L <= 16; K6 176 KB.
+// Registers a thread (nvcc -Xptxas -v, no spills): gram_fwd_mma_kernel<2>
+// 126, <1> 86; gram_bwd_mma_kernel<2> 116, <1> 96 (stage_tid keeps them so).
+// Measured at 237568 rows (one H100, replayed CUDA graph, median of 20): K5
+// 0.68 ms at L = 30 (80% of its bound), 0.28-0.33 ms at L = 10; K6 1.45-1.48
+// ms at L = 30 (74%), 0.45-0.46 ms at L = 10 (79%).
+// Tried and dropped, on the same card: blocks of 16 channels (32-byte
+// pieces, 32-row stages) read at about 2.0 TB/s whatever the ring depth:
+// K5 1.00 ms, K6 2.14 ms at L = 30; neither TMA boxes of 32 rows x 16
+// channels (1.94 TB/s), the .L2::128B / 256B prefetch hints, bulk L2
+// prefetches, nor clusters of 4 or 8 such blocks in lockstep (1.2-1.8
+// TB/s) lifted that; a cluster of 4 sharing whole lines through
+// distributed shared memory read at 0.88 TB/s. With whole lines: the ring
+// laid out [row][piece][tap] put a warp's 32 copies on 4 banks (K5 1.97 ms,
+// K6 4.11 ms); K5 split like K6 into two 32-channel blocks read each line
+// twice (1.00 ms); K6 split by taps a instead of channels made both blocks
+// transpose all 64 channels (1.78-2.1 ms).
+// Route not taken: the channel-diagonal product straight off the ring
+// (ldmatrix.trans of [row][tap][channel] makes (tap, channel) the M or N
+// index, and only c = c' is kept). It does 8x the tensor-core work, and K5
+// would hold 8x the accumulators (930 registers a thread for one warp's
+// pairs at L = 30), K6 about 0.88 ms of products at peak against its 1.09
+// ms of bytes. It was not built: the transposed stage costs two ldmatrix /
+// stmatrix instructions a warp per 512 bytes.
+//
+// float32 (FMA), the designs before the tensor-core kernels, at T=16384:
+// K5 reads 252 MB at L = 30, 75 us; the 465 pairs are 0.98 G float32 FMAs,
+// about 30 us on the CUDA cores. An SM starts 128 FMAs but only 32
+// shared-memory words a clock, so a word read from shared memory has to
+// feed at least 4 FMAs:
 //   - a thread owns one channel and an 8 x 8 tile of (tap a, tap b) pairs: 16
 //     values read per time row for 64 FMAs (8 read on a diagonal tile). The
 //     upper triangle of tiles is 10 tiles for L <= 32, 6 for L <= 24, 3 for
 //     L <= 16 and 1 for L <= 8; the kernel is compiled for each, and every
 //     warp of a block does the same work (no triangular imbalance);
-//   - a block owns 8 channels (one 16-byte piece of a bf16 row) and a run of
-//     time rows. A warp is 8 channels x 4 rows of one tile; RQ warps a tile
-//     share the rows of a stage. The taps come in as 16-byte cp.async into a
-//     ring of 4 stages of 32..128 rows, [row][tap][channel] with an odd
-//     number of tap slots a row, so the 4 rows a warp reads at once fall in
-//     distinct banks; loads of the next three stages run under the FMAs;
+//   - a block owns 8 channels (two 16-byte pieces of a float32 row) and a
+//     run of time rows. A warp is 8 channels x 4 rows of one tile; RQ warps
+//     a tile share the rows of a stage. The taps come in as 16-byte cp.async
+//     into a ring of 4 stages of 32..128 rows, [row][tap][channel] with an
+//     odd number of tap slots a row, so the 4 rows a warp reads at once fall
+//     in distinct banks; loads of the next three stages run under the FMAs;
 //   - the sum over T has a fixed order: ascending rows in a thread, a
 //     shuffle tree over a warp's 4 rows, the block's warps in order through
-//     shared memory, then the blocks' partial sums in order in a second
-//     small kernel that also mirrors the triangle. No atomics: the result
-//     repeats bit for bit. The wrapper cuts T so that the grid is about one
-//     block an SM (8 chunks of 2048 rows at C=128), which keeps the partial
-//     sums, [B, chunks, L(L+1)/2, C] float32, at 1.9 MB for L=30.
-//
-// K6 replaces: audio_style_transfer_tpu/ops/pallas_gram.py::_bwd_kernel.
-//   dE_a[n, t, c] = sum_b h[n, a, b, c] * E_b[n, t, c],   h = g + g^T (f32)
-// summed over b in ascending order in float32 (fmaf) and rounded once to the
-// tap dtype. Every gram backward on the card runs it, at any L.
-//
-// What bounds K6 (bf16, T=16384, C=128): at L=30 taps in and cotangents out
-// are 252 MB, 75.3 us; the L^2 = 900 FMAs per element are 1.89 G, about 64 us
-// on the CUDA cores, which need every instruction slot for that. At L=10: 84 MB,
-// 25.1 us, 0.21 G FMAs. The registers a thread can give to sums (128) set how
-// often a word of h or E is used again, and shared memory delivers 32 words
-// a clock against 128 FMAs. The design:
-//   - a block owns 16 channels (whole 32-byte sectors of a bf16 row) and a
-//     run of time rows, walked 32 at a time. A warp is 16 channels x the two
-//     halves of the taps a at 8 rows; a thread keeps (bucket / 2) x 8 sums in
-//     registers, so every word of h feeds 8 FMAs and every word of E 4 to
-//     16. The kernel is compiled for L <= 8, 16, 24 and 32: ten taps pay for
-//     16, not for 32;
+//     shared memory, then the blocks' partial sums in order in
+//     gram_reduce_kernel. The wrapper cuts T so that the grid is about one
+//     block an SM (8 chunks of 2048 rows at C=128).
+// K6 (float32): 504 MB at L = 30, 150 us; the L^2 = 900 FMAs per element
+// are 1.89 G, about 64 us, which need every instruction slot. The registers
+// a thread can give to sums (128) set how often a word of h or E is used
+// again:
+//   - a block owns 16 channels and a run of time rows, walked 32 at a time.
+//     A warp is 16 channels x the two halves of the taps a at 8 rows; a
+//     thread keeps (bucket / 2) x 8 sums in registers, so every word of h
+//     feeds 8 FMAs and every word of E 4 to 16. The kernel is compiled for
+//     L <= 8, 16, 24 and 32;
 //   - h of the block's channels lives in shared memory as [b][channel][a],
 //     a padded to an odd count of float4, read as float4 along a: one read
 //     feeds 32 FMAs, and the lanes of a quarter-warp hit distinct banks. It
 //     is staged once per block; the wrapper gives a block as many rows as
-//     make the grid one wave of resident blocks (512 at L=30, 256 at L=10);
+//     make the grid one wave of resident blocks;
 //   - the taps come in as 16-byte cp.async, four taps b at a time, into a
-//     ring of 4 (float32) or 6 (bf16) stages, [row][tap][channel]: the loads
-//     of the next stages run under the FMAs of this one, whatever the
-//     registers hold. The sum over b is ascending, fmaf, rounded once;
-//   - float32 cotangents are stored as 4-byte words in 64-byte runs; bf16
-//     ones as 4-byte pairs of channels: the two lanes of a channel pair hold
-//     the same rows, swap halves with one shuffle and store two rows each;
-//   - 128 threads a block; two blocks resident an SM for L > 16 (shared
-//     memory: 69 KB of h and 24 to 32 KB of ring at L=30), four below.
+//     ring of 4 stages, [row][tap][channel]. The sum over b is ascending,
+//     fmaf; the cotangents are stored as 4-byte words in 64-byte runs;
+//   - 128 threads a block; two blocks resident an SM for L > 16, four below.
 //
 // Registers a thread (nvcc -Xptxas -v, sm_90a; tools/kernel_resources.py)
 // stand beside the geometry below; the times are in PERF.md.
@@ -97,9 +162,9 @@ constexpr int FW_CB = 8;      // channels per block
 constexpr int FW_STAGES = 4;  // stages of the cp.async ring
 
 // Geometry of the forward kernel for NG groups of 8 taps (L <= 8 * NG).
-// Registers a thread, bf16 / float32 (nvcc -Xptxas -v, no spills), one
-// block an SM: NG=1, 2, 3 114 / 116 (256, 384, 384 threads), NG=4 95 / 96
-// (640 threads, capped at 102).
+// Registers a thread, float32 (nvcc -Xptxas -v, no spills), one block an
+// SM: NG=1, 2, 3 116 (256, 384, 384 threads), NG=4 96 (640 threads, capped
+// at 102).
 template <typename T, int NG>
 struct FwdGeom {
   static constexpr int RQ = NG == 1 ? 8 : NG == 2 ? 4 : 2;      // warps per tile
@@ -279,9 +344,8 @@ constexpr int BW_R = 8;      // time rows per thread: t0 + warp + 4 i
 constexpr int BW_GT = 4;     // taps b per stage of the ring
 
 // Four rows (tr, tr + 4, tr + 8, tr + 12; those >= t_end masked) of the
-// thread's channel, rounded to the tap dtype and stored. `idx` is the
-// element index of (row tr, own channel), `stride` that of 4 rows, `cc` the
-// channel within the block.
+// thread's channel, stored. `idx` is the element index of (row tr, own
+// channel), `stride` that of 4 rows.
 template <typename T>
 struct Store4;
 
@@ -292,31 +356,6 @@ struct Store4<float> {
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       if (tr + 4 * r < t_end) p[idx + r * stride] = v[r];
-  }
-};
-
-// bf16 is stored as 4-byte pairs of channels. The lanes of channels 2k and
-// 2k + 1 hold the same rows: the even lane stores the first two rows of the
-// pair, the odd lane the last two, and one shuffle hands each the other's
-// halves. The lanes of `mask` (whole channel pairs) must call together.
-template <>
-struct Store4<__nv_bfloat16> {
-  static __device__ __forceinline__ void st(__nv_bfloat16* p, long idx, long stride, long tr,
-                                            long t_end, int cc, unsigned mask, const float* v) {
-    const bool odd = cc & 1;
-    const int r0 = odd ? 2 : 0;
-    const __nv_bfloat162 p01 = __floats2bfloat162_rn(v[0], v[1]);  // rows 0, 1
-    const __nv_bfloat162 p23 = __floats2bfloat162_rn(v[2], v[3]);  // rows 2, 3
-    const uint32_t lo = *reinterpret_cast<const uint32_t*>(&p01);
-    const uint32_t hi = *reinterpret_cast<const uint32_t*>(&p23);
-    const uint32_t keep = odd ? hi : lo;
-    const uint32_t rcv = __shfl_xor_sync(mask, odd ? lo : hi, 1);
-    // Channel order within a pair: the even lane's value first.
-    const uint32_t x = odd ? rcv : keep, y = odd ? keep : rcv;
-    __nv_bfloat16* q = p + (idx - (cc & 1)) + r0 * stride;
-    if (tr + 4 * r0 < t_end) *reinterpret_cast<uint32_t*>(q) = __byte_perm(x, y, 0x5410);
-    if (tr + 4 * (r0 + 1) < t_end)
-      *reinterpret_cast<uint32_t*>(q + stride) = __byte_perm(x, y, 0x7632);
   }
 };
 
@@ -342,8 +381,8 @@ struct BwdGeom {
 // keeps its LB / 2 x 8 sums in registers. The block walks (step, group of 4
 // taps b) in order; each is one stage of the ring, [row][tap][channel] in the
 // tap dtype, loaded NST - 1 stages ahead.
-// Registers a thread, bf16 / float32 (nvcc -Xptxas -v, no spills):
-// LB=8 92 / 105, LB=16 110 / 119, LB=24 167 / 173, LB=32 187 / 186.
+// Registers a thread, float32 (nvcc -Xptxas -v, no spills): LB=8 105,
+// LB=16 119, LB=24 173, LB=32 186.
 template <typename T, int LB>
 __global__ void __launch_bounds__(BW_NT, BwdGeom<T, LB>::MIN_BLOCKS)
 gram_bwd_kernel(const __grid_constant__ TapPtrs taps, const __grid_constant__ OutPtrs outs,
@@ -488,6 +527,422 @@ cudaError_t dispatch_gram_bwd(const TapPtrs& taps, const OutPtrs& outs, const fl
   }
 }
 
+// ------------------------------------------------------- K5, K6 in bf16 ----
+
+constexpr int PM_U = 8;     // 16-byte pieces a row and tap: 64 channels, a whole 128-byte line
+constexpr int PM_NT = 512;  // 16 warps
+constexpr int PM_SR = 8;    // rows a stage
+constexpr int PM_NST1 = 8;  // stages of the cp.async ring at L <= 16 (10 KB a stage at L = 10)
+constexpr int PM_NST2 = 4;  // and above (30 KB at L = 30)
+
+// Geometry for NH halves of 16 taps (L <= 16 NH).
+template <int NH>
+struct PmGeom {
+  static constexpr int NST = NH == 1 ? PM_NST1 : PM_NST2;
+  static constexpr int NB = 16 * NH;                   // tap slots a row
+  static constexpr int NJ = 2 * NH;                    // 16-byte chunks (8 taps) a transposed row
+  static constexpr int RING_ROWB = NB * PM_U * 16;     // ring row: [tap][piece], ring_at
+  static constexpr int RING_STAGEB = PM_SR * RING_ROWB;
+  static constexpr int TR_AT = NST * RING_STAGEB;      // the transposed stages after the ring
+};
+
+// Byte offset of chunk j (taps 8 j .. 8 j + 7) of row `row` of channel `ch` in
+// a transposed stage, [channel][row][chunk]. The chunk's slot in its 128-byte
+// line is XORed by the row's place among the line's rows and by the channel,
+// so that the 8 rows of one channel (ldmatrix, stmatrix in the products), 8
+// consecutive channels of one row (stmatrix in the transpose) and 8 channels
+// 8 apart (the reads of K6's stores) each fall on distinct banks.
+template <int NJ>
+__device__ __forceinline__ uint32_t tr_at(int ch, int row, int j) {
+  const int q = (ch * PM_SR + row) * NJ + j;
+  return (uint32_t)((q ^ (((row * NJ >> 3) & (NJ - 1)) ^ ((ch ^ (ch >> 3)) & 7))) << 4);
+}
+
+__device__ __forceinline__ void stmatrix4_trans(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                   addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+__device__ __forceinline__ void stmatrix4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
+// c[16x8] += a[16x8] b[8x8], bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma1688(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t b0) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(b0));
+}
+
+// Byte offset of piece u (channels 8 u ..) of tap `tap` in a ring row: each
+// (row, tap) is a 128-byte line, its pieces XORed by the tap, so that a
+// line's 8 pieces (the copies) and one piece of 8 consecutive taps (the
+// transpose's ldmatrix) each fall on distinct banks.
+__device__ __forceinline__ uint32_t ring_at(int tap, int u) {
+  return (uint32_t)((tap * PM_U + (u ^ (tap & 7))) << 4);
+}
+
+// Zero the ring's lines of the taps L .. NB - 1, which no copy writes: the
+// transpose carries them into the products, where K6 multiplies them by the
+// zeros of h.
+template <int NH>
+__device__ __forceinline__ void zero_ring_pad(uint8_t* ring, int L) {
+  using G = PmGeom<NH>;
+  const int pad = (G::NB - L) * PM_U;  // pieces a row
+  for (int i = threadIdx.x; i < G::NST * PM_SR * pad; i += PM_NT)
+    *reinterpret_cast<uint4*>(ring + (i / pad) * G::RING_ROWB + L * PM_U * 16 + (i % pad) * 16) =
+        make_uint4(0u, 0u, 0u, 0u);
+}
+
+// threadIdx.x, with kOpaque through an empty asm: the stage loop then
+// recomputes the offsets that derive from it at each use instead of holding
+// them, loop-invariant, in registers. Above 16 taps (K5's sums take 96
+// registers, K6's h 64) the kernels spilled without it; at L <= 16 the
+// recomputation costs time (K6 at L = 10: 0.452 -> 0.609 ms on an H100).
+template <bool kOpaque>
+__device__ __forceinline__ int stage_tid() {
+  int t = threadIdx.x;
+  if (kOpaque) asm volatile("" : "+r"(t));
+  return t;
+}
+
+// Start the copies of rows [row0, row0 + SR) of the L taps into the ring
+// stage at `dst`. Thread tid copies piece u = tid % 8 (channels c0 + 8 u ..)
+// of row (tid / 8) % SR of the taps tid / 64 + 8 k, so 8 lanes fetch a (row,
+// tap)'s whole 128-byte line. Rows at or past t_end and channels at or past
+// c_len are zero-filled (from the stage's first row and channel c0, which
+// exist).
+template <int NH, bool kOpaque>
+__device__ __forceinline__ void load_stage(uint32_t dst, const TapPtrs& taps, int L, long row0,
+                                           long t_end, long base, int c_len, int c0) {
+  using G = PmGeom<NH>;
+  const int tid = stage_tid<kOpaque>();
+  const int u = tid % PM_U, row = tid / PM_U % PM_SR, tap0 = tid / (PM_U * PM_SR);
+  const long t = row0 + row;
+  const bool in = t < t_end && c0 + 8 * u < c_len;
+  const long off = ((base + (in ? t : row0)) * c_len + c0 + (in ? 8 * u : 0)) * 2;
+  const uint32_t at = dst + row * G::RING_ROWB + ring_at(tap0, u);
+#pragma unroll
+  for (int k = 0; k < 4; ++k)  // ring_at(tap0 + 8 k, u) = ring_at(tap0, u) + 1024 k
+    if (tap0 + 8 * k < L)
+      cp_async16(at + 1024 * k, static_cast<const char*>(taps.p[tap0 + 8 * k]) + off, in ? 16 : 0);
+}
+
+// The 8 x 8 blocks (8 taps x 8 channels of one row) of pieces u0 .. u0 + UC - 1
+// of the ring stage at `src`, transposed into `dst` (channel 8 (u - u0) + i):
+// ldmatrix.trans reads a block's 8 pieces as its rows, stmatrix writes each
+// channel's 8 taps as a row. Four blocks a warp and instruction.
+template <int NH, int UC>
+__device__ __forceinline__ void transpose_stage(uint32_t src, uint32_t dst, int u0, int warp,
+                                                int lane) {
+  using G = PmGeom<NH>;
+  const int i = lane & 7;
+#pragma unroll
+  for (int m0 = warp * 4; m0 < PM_SR * UC * G::NJ; m0 += PM_NT / 8) {
+    const int m = m0 + (lane >> 3);
+    const int j = m % G::NJ, u = (m / G::NJ) % UC, r = m / (G::NJ * UC);
+    uint32_t v[4];
+    ldmatrix4_trans(v, src + r * G::RING_ROWB + ring_at(8 * j + i, u0 + u));
+    stmatrix4(dst + tr_at<G::NJ>(8 * u + i, r, j), v);
+  }
+}
+
+// R[c NJ + j]: chunk j (taps 8 j + g) of rows 2 t, 2 t + 1 of channel ch0 + c of
+// the transposed stage at `buf`, NC channels (ldmatrix.trans: the A and B
+// fragments of K5), or rows g of taps 8 j + 2 t, + 1 (ldmatrix: K6's B).
+template <int NJ, int NC, bool kTrans>
+__device__ __forceinline__ void load_chunks(uint32_t (&R)[NC * NJ], uint32_t buf, int ch0,
+                                            int lane) {
+#pragma unroll
+  for (int p = 0; p < NC * NJ / 4; ++p) {
+    const int k = 4 * p + (lane >> 3);
+    uint32_t v[4];
+    const uint32_t at = buf + tr_at<NJ>(ch0 + k / NJ, lane & 7, k % NJ);
+    if (kTrans)
+      ldmatrix4_trans(v, at);
+    else
+      ldmatrix4(v, at);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) R[4 * p + e] = v[e];
+  }
+}
+
+// Tile k of the upper triangle of (16-tap half mi, 8-tap block nj) tiles,
+// nj >= 2 mi: (0, 0), (0, 1), (0, 2), (0, 3), (1, 2), (1, 3). K5 computes
+// the first 2 (NH = 1) or all 6 (NH = 2).
+__device__ __forceinline__ constexpr int pm_tile_mi(int k) { return k < 4 ? 0 : 1; }
+__device__ __forceinline__ constexpr int pm_tile_nj(int k) { return k < 4 ? k : k - 2; }
+
+// K5's products of one transposed stage (8 rows) for the warp's CPW channels
+// from ch0: A = E^T (16 taps x 8 rows), B = E (8 rows x 8 taps), both
+// fragments of one ldmatrix.trans, on mma.sync.m16n8k8. Each stage's sums
+// are added into `sum`, rounded to nearest: the tensor cores' accumulation
+// cuts low bits.
+template <int NH, int CPW>
+__device__ __forceinline__ void pair_fwd_products(float (&sum)[CPW][NH == 1 ? 2 : 6][4],
+                                                  uint32_t buf, int ch0, int L, int lane) {
+  // CS channels' chunks a load group: all four at NH = 1, one at NH = 2 (registers).
+  constexpr int NT = NH == 1 ? 2 : 6, NJ = 2 * NH, CS = NH == 1 ? CPW : 4 / NJ;
+#pragma unroll
+  for (int q = 0; q < CPW / CS; ++q) {
+    uint32_t R[CS * NJ];
+    load_chunks<NJ, CS, true>(R, buf, ch0 + CS * q, lane);
+#pragma unroll
+    for (int c = 0; c < CS; ++c)
+#pragma unroll
+      for (int k = 0; k < NT; ++k) {
+        const int mi = pm_tile_mi(k), nj = pm_tile_nj(k);
+        if (8 * nj < L) {
+          float acc[4] = {0.f, 0.f, 0.f, 0.f};
+          mma1688(acc, R[c * NJ + 2 * mi], R[c * NJ + 2 * mi + 1], R[c * NJ + nj]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sum[CS * q + c][k][e] += acc[e];
+        }
+      }
+  }
+}
+
+// Grid (ceil(C / 64), chunks, B): block x owns channels 64 x .. + 64, 4 a
+// warp. partial: [B, chunks, L (L + 1) / 2, C]. One barrier a stage:
+// between two, the block transposes stage s and each warp multiplies stage
+// s - 1, in buffers of their own.
+template <int NH>
+__global__ void __launch_bounds__(PM_NT, 1)
+gram_fwd_mma_kernel(const __grid_constant__ TapPtrs taps, int L, int t_len, int c_len, int chunk,
+                    float* __restrict__ partial) {
+  using G = PmGeom<NH>;
+  constexpr int NT = NH == 1 ? 2 : 6, CPW = 64 / (PM_NT / 32);
+  constexpr int TRB = 64 * PM_SR * G::NJ * 16;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sbase = smem_addr(smem), tr = sbase + G::TR_AT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x * 64, n = blockIdx.z;
+  const long t0 = (long)blockIdx.y * chunk;
+  const long t1 = min(t0 + (long)chunk, (long)t_len);
+  const int n_stages = (int)((t1 - t0 + PM_SR - 1) / PM_SR);
+  zero_ring_pad<NH>(smem, L);
+  auto load = [&](int s) {
+    if (s < n_stages)
+      load_stage<NH, NH == 2>(sbase + (s % G::NST) * G::RING_STAGEB, taps, L,
+                              t0 + (long)s * PM_SR, t1, (long)n * t_len, c_len, c0);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < G::NST - 1; ++s) load(s);
+
+  float sum[CPW][NT][4];
+#pragma unroll
+  for (int c = 0; c < CPW; ++c)
+#pragma unroll
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sum[c][k][e] = 0.f;
+  for (int s = 0; s <= n_stages; ++s) {
+    cp_async_wait<G::NST - 2>();  // stage s has landed (this thread's part)
+    __syncthreads();              // everyone's; stage s - 1's ring slot and s - 2's buffer are free
+    load(s + G::NST - 1);
+    const int tid = stage_tid<NH == 2>();
+    if (s > 0)
+      pair_fwd_products<NH, CPW>(sum, tr + ((s - 1) & 1) * TRB, tid / 32 * CPW, L, tid % 32);
+    if (s < n_stages)
+      transpose_stage<NH, PM_U>(sbase + (s % G::NST) * G::RING_STAGEB, tr + (s & 1) * TRB, 0,
+                                tid / 32, tid % 32);
+  }
+  cp_async_wait<0>();
+  // Accumulator tile k: taps a = 16 mi + g (+ 8) by b = 8 nj + 2 t (+ 1).
+  const int g = lane >> 2, t = lane & 3;
+  const int n_pairs = L * (L + 1) / 2;
+  float* dst = partial + ((long)n * gridDim.y + blockIdx.y) * n_pairs * c_len;
+#pragma unroll
+  for (int c = 0; c < CPW; ++c) {
+    const int ch = c0 + warp * CPW + c;
+    if (ch >= c_len) break;  // the masked channels of a last, narrower group
+#pragma unroll
+    for (int k = 0; k < NT; ++k)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int a = 16 * pm_tile_mi(k) + g + 8 * (e >> 1);
+        const int b = 8 * pm_tile_nj(k) + 2 * t + (e & 1);
+        if (a <= b && b < L)
+          dst[(long)(a * L - a * (a - 1) / 2 + b - a) * c_len + ch] = sum[c][k][e];
+      }
+  }
+}
+
+// K6's products of one transposed stage (8 rows) for the warp's CPW channels
+// from ch0, in place: dE^T = h E^T per 16 taps a (m-tile mt), with A = h
+// (16 taps a x 16 taps b) in two bf16 parts, hi then lo, from registers, and
+// B = E^T (16 taps b x 8 rows) by ldmatrix; the float32 sums are rounded
+// once to bf16 and written over the rows read, transposed by stmatrix.trans
+// (chunk 2 mt + 1 holds taps a 16 mt + 8 ..). CS = 4 / NJ channels a step:
+// one ldmatrix.x4 reads, one stmatrix.x4 writes their NJ chunks.
+template <int NH, int CPW>
+__device__ __forceinline__ void pair_bwd_products(uint32_t buf, int ch0,
+                                                  const uint32_t (&hi)[CPW][NH][NH][4],
+                                                  const uint32_t (&lo)[CPW][NH][NH][4], int lane) {
+  constexpr int NJ = 2 * NH, CS = 4 / NJ;
+#pragma unroll
+  for (int q = 0; q < CPW / CS; ++q) {
+    uint32_t R[CS * NJ];
+    load_chunks<NJ, CS, false>(R, buf, ch0 + CS * q, lane);
+    uint32_t v[4];
+#pragma unroll
+    for (int c = 0; c < CS; ++c)
+#pragma unroll
+      for (int mt = 0; mt < NH; ++mt) {
+        float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < NH; ++kk) {
+          mma16816(acc, hi[CS * q + c][mt][kk], R[c * NJ + 2 * kk], R[c * NJ + 2 * kk + 1]);
+          mma16816(acc, lo[CS * q + c][mt][kk], R[c * NJ + 2 * kk], R[c * NJ + 2 * kk + 1]);
+        }
+        // acc: taps a 16 mt + g (+ 8) by rows 2 t, + 1; stmatrix.trans stores
+        // the 8 x 8 blocks' columns, rows of 8 taps a.
+        v[c * NJ + 2 * mt] = pack2(acc[0], acc[1]);
+        v[c * NJ + 2 * mt + 1] = pack2(acc[2], acc[3]);
+      }
+    const int k = lane >> 3;
+    stmatrix4_trans(buf + tr_at<NJ>(ch0 + CS * q + k / NJ, lane & 7, k % NJ), v);
+  }
+}
+
+// The cotangents of rows [row0, row0 + SR) out of the transposed stage at
+// `buf` (generic pointer, UC pieces of channels): thread (row r, chunk oj,
+// piece u, word w) reads word w (taps a 8 oj + 2 w, + 1) of the 8 channels
+// 8 u + i, swaps the two axes with byte permutes and stores the two taps'
+// 16-byte pieces at channel c0 + 8 u. A warp (w, u, and 32 / (4 UC) rows)
+// loads from 32 banks; UC lanes write a tap's UC pieces side by side.
+template <int NH, int UC>
+__device__ __forceinline__ void pair_store_stage(const OutPtrs& outs, const uint8_t* buf, int L,
+                                                 long row0, long t_end, long base, int c_len,
+                                                 int c0) {
+  constexpr int NJ = 2 * NH;
+  const int tid = stage_tid<NH == 2>();
+  const int w = tid & 3, u = (tid >> 2) % UC, rest = tid / (4 * UC);
+  const int r = rest % PM_SR, oj = rest / PM_SR, a = 8 * oj + 2 * w;
+  const long t = row0 + r;
+  if (t >= t_end || c0 + 8 * u >= c_len || a >= L) return;
+  uint32_t x[8];  // channel 8 u + i: tap a in the low half, a + 1 in the high
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    x[i] = *reinterpret_cast<const uint32_t*>(buf + tr_at<NJ>(8 * u + i, r, oj) + 4 * w);
+  const long off = (base + t) * c_len + c0 + 8 * u;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    if (a + k >= L) break;
+    const uint32_t sel = k ? 0x7632u : 0x5410u;
+    *reinterpret_cast<uint4*>(static_cast<bf16*>(outs.p[a + k]) + off) =
+        make_uint4(__byte_perm(x[0], x[1], sel), __byte_perm(x[2], x[3], sel),
+                   __byte_perm(x[4], x[5], sel), __byte_perm(x[6], x[7], sel));
+  }
+}
+
+// Grid (ceil(C / 64) NH, ceil(T / rows), B). Block x loads the whole lines of
+// channel group x / NH and, at NH = 2, computes its half x % 2 of them (32
+// channels, 2 a warp, whose h fills 64 registers), the sibling reading the
+// same lines from L2; at NH = 1 all 64 (4 a warp). One barrier a stage:
+// between two, the block transposes its channels of stage s, each warp
+// multiplies stage s - 1 in place and every thread stores its part of stage
+// s - 2, in three buffers that rotate.
+template <int NH>
+__global__ void __launch_bounds__(PM_NT, 1)
+gram_bwd_mma_kernel(const __grid_constant__ TapPtrs taps, const __grid_constant__ OutPtrs outs,
+                    const float* __restrict__ h, int L, int t_len, int c_len, int rows) {
+  using G = PmGeom<NH>;
+  constexpr int NJ = G::NJ, TC = 64 / NH, UC = TC / 8, CPW = TC / (PM_NT / 32);
+  constexpr int TRB = TC * PM_SR * NJ * 16;
+  extern __shared__ __align__(128) uint8_t smem[];
+  const uint32_t sbase = smem_addr(smem), tr = sbase + G::TR_AT;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int c0 = blockIdx.x / NH * 64, u0 = blockIdx.x % NH * UC, n = blockIdx.z;
+  const long t_begin = (long)blockIdx.y * rows;
+  const long t_end = min(t_begin + (long)rows, (long)t_len);
+  const int n_stages = (int)((t_end - t_begin + PM_SR - 1) / PM_SR);
+  const long base = (long)n * t_len;
+  zero_ring_pad<NH>(smem, L);
+  auto load = [&](int s) {
+    if (s < n_stages)
+      load_stage<NH, NH == 2>(sbase + (s % G::NST) * G::RING_STAGEB, taps, L,
+                              t_begin + (long)s * PM_SR, t_end, base, c_len, c0);
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < G::NST - 1; ++s) load(s);
+
+  // A[m][k] = h[n, a, b, c] for a = 16 mt + m, b = 16 kk + k, of the warp's
+  // channels: a0..a3 hold (a g, b 2 t, + 1), (a g + 8, ...), (a g, b 2 t + 8,
+  // + 9), (a g + 8, ...); hi = bf16(h), lo = bf16(h - hi), so hi + lo is
+  // within 2^-18 of h.
+  uint32_t hi[CPW][NH][NH][4], lo[CPW][NH][NH][4];
+  {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int c = 0; c < CPW; ++c) {
+      const int ch = c0 + 8 * u0 + warp * CPW + c;
+      const float* hc = h + (long)n * L * L * c_len + ch;
+#pragma unroll
+      for (int mt = 0; mt < NH; ++mt)
+#pragma unroll
+        for (int kk = 0; kk < NH; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int a = 16 * mt + g + 8 * (e & 1), b = 16 * kk + 2 * t + 8 * (e >> 1);
+            const bool in = ch < c_len && a < L;
+            const float v0 = in && b < L ? hc[((long)a * L + b) * c_len] : 0.f;
+            const float v1 = in && b + 1 < L ? hc[((long)a * L + b + 1) * c_len] : 0.f;
+            hi[c][mt][kk][e] = pack2(v0, v1);
+            lo[c][mt][kk][e] = pack2(v0 - bf_lo(hi[c][mt][kk][e]), v1 - bf_hi(hi[c][mt][kk][e]));
+          }
+    }
+  }
+  for (int s = 0; s < n_stages + 2; ++s) {
+    cp_async_wait<G::NST - 2>();  // stage s has landed (this thread's part)
+    __syncthreads();  // everyone's; the ring slot of s - 1 and the buffer of s - 3 are free
+    load(s + G::NST - 1);
+    if (s >= 2)
+      pair_store_stage<NH, UC>(outs, smem + G::TR_AT + ((s - 2) % 3) * TRB, L,
+                               t_begin + (long)(s - 2) * PM_SR, t_end, base, c_len, c0 + 8 * u0);
+    const int tid = stage_tid<NH == 2>();
+    if (s >= 1 && s <= n_stages)
+      pair_bwd_products<NH, CPW>(tr + ((s - 1) % 3) * TRB, tid / 32 * CPW, hi, lo, tid % 32);
+    if (s < n_stages)
+      transpose_stage<NH, UC>(sbase + (s % G::NST) * G::RING_STAGEB, tr + (s % 3) * TRB, u0,
+                              tid / 32, tid % 32);
+  }
+  cp_async_wait<0>();
+}
+
+template <int NH>
+cudaError_t launch_gram_fwd_mma(const TapPtrs& taps, int L, int B, int t_len, int c_len,
+                                int chunk, float* partial, cudaStream_t s) {
+  using G = PmGeom<NH>;
+  constexpr int smem = G::TR_AT + 2 * 64 * PM_SR * G::NJ * 16;
+  cudaError_t e = cudaFuncSetAttribute(gram_fwd_mma_kernel<NH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((c_len + 63) / 64, (t_len + chunk - 1) / chunk, B);
+  gram_fwd_mma_kernel<NH><<<grid, PM_NT, smem, s>>>(taps, L, t_len, c_len, chunk, partial);
+  return cudaGetLastError();
+}
+
+template <int NH>
+cudaError_t launch_gram_bwd_mma(const TapPtrs& taps, const OutPtrs& outs, const float* h, int L,
+                                int B, int t_len, int c_len, int rows, cudaStream_t s) {
+  using G = PmGeom<NH>;
+  constexpr int smem = G::TR_AT + 3 * (64 / NH) * PM_SR * G::NJ * 16;
+  cudaError_t e = cudaFuncSetAttribute(gram_bwd_mma_kernel<NH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return e;
+  const dim3 grid((c_len + 63) / 64 * NH, (t_len + rows - 1) / rows, B);
+  gram_bwd_mma_kernel<NH><<<grid, PM_NT, smem, s>>>(taps, outs, h, L, t_len, c_len, rows);
+  return cudaGetLastError();
+}
 
 // ------------------------------------------------------------ K8f, K8b ------
 //
@@ -573,13 +1028,6 @@ constexpr int LB_SMEM = 2 * WBYTES + LB_NB * LB_TILEB;  // 160 KB: 2 operands, 3
 constexpr int FB_NB = 2;     // float32 tile buffers
 constexpr int FB_TILEB = LB_TN * FROWB;
 constexpr int FB_SMEM = C * FROWB + FB_NB * FB_TILEB;   // 192 KB
-
-__device__ __forceinline__ void stmatrix4_trans(uint32_t addr, const uint32_t (&r)[4]) {
-  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(
-                   addr),
-               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
-               : "memory");
-}
 
 // Channels 4q..4q+3 and 64+4q..64+4q+3 of a float32 row: a thread's 8.
 __device__ __forceinline__ void ld8(const float* row, int q, float (&v)[8]) {
@@ -942,10 +1390,10 @@ gram_layer_bwd_fma_kernel(const __grid_constant__ TapPtrs taps,
 
 extern "C" {
 
-// taps: host array of L device pointers ([B, T, C], one dtype, 16-byte
-// aligned). chunk: time rows per block. partial: [B, ceil(T / chunk),
-// L (L + 1) / 2, C] float32 scratch; out: [B, L, L, C] float32. Returns
-// cudaGetLastError().
+// K5. taps: host array of L device pointers ([B, T, C], one dtype, 16-byte
+// aligned): float32 runs gram_fwd_kernel, bf16 (is_bf16) gram_fwd_mma_kernel.
+// chunk: time rows per block. partial: [B, ceil(T / chunk), L (L + 1) / 2, C]
+// float32 scratch; out: [B, L, L, C] float32. Returns cudaGetLastError().
 int ast_pair_gram(const void* const* taps, int L, int B, int t_len, int c_len, int chunk,
                   int is_bf16, void* partial, void* out, void* stream) {
   if (L < 1 || L > MAXL || B < 1 || t_len < 1 || c_len % FW_CB != 0 || chunk < 1)
@@ -954,8 +1402,10 @@ int ast_pair_gram(const void* const* taps, int L, int B, int t_len, int c_len, i
   TapPtrs ptrs = {};
   for (int i = 0; i < L; ++i) ptrs.p[i] = taps[i];
   float* pp = (float*)partial;
-  cudaError_t e = is_bf16 ? dispatch_gram_fwd<__nv_bfloat16>(ptrs, L, B, t_len, c_len, chunk, pp, s)
-                          : dispatch_gram_fwd<float>(ptrs, L, B, t_len, c_len, chunk, pp, s);
+  cudaError_t e =
+      !is_bf16  ? dispatch_gram_fwd<float>(ptrs, L, B, t_len, c_len, chunk, pp, s)
+      : L <= 16 ? launch_gram_fwd_mma<1>(ptrs, L, B, t_len, c_len, chunk, pp, s)
+                : launch_gram_fwd_mma<2>(ptrs, L, B, t_len, c_len, chunk, pp, s);
   if (e != cudaSuccess) return (int)e;
   const long total = (long)B * L * L * c_len;
   gram_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, s>>>(
@@ -963,9 +1413,10 @@ int ast_pair_gram(const void* const* taps, int L, int B, int t_len, int c_len, i
   return (int)cudaGetLastError();
 }
 
-// taps / outs: host arrays of L device pointers ([B, T, C], one dtype, 16-byte
-// aligned); h: [B, L, L, C] float32; rows: time rows per block, a multiple
-// of 32. Returns cudaGetLastError().
+// K6. taps / outs: host arrays of L device pointers ([B, T, C], one dtype,
+// 16-byte aligned): float32 runs gram_bwd_kernel, bf16 (is_bf16)
+// gram_bwd_mma_kernel. h: [B, L, L, C] float32; rows: time rows per block, a
+// multiple of 32. Returns cudaGetLastError().
 int ast_pair_gram_bwd(const void* const* taps, void* const* outs, int L, int B, int t_len,
                       int c_len, int rows, int is_bf16, const void* h, void* stream) {
   if (L < 1 || L > MAXL || B < 1 || t_len < 1 || c_len % BW_CB != 0 || rows < BW_STEP ||
@@ -980,8 +1431,9 @@ int ast_pair_gram_bwd(const void* const* taps, void* const* outs, int L, int B, 
   const cudaStream_t s = (cudaStream_t)stream;
   const float* hp = (const float*)h;
   const cudaError_t e =
-      is_bf16 ? dispatch_gram_bwd<__nv_bfloat16>(in, out, hp, L, B, t_len, c_len, rows, s)
-              : dispatch_gram_bwd<float>(in, out, hp, L, B, t_len, c_len, rows, s);
+      !is_bf16  ? dispatch_gram_bwd<float>(in, out, hp, L, B, t_len, c_len, rows, s)
+      : L <= 16 ? launch_gram_bwd_mma<1>(in, out, hp, L, B, t_len, c_len, rows, s)
+                : launch_gram_bwd_mma<2>(in, out, hp, L, B, t_len, c_len, rows, s);
   return (int)e;
 }
 

@@ -15,6 +15,13 @@ device and is not taken over. On an NVIDIA H100 80GB HBM3 at 700 W (bf16,
 T=16384, C=128) the plain composition at L=10 is some 200 launches and 2.2
 ms, K6 one launch (PERF.md has the kernels' times).
 
+K5 and K6 each have one kernel per dtype, chosen by the taps' dtype: bf16
+taps run on the tensor cores (``gram_fwd_mma_kernel``,
+``gram_bwd_mma_kernel``: blocks of 64 channels, per-channel ``mma.sync``
+products after a transpose of each 8-row stage in shared memory), float32
+taps on float32 FMAs (``gram_fwd_kernel``, ``gram_bwd_kernel``; TF32 stays
+off).
+
 ``layer_gram(*taps)`` maps L taps, each [1, T, C], to the per-layer (Gatys)
 grams ``G[l] = X_l^T X_l``, [L, C, C] float32: K8f forward and K8b backward
 (csrc/gram.cu, ``LayerGram``) on CUDA tensors, the plain float32 matmul
@@ -29,9 +36,10 @@ inside the span ``gram.pair`` and its backward (h, its cast and K6) inside
 ``gram.layer_bwd`` (``utils/profiling.py::span``).
 
 The kernels' launch geometry is chosen here, by plain functions the CPU
-tests reach: the tap bucket the kernels are compiled for, K5's time rows per
-partial sum, K6's time rows per block, K8f's rows per block and K8b's (tap,
-tile) pairs per block.
+tests reach: the tap bucket the float32 kernels are compiled for, their K5
+time rows per partial sum and K6 time rows per block, the bf16 kernels'
+time rows per block (``mma_rows``, one for K5 and K6), K8f's rows per
+block and K8b's (tap, tile) pairs per block.
 """
 
 from __future__ import annotations
@@ -49,9 +57,14 @@ BWD_CHANNEL_BLOCK = 16  # K6 needs C to be a multiple of this
 ALIGN = 16              # bytes: the kernels move 16-byte and 4-byte pieces
 MIN_ROWS = 256          # fewest time rows a block is given
 BWD_STEP = 32           # K6 walks its rows 32 at a time
-# Blocks of K6 resident on an SM, by tap bucket (from the kernels' registers
-# and shared memory; csrc/gram.cu).
+# Blocks of the float32 K6 resident on an SM, by tap bucket (from the
+# kernel's registers and shared memory; csrc/gram.cu).
 BWD_RESIDENT = {8: 4, 16: 4, 24: 2, 32: 2}
+# The bf16 K5 and K6: a block reads a group of 64 channels (whole 128-byte
+# lines of a tap row; a last, narrower group is masked), one block an SM
+# (160-192 KB of shared memory); rows a block in multiples of MMA_ROWS.
+MMA_CHANNEL_GROUP = 64
+MMA_ROWS = 32
 LAYER_WIDTH = 128       # K8f / K8b take the encoder's width only
 LAYER_ROWS = 64         # K8f's rows per block are a multiple of its stage
 LAYER_TILE = 128        # K8b's rows per tile
@@ -60,15 +73,16 @@ LAYER_BWD_RESIDENT = 1  # K8b (160 KB bf16, 192 KB float32)
 
 
 def tap_bucket(nl: int) -> int:
-    """The tap count the kernels are compiled for: L rounded up to 8."""
+    """The tap count the float32 kernels are compiled for: L rounded up to
+    8."""
     if not 1 <= nl <= MAX_TAPS:
         raise ValueError(f"the gram kernels take 1..{MAX_TAPS} taps, got {nl}")
     return -(-nl // 8) * 8
 
 
 def fwd_chunk_rows(b: int, t: int, c: int, sms: int) -> int:
-    """Time rows per K5 block: T is cut so that the grid (C / 8 channel
-    groups x chunks x B) is about one block an SM, and no finer than
+    """Time rows per float32 K5 block: T is cut so that the grid (C / 8
+    channel groups x chunks x B) is about one block an SM, and no finer than
     MIN_ROWS. Each chunk leaves one partial sum per pair and channel."""
     chunks = max(1, sms // (b * (c // CHANNEL_BLOCK)))
     return max(-(-t // chunks), MIN_ROWS)
@@ -80,13 +94,32 @@ def fwd_scratch_shape(b: int, t: int, c: int, nl: int, rows: int) -> tuple:
 
 
 def bwd_block_rows(b: int, t: int, c: int, nl: int, sms: int) -> int:
-    """Time rows per K6 block, a multiple of BWD_STEP: as few as still make
-    the grid (C / 16 channel groups x blocks x B) one wave of resident
-    blocks, and no fewer than MIN_ROWS (h is staged once per block)."""
+    """Time rows per float32 K6 block, a multiple of BWD_STEP: as few as
+    still make the grid (C / 16 channel groups x blocks x B) one wave of
+    resident blocks, and no fewer than MIN_ROWS (h is staged once per
+    block)."""
     slots = sms * BWD_RESIDENT[tap_bucket(nl)]
     per_group = max(1, slots // (b * (c // BWD_CHANNEL_BLOCK)))
     rows = -(-t // per_group)
     return max(-(-rows // BWD_STEP) * BWD_STEP, MIN_ROWS)
+
+
+def mma_split(nl: int, bwd: bool) -> int:
+    """Blocks sharing each 64-channel group and run of rows in the bf16 K5
+    and K6: above 16 taps K6 splits a group's channels between two blocks,
+    so that a block's h fits in its registers (both read the group's whole
+    lines); K5 never splits."""
+    return 2 if bwd and nl > 16 else 1
+
+
+def mma_rows(b: int, t: int, c: int, nl: int, sms: int, bwd: bool) -> int:
+    """Time rows per block of the bf16 K5 (the chunk) or K6 (``bwd``): T cut
+    into as many runs as make the grid (ceil(C / 64) channel groups x the
+    split x runs x B) one wave of one block an SM, a multiple of MMA_ROWS
+    and no fewer than MIN_ROWS."""
+    blocks = b * -(-c // MMA_CHANNEL_GROUP) * mma_split(nl, bwd)
+    rows = -(-t // max(1, sms // blocks))
+    return max(-(-rows // MMA_ROWS) * MMA_ROWS, MIN_ROWS)
 
 
 def layer_fwd_chunk_rows(t: int, nl: int, sms: int) -> int:
@@ -147,12 +180,14 @@ def pair_gram_fwd(*taps: torch.Tensor) -> torch.Tensor:
     nl = len(taps)
     b, t, c = taps[0].shape
     dev = taps[0].device
-    rows = fwd_chunk_rows(b, t, c, _build.sm_count(dev.index))
+    bf16 = taps[0].dtype == torch.bfloat16
+    sms = _build.sm_count(dev.index)
+    rows = mma_rows(b, t, c, nl, sms, False) if bf16 else fwd_chunk_rows(b, t, c, sms)
     partial = torch.empty(fwd_scratch_shape(b, t, c, nl, rows), dtype=torch.float32, device=dev)
     out = torch.empty((b, nl, nl, c), dtype=torch.float32, device=dev)
     status = _build.lib().ast_pair_gram(
-        _tap_ptrs(taps), nl, b, t, c, rows, int(taps[0].dtype == torch.bfloat16),
-        partial.data_ptr(), out.data_ptr(), _build.stream_ptr(dev))
+        _tap_ptrs(taps), nl, b, t, c, rows, int(bf16), partial.data_ptr(), out.data_ptr(),
+        _build.stream_ptr(dev))
     _build.check(status, "ast_pair_gram")
     _build.LAUNCHES["K5"] += 1
     return out
@@ -190,10 +225,12 @@ def pair_gram_bwd(taps, h: torch.Tensor):
     # One allocation for the L cotangents (each slice stays 16-byte aligned:
     # C is a multiple of 16), handed out as its L views.
     outs = torch.empty((nl, b, t, c), dtype=taps[0].dtype, device=dev).unbind(0)
+    bf16 = taps[0].dtype == torch.bfloat16
+    sms = _build.sm_count(dev.index)
+    rows = mma_rows(b, t, c, nl, sms, True) if bf16 else bwd_block_rows(b, t, c, nl, sms)
     status = _build.lib().ast_pair_gram_bwd(
-        _tap_ptrs(taps), _tap_ptrs(outs), nl, b, t, c,
-        bwd_block_rows(b, t, c, nl, _build.sm_count(dev.index)),
-        int(taps[0].dtype == torch.bfloat16), h.data_ptr(), _build.stream_ptr(dev))
+        _tap_ptrs(taps), _tap_ptrs(outs), nl, b, t, c, rows, int(bf16), h.data_ptr(),
+        _build.stream_ptr(dev))
     _build.check(status, "ast_pair_gram_bwd")
     _build.LAUNCHES["K6"] += 1
     return outs

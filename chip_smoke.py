@@ -43,10 +43,12 @@ Phases (any failure raises and exits non-zero):
      from portbench/counts_layer_gram.py; in bfloat16 the merged-taps pack
      (ops/conv.py::taps_pack) at the training step's shapes, bit for bit the
      plain pad and concatenation, timed beside it and its bound by bytes,
-     and K5/K6 at the 15 s clip's 237568 rows at L=30 and L=10 (K5 against
-     the float64 gram and twice for equal bits, K6 against its plain
-     composition), each timed as a replayed CUDA graph against its bound
-     from portbench/counts.py;
+     and K5/K6 at the 15 s clip's 237568 rows at L=30 and L=10, in bf16
+     (the tensor-core kernels) and float32 (the FMA kernels): K5 against
+     the float64 gram and twice for equal bits, the bf16 K5 also against
+     the float32 K5 of the same taps, K6 against its plain composition,
+     each timed as a replayed CUDA graph against its bound from
+     portbench/counts.py;
      then a bare bfloat16 loss+gradient evaluation at stack 0 and at the
      full stack, CUDA events beside the host clock, with the kernel
      launches of one evaluation;
@@ -967,12 +969,15 @@ LAYER_GRAM_FWD_TOL = 1e-5
 LAYER_GRAM_BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
 # The all-pairs grams K5 / K6 at the same clip, one window: K5 against the
-# float64 gram (a thread adds a chunk's rows in ascending order in float32,
-# 3712 products at L=30: 3.7e-6 off on an H100 in bf16), K6 against its plain
-# composition (the same float32 sums, rounded once to bf16).
+# float64 gram (bf16: a warp adds each 32-row stage's tensor-core sums into a
+# float32 sum; float32: a thread adds a chunk's rows in ascending order,
+# 3712 products at L=30) and the bf16 K5 against the float32 K5 of the same
+# taps; K6 against its plain composition (float32 sums either way, rounded
+# once to the taps' dtype).
 PAIR_GRAM_ROWS = 237568
 PAIR_GRAM_FWD_TOL = 1e-5
-PAIR_GRAM_BWD_TOL = 1e-3
+PAIR_GRAM_CROSS_TOL = 2e-5
+PAIR_GRAM_BWD_TOL = {"float32": 1e-5, "bfloat16": 1e-3}
 
 # The decoder block's epilogues at the training step's shape: 32 x 6144 rows,
 # 12 hop frames a clip, width 512 (the gate's y is [rows, 1024]), skip 256.
@@ -1210,64 +1215,77 @@ def layer_gram_kernel_phase(dtype_name: str, dev) -> dict:
 
 
 def pair_gram_clip_phase(dev) -> dict:
-    """K5 and K6 (ops/gram.py::pair_gram_fwd / pair_gram_bwd) in bf16 at the
-    15 s clip's rows, at the full stack's 30 taps (bucket 32, the
-    ``transfer_full_exact15s`` cell) and the ten of stack 0 (bucket 16, the
-    ``transfer_exact15s`` cell). K5 is held to the float64 gram and run twice
-    for equal bits; K6 to its plain composition. Each kernel timed as a
-    replayed CUDA graph, median of 20, against the benchmark's bound of its
-    bytes and operations (``portbench/counts.py::k5`` / ``k6``)."""
+    """K5 and K6 (ops/gram.py::pair_gram_fwd / pair_gram_bwd) at the 15 s
+    clip's rows, at the full stack's 30 taps (the ``transfer_full_exact15s``
+    cell) and the ten of stack 0 (the ``transfer_exact15s`` cell), in bf16
+    (the tensor-core kernels) and in float32 (the FMA kernels). K5 is held to
+    the float64 gram and run twice for equal bits, the bf16 K5 also to the
+    float32 K5 of the same taps; K6 to its plain composition. Each kernel
+    timed as a replayed CUDA graph, median of 20, against the benchmark's
+    bound of its bytes and operations (``portbench/counts.py::k5`` / ``k6``)."""
     import torch
 
     from audio_style_transfer_tpu_torch.ops import gram
     from portbench import counts
 
-    rows, dtype_name = PAIR_GRAM_ROWS, "bfloat16"
+    rows = PAIR_GRAM_ROWS
     gen = torch.Generator(device=dev).manual_seed(29)
     out = {}
     for nl in (LAYERS, len(STYLE)):
-        taps = [torch.randn((1, rows, C), generator=gen, device=dev).to(torch.bfloat16)
+        base = [torch.randn((1, rows, C), generator=gen, device=dev).to(torch.bfloat16)
                 for _ in range(nl)]
         h = torch.randn((1, nl, nl, C), generator=gen, device=dev) * 1e-3
         h = (h + h.transpose(1, 2)).contiguous()
-        got = gram.pair_gram_fwd(*taps)
-        if not torch.equal(got, gram.pair_gram_fwd(*taps)):
-            raise AssertionError(f"[pair gram clip] K5 L={nl}: two launches differ in their bits")
         exact = []
         for c0 in range(0, C, 16):  # the float64 gram, 16 channels at a time
-            e = torch.stack([tp[0, :, c0:c0 + 16].double() for tp in taps])
+            e = torch.stack([tp[0, :, c0:c0 + 16].double() for tp in base])
             exact.append(torch.einsum("atc,btc->abc", e, e))
         exact = torch.cat(exact, dim=2)[None]
-        fwd_rel = float(torch.linalg.vector_norm(got.double() - exact)
-                        / torch.linalg.vector_norm(exact))
-        fwd_err = float((got.double() - exact).abs().max())
-        del exact
-        if fwd_rel > PAIR_GRAM_FWD_TOL:
-            raise AssertionError(f"[pair gram clip] K5 L={nl}: rel L2 {fwd_rel:.3e} to the "
-                                 f"float64 gram (tol {PAIR_GRAM_FWD_TOL:.0e})")
-        outs, want = gram.pair_gram_bwd(taps, h), gram.pair_gram_bwd_plain(taps, h)
-        bwd_rel = max(float(torch.linalg.vector_norm(a.float() - w.float())
-                            / torch.linalg.vector_norm(w.float())) for a, w in zip(outs, want))
-        bwd_err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(outs, want))
-        del outs, want
-        if bwd_rel > PAIR_GRAM_BWD_TOL:
-            raise AssertionError(f"[pair gram clip] K6 L={nl}: worst rel L2 {bwd_rel:.3e} to "
-                                 f"the plain composition (tol {PAIR_GRAM_BWD_TOL:.0e})")
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        times = {"K5": (cuda_ms(lambda: gram.pair_gram_fwd(*taps), graph=True), fwd_err,
-                        counts.k5(rows, C, nl, dtype_name)),
-                 "K6": (cuda_ms(lambda: gram.pair_gram_bwd(taps, h), graph=True), bwd_err,
-                        counts.k6(rows, C, nl, dtype_name))}
-        print(f"[pair gram clip bf16] {rows} rows, L={nl} (bucket {gram.tap_bucket(nl)}): K5 "
-              f"rel L2 {fwd_rel:.3e} to the float64 gram, two launches equal bit for bit; K6 "
-              f"worst rel L2 {bwd_rel:.3e} to the plain composition ok")
-        for name, (ms, err, (nbytes, ops)) in times.items():
-            bnd = bound(nbytes, ops, dtype_name)
-            out[f"{name} {rows} L={nl}"] = dict(ms=ms, max_abs_err=err, **bnd)
-            print(f"  {name}: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
-                  f"{bnd['bound_by']} ({bnd['bound_ms'] / ms:.1%} of it)")
-        del taps, h, got
+        grams = {}
+        for dtype_name in ("bfloat16", "float32"):
+            taps = [tp.to(getattr(torch, dtype_name)) for tp in base]
+            tag = f"[pair gram clip {dtype_name}] {rows} rows, L={nl}"
+            got = grams[dtype_name] = gram.pair_gram_fwd(*taps)
+            if not torch.equal(got, gram.pair_gram_fwd(*taps)):
+                raise AssertionError(f"{tag}: K5's two launches differ in their bits")
+            fwd_rel = float(torch.linalg.vector_norm(got.double() - exact)
+                            / torch.linalg.vector_norm(exact))
+            fwd_err = float((got.double() - exact).abs().max())
+            if fwd_rel > PAIR_GRAM_FWD_TOL:
+                raise AssertionError(f"{tag}: K5 rel L2 {fwd_rel:.3e} to the float64 gram "
+                                     f"(tol {PAIR_GRAM_FWD_TOL:.0e})")
+            outs, want = gram.pair_gram_bwd(taps, h), gram.pair_gram_bwd_plain(taps, h)
+            bwd_rel = max(float(torch.linalg.vector_norm(a.float() - w.float())
+                                / torch.linalg.vector_norm(w.float()))
+                          for a, w in zip(outs, want))
+            bwd_err = max(float((a.float() - w.float()).abs().max()) for a, w in zip(outs, want))
+            del outs, want
+            tol = PAIR_GRAM_BWD_TOL[dtype_name]
+            if bwd_rel > tol:
+                raise AssertionError(f"{tag}: K6 worst rel L2 {bwd_rel:.3e} to the plain "
+                                     f"composition (tol {tol:.0e})")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            times = {"K5": (cuda_ms(lambda: gram.pair_gram_fwd(*taps), graph=True), fwd_err,
+                            counts.k5(rows, C, nl, dtype_name)),
+                     "K6": (cuda_ms(lambda: gram.pair_gram_bwd(taps, h), graph=True), bwd_err,
+                            counts.k6(rows, C, nl, dtype_name))}
+            print(f"{tag}: K5 rel L2 {fwd_rel:.3e} to the float64 gram, two launches equal bit "
+                  f"for bit; K6 worst rel L2 {bwd_rel:.3e} to the plain composition ok")
+            for name, (ms, err, (nbytes, ops)) in times.items():
+                bnd = bound(nbytes, ops, dtype_name)
+                out[f"{name} {dtype_name} {rows} L={nl}"] = dict(ms=ms, max_abs_err=err, **bnd)
+                print(f"  {name}: kernel {ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms by "
+                      f"{bnd['bound_by']} ({bnd['bound_ms'] / ms:.1%} of it)")
+            del taps
+        cross = float(torch.linalg.vector_norm(grams["bfloat16"] - grams["float32"])
+                      / torch.linalg.vector_norm(grams["float32"]))
+        if cross > PAIR_GRAM_CROSS_TOL:
+            raise AssertionError(f"[pair gram clip] L={nl}: the bf16 K5 is {cross:.3e} from the "
+                                 f"float32 K5 of the same taps (tol {PAIR_GRAM_CROSS_TOL:.0e})")
+        print(f"[pair gram clip] L={nl}: the bf16 K5 (tensor cores) rel L2 {cross:.3e} to the "
+              f"float32 K5 (FMA) of the same taps ok")
+        del base, h, exact, grams
         torch.cuda.empty_cache()
     return out
 
@@ -4367,8 +4385,10 @@ def main() -> int:
             kernels[-1]["exact_shapes_max_abs_err"] = exact_shapes["bfloat16"][k]
         if k in ("K5", "K6"):  # at the 15 s clip's rows, by taps
             clip = results["bfloat16"]["pair gram clip"]
-            kernels[-1]["clip_ms_by_taps"] = {nl: clip[f"{k} {PAIR_GRAM_ROWS} L={nl}"]
-                                              for nl in (LAYERS, len(STYLE))}
+            for dtype_name, key in (("bfloat16", "clip_ms_by_taps"),
+                                    ("float32", "clip_f32_ms_by_taps")):
+                kernels[-1][key] = {nl: clip[f"{k} {dtype_name} {PAIR_GRAM_ROWS} L={nl}"]
+                                    for nl in (LAYERS, len(STYLE))}
         if k in ("K1", "K2"):  # layer by layer at the training step's 32 x 6144 rows
             kernels[-1].update(train_shape_max_abs_err=train_trunk["bfloat16"][k.lower()],
                                train_shape_f32_max_abs_err=train_trunk["float32"][k.lower()])

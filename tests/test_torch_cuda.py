@@ -245,10 +245,12 @@ def test_trunk_kernels_choose_by_dtype_and_count(dev):
 # Tap counts either side of every bucket the gram kernels are compiled for
 # (8, 16, 24, 32), the main path's 10 and 30; one row, a T that ends inside
 # a step, and the main path's T plus 8 rows; two clips; the narrowest C both
-# kernels take and the model's.
+# kernels take and the model's; K5 also at a C that is an odd multiple of 8
+# (the bf16 kernel masks the rest of its 64-channel group).
 GRAM_L = [1, 2, 8, 9, 10, 16, 17, 30, 32]
 GRAM_T = [1, 1000, 16384 + 8]
 GRAM_C = [32, 128]
+GRAM_C_FWD = GRAM_C + [24]
 
 
 def _gram_taps(dev, dtype, nl, tl, c, seed, b=2):
@@ -257,7 +259,7 @@ def _gram_taps(dev, dtype, nl, tl, c, seed, b=2):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", GRAM_C)
+@pytest.mark.parametrize("c", GRAM_C_FWD)
 @pytest.mark.parametrize("tl", GRAM_T)
 @pytest.mark.parametrize("nl", GRAM_L)
 def test_gram_kernel_matches_plain(dev, dtype, nl, tl, c):

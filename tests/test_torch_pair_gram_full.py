@@ -10,9 +10,11 @@ width; the kernels' launch geometry at the 15 s clip's 237568 rows; the
 spans ``gram.pair`` / ``gram.pair_bwd`` around autograd's forward and
 backward; and the benchmark's reader of those spans on a made-up capture.
 On the card (marker ``cuda``; skips without one): K5 against the float64
-gram at 237568 rows and 30 taps, bit for bit across two launches; K6
-against its plain composition at that shape; and autograd through
-``pair_gram`` launching one K5 and one K6, each inside its span.
+gram at 237568 rows and 30 taps, bit for bit across two launches, in bf16
+(the tensor-core kernel) and float32 (the FMA kernel), the two against each
+other at 30 and 10 taps, and at a ragged clip of two clips; K6 against its
+plain composition at those shapes; and autograd through ``pair_gram``
+launching one K5 and one K6, each inside its span.
 """
 
 from __future__ import annotations
@@ -40,9 +42,9 @@ def _rel(got, want) -> float:
     return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
 
 
-def _taps(nl, t, dtype, device="cpu", seed=0):
+def _taps(nl, t, dtype, device="cpu", seed=0, b=1):
     gen = torch.Generator(device=device).manual_seed(seed)
-    return [torch.randn((1, t, 128), generator=gen, device=device).to(dtype) for _ in range(nl)]
+    return [torch.randn((b, t, 128), generator=gen, device=device).to(dtype) for _ in range(nl)]
 
 
 # -- the cell's configuration ---------------------------------------------------
@@ -132,22 +134,51 @@ def test_the_channel_wise_full_stack_loss_and_gradient_match_the_reference(full_
 
 # -- the launch geometry at the 15 s clip ----------------------------------------
 
+# float32 taps run the FMA kernels (K5: 8-channel blocks in chunks; K6: 16
+# channels, blocks resident by tap bucket); bf16 taps the tensor-core kernels
+# (64-channel groups, one block an SM; K6 splits a group between two blocks
+# above 16 taps).
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
 @pytest.mark.parametrize("nl,sms", [(30, H100_SMS), (10, H100_SMS), (30, 114), (32, H100_SMS),
                                     (25, H100_SMS)])
-def test_the_pair_gram_geometry_covers_the_clip_in_one_wave(nl, sms):
-    rows = gram.fwd_chunk_rows(1, FULL_ROWS, 128, sms)
+def test_the_pair_gram_geometry_covers_the_clip_in_one_wave(nl, sms, bf16):
+    if bf16:
+        rows = gram.mma_rows(1, FULL_ROWS, 128, nl, sms, False)
+        groups = 128 // gram.MMA_CHANNEL_GROUP
+        assert rows % gram.MMA_ROWS == 0 and rows >= gram.MIN_ROWS
+    else:
+        rows = gram.fwd_chunk_rows(1, FULL_ROWS, 128, sms)
+        groups = 128 // gram.CHANNEL_BLOCK
     chunks = -(-FULL_ROWS // rows)
     assert chunks * rows >= FULL_ROWS and (chunks - 1) * rows < FULL_ROWS
-    assert chunks * (128 // gram.CHANNEL_BLOCK) <= sms
+    assert chunks * groups <= sms
     assert gram.fwd_scratch_shape(1, FULL_ROWS, 128, nl, rows) == (1, chunks, nl * (nl + 1) // 2,
                                                                    128)
-    bwd = gram.bwd_block_rows(1, FULL_ROWS, 128, nl, sms)
-    blocks = -(-FULL_ROWS // bwd) * (128 // gram.BWD_CHANNEL_BLOCK)
-    assert bwd % gram.BWD_STEP == 0 and bwd >= gram.MIN_ROWS
-    assert blocks <= sms * gram.BWD_RESIDENT[gram.tap_bucket(nl)]
+    if bf16:
+        bwd = gram.mma_rows(1, FULL_ROWS, 128, nl, sms, True)
+        blocks = -(-FULL_ROWS // bwd) * groups * gram.mma_split(nl, True)
+        assert bwd % gram.MMA_ROWS == 0 and blocks <= sms
+    else:
+        bwd = gram.bwd_block_rows(1, FULL_ROWS, 128, nl, sms)
+        blocks = -(-FULL_ROWS // bwd) * (128 // gram.BWD_CHANNEL_BLOCK)
+        assert bwd % gram.BWD_STEP == 0 and bwd >= gram.MIN_ROWS
+        assert blocks <= sms * gram.BWD_RESIDENT[gram.tap_bucket(nl)]
 
 
-def test_the_full_stack_geometry_at_the_15_s_clip():
+@pytest.mark.parametrize("bf16", [False, True], ids=["float32", "bf16"])
+def test_the_full_stack_geometry_at_the_15_s_clip(bf16):
+    if bf16:
+        # Two 64-channel groups. K5: 66 chunks of 3616 rows, one block an SM
+        # of 132. K6 at 30 taps: each group split between two blocks, 33 runs
+        # of 7200 rows; at 10 taps (the s0 cell) unsplit, 66 runs of 3616.
+        assert gram.mma_split(30, False) == 1 and gram.mma_split(30, True) == 2
+        assert gram.mma_split(10, True) == 1
+        assert gram.mma_rows(1, FULL_ROWS, 128, 30, H100_SMS, False) == 3616
+        assert -(-FULL_ROWS // 3616) * 2 == H100_SMS
+        assert gram.mma_rows(1, FULL_ROWS, 128, 30, H100_SMS, True) == 7200
+        assert -(-FULL_ROWS // 7200) * 2 * 2 == H100_SMS
+        assert gram.mma_rows(1, FULL_ROWS, 128, 10, H100_SMS, True) == 3616
+        return
     # Bucket 32: K5's 10 triangle tiles, K6 two blocks an SM. K5: 8 chunks of
     # 29696 rows x 16 channel groups, one block an SM of 132. K6: 7200 rows a
     # block, 33 x 8 channel groups = 264 blocks, the 2 x 132 resident slots.
@@ -260,48 +291,71 @@ def dev():
 
 
 def _float64_gram(taps) -> torch.Tensor:
-    """[1, L, L, C] in float64, 16 channels at a time."""
+    """[B, L, L, C] in float64, 16 channels at a time."""
     parts = []
     for c0 in range(0, 128, 16):
-        e = torch.stack([tp[0, :, c0:c0 + 16].double() for tp in taps])  # [L, T, 16]
-        parts.append(torch.einsum("atc,btc->abc", e, e))
-    return torch.cat(parts, dim=2)[None]
+        e = torch.stack([tp[:, :, c0:c0 + 16].double() for tp in taps], dim=1)  # [B, L, T, 16]
+        parts.append(torch.einsum("natc,nbtc->nabc", e, e))
+    return torch.cat(parts, dim=3)
+
+
+# (taps' dtype, taps, rows, clips): bf16 runs the tensor-core K5, float32 the
+# FMA K5; "cross" holds the bf16 K5 of bf16 taps against the float32 K5 of the
+# same taps cast to float32, at the full stack and at stack 0's 10 taps; the
+# ragged case ends the clip 8 rows into a stage, with two clips.
+K5_CASES = [pytest.param(torch.bfloat16, 30, FULL_ROWS, 1, id="bf16"),
+            pytest.param(torch.float32, 30, FULL_ROWS, 1, id="float32"),
+            pytest.param("cross", 30, FULL_ROWS, 1, id="cross-L30"),
+            pytest.param("cross", 10, FULL_ROWS, 1, id="cross-L10"),
+            pytest.param(torch.bfloat16, 30, FULL_ROWS + 8, 2, id="bf16-ragged-B2")]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_k5_holds_the_float64_gram_at_the_15_s_clip_and_30_taps(dev, dtype):
-    """K5 at 237568 rows, L = 30 (bucket 32, 8 chunks): within 1e-5 of the
-    float64 gram, and two launches equal bit for bit (no atomics). A thread
-    adds its 3712 rows of a chunk in ascending order in float32, rounding
-    each step: bf16 taps read 3.7e-6 on an H100."""
-    taps = _taps(30, FULL_ROWS, dtype, dev, seed=13)
-    got = gram.pair_gram_fwd(*taps)
-    again = gram.pair_gram_fwd(*taps)
-    torch.cuda.synchronize()
-    assert got.shape == (1, 30, 30, 128) and got.dtype == torch.float32
-    assert torch.equal(got, again)
-    assert torch.equal(got, got.transpose(1, 2))  # the reduce mirrors the triangle
-    assert _rel(got, _float64_gram(taps)) <= 1e-5
+@pytest.mark.parametrize("dtype,nl,t,b", K5_CASES)
+def test_k5_holds_the_float64_gram_at_the_15_s_clip_and_30_taps(dev, dtype, nl, t, b):
+    """K5 at 237568 rows: within 1e-5 of the float64 gram, and two launches
+    equal bit for bit (no atomics). bf16 (tensor cores): each 8-row stage's
+    products added into a float32 sum, 1.3e-7 on an H100; float32 (FMA): a
+    thread adds its 3712 rows of a chunk in ascending order, rounding each
+    step, 3.7e-6. The two routes on the same bf16 values agree within 2e-5."""
+    taps = _taps(nl, t, torch.bfloat16 if dtype == "cross" else dtype, dev, seed=13, b=b)
+    routes = [taps, [tp.float() for tp in taps]] if dtype == "cross" else [taps]
+    exact = _float64_gram(taps)
+    grams = []
+    for tt in routes:
+        got = gram.pair_gram_fwd(*tt)
+        again = gram.pair_gram_fwd(*tt)
+        torch.cuda.synchronize()
+        assert got.shape == (b, nl, nl, 128) and got.dtype == torch.float32
+        assert torch.equal(got, again)
+        assert torch.equal(got, got.transpose(1, 2))  # the reduce mirrors the triangle
+        assert _rel(got, exact) <= 1e-5
+        grams.append(got)
+    if dtype == "cross":
+        assert _rel(grams[0], grams[1]) <= 2e-5
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-def test_k6_matches_its_plain_composition_at_the_15_s_clip_and_30_taps(dev, dtype):
-    """K6 at 237568 rows, L = 30 (bucket 32, 7200 rows a block) against the
-    plain composition: both sum h[a, b] E_b over b ascending in float32 and
-    round once; bf16 rounds the two nearly equal sums to within an ulp."""
-    taps = _taps(30, FULL_ROWS, dtype, dev, seed=14)
+@pytest.mark.parametrize("dtype,t,b", [
+    pytest.param(torch.bfloat16, FULL_ROWS, 1, id="bf16"),
+    pytest.param(torch.float32, FULL_ROWS, 1, id="float32"),
+    pytest.param(torch.bfloat16, FULL_ROWS + 8, 2, id="bf16-ragged-B2")])
+def test_k6_matches_its_plain_composition_at_the_15_s_clip_and_30_taps(dev, dtype, t, b):
+    """K6 at 237568 rows, L = 30 against the plain composition: both sum
+    h[a, b] E_b in float32 and round once (bf16: h in two bf16 parts on the
+    tensor cores, within 2^-18 of it); bf16 rounds the two nearly equal sums
+    to within an ulp."""
+    taps = _taps(30, t, dtype, dev, seed=14, b=b)
     gen = torch.Generator(device=dev).manual_seed(15)
-    g = torch.randn((1, 30, 30, 128), generator=gen, device=dev) * 1e-3
+    g = torch.randn((b, 30, 30, 128), generator=gen, device=dev) * 1e-3
     h = (g + g.transpose(1, 2)).contiguous()
     got = gram.pair_gram_bwd(taps, h)
     want = gram.pair_gram_bwd_plain(taps, h)
     torch.cuda.synchronize()
     tol = 1e-3 if dtype == torch.bfloat16 else 1e-6
-    for a, b in zip(got, want):
-        assert a.dtype == dtype and a.shape == b.shape
-        assert _rel(a.float(), b.float()) <= tol
+    for a, w in zip(got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert _rel(a.float(), w.float()) <= tol
 
 
 def _spans_probe(trace_path: str) -> None:
